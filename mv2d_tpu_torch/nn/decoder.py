@@ -1,0 +1,170 @@
+"""PETR-style decoder with masked self/cross-attention and the box head.
+
+Port of `mv2d_tpu/nn/decoder.py` (eval path, pixel mode) with the
+reference's keys: transformer.decoder.layers.{i}.attentions.{0,1}.attn
+(torch MultiheadAttention layout: packed in_proj, out_proj),
+ffns.0.layers.{0.0,1}, norms.{0,1,2}; transformer.decoder.post_norm;
+query_embedding.{0,2}; cls_branches / reg_branches.  Post-norm layer order
+('self_attn', 'norm', 'cross_attn', 'norm', 'ffn', 'norm').  LayerNorms use
+eps 1e-6, the JAX package's value.
+
+With use_flash, both attentions go through `ops.attention.masked_attention`
+(kernel K4 on CUDA).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as tnn
+import torch.nn.functional as F
+
+from ..core.geometry import inverse_sigmoid
+from ..ops.attention import masked_attention, masked_attention_plain
+from .layers import linear
+from .pe import pos2posemb3d
+
+LN_EPS = 1e-6
+
+
+class MultiheadAttention(tnn.Module):
+    """Parameter layout of torch.nn.MultiheadAttention; the attention
+    itself is `masked_attention_plain` or the K4 kernel."""
+
+    def __init__(self, embed_dims: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.in_proj_weight = tnn.Parameter(
+            torch.empty(3 * embed_dims, embed_dims))
+        self.in_proj_bias = tnn.Parameter(torch.zeros(3 * embed_dims))
+        self.out_proj = tnn.Linear(embed_dims, embed_dims)
+        tnn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, q, k, v, allowed, use_kernel: bool = False):
+        """q [Q, C], k/v [K, C], allowed [Q, K] bool -> [Q, C]."""
+        wq, wk, wv = self.in_proj_weight.chunk(3)
+        bq, bk, bv = self.in_proj_bias.chunk(3)
+        dt = wq.dtype
+        qp = F.linear(q.to(dt), wq, bq)
+        kp = F.linear(k.to(dt), wk, bk)
+        vp = F.linear(v.to(dt), wv, bv)
+        attend = masked_attention if use_kernel else masked_attention_plain
+        return self.out_proj(attend(qp, kp, vp, allowed, self.num_heads))
+
+
+class _Attention(tnn.Module):
+    def __init__(self, embed_dims: int, num_heads: int):
+        super().__init__()
+        self.attn = MultiheadAttention(embed_dims, num_heads)
+
+
+class FFN(tnn.Module):
+    def __init__(self, embed_dims: int, feedforward_channels: int):
+        super().__init__()
+        self.layers = tnn.ModuleList([
+            tnn.Sequential(tnn.Linear(embed_dims, feedforward_channels)),
+            tnn.Linear(feedforward_channels, embed_dims)])
+
+    def forward(self, x):
+        return self.layers[1](F.relu(self.layers[0][0](x)))
+
+
+class PETRDecoderLayer(tnn.Module):
+    def __init__(self, embed_dims=256, num_heads=8, feedforward_channels=2048,
+                 use_flash: bool = False):
+        super().__init__()
+        self.use_flash = use_flash
+        self.attentions = tnn.ModuleList(
+            [_Attention(embed_dims, num_heads) for _ in range(2)])
+        self.ffns = tnn.ModuleList([FFN(embed_dims, feedforward_channels)])
+        self.norms = tnn.ModuleList(
+            [tnn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3)])
+
+    def forward(self, query, query_pos, keys, key_pos, self_allowed,
+                cross_allowed):
+        qs = query + query_pos
+        sa = self.attentions[0].attn(qs, qs, query, self_allowed,
+                                     self.use_flash)
+        query = self.norms[0](query + sa)
+        ca = self.attentions[1].attn(query + query_pos, keys + key_pos, keys,
+                                     cross_allowed, self.use_flash)
+        query = self.norms[1](query + ca)
+        return self.norms[2](query + self.ffns[0](query))
+
+
+class PETRDecoder(tnn.Module):
+    def __init__(self, num_layers=6, embed_dims=256, num_heads=8,
+                 feedforward_channels=2048, use_flash: bool = False):
+        super().__init__()
+        self.layers = tnn.ModuleList([
+            PETRDecoderLayer(embed_dims, num_heads, feedforward_channels,
+                             use_flash) for _ in range(num_layers)])
+        self.post_norm = tnn.LayerNorm(embed_dims, eps=LN_EPS)
+
+    def forward(self, query, query_pos, keys, key_pos, self_allowed,
+                cross_allowed):
+        outs = []
+        for layer in self.layers:
+            query = layer(query, query_pos, keys, key_pos, self_allowed,
+                          cross_allowed)
+            outs.append(self.post_norm(query))
+        return torch.stack(outs)                            # [L, Q, C]
+
+
+class _Transformer(tnn.Module):
+    def __init__(self, decoder: PETRDecoder):
+        super().__init__()
+        self.decoder = decoder
+
+
+class CrossAttentionBoxHead(tnn.Module):
+    """Query embedding -> decoder -> per-layer class logits and box codes
+    with sigmoid-space centers decoded into the pc_range frame."""
+
+    def __init__(self, num_classes=10, embed_dims=256, code_size=10,
+                 num_layers=6, num_heads=8, feedforward_channels=2048,
+                 pc_range: Sequence[float] = (-51.2, -51.2, -5.0, 51.2, 51.2,
+                                              3.0),
+                 use_flash: bool = False):
+        super().__init__()
+        C = embed_dims
+        self.embed_dims = C
+        self.pc_range = tuple(pc_range)
+        self.query_embedding = tnn.Sequential(
+            tnn.Linear(C * 3 // 2, C), tnn.ReLU(), tnn.Linear(C, C))
+        self.transformer = _Transformer(PETRDecoder(
+            num_layers, C, num_heads, feedforward_channels, use_flash))
+        self.cls_branches = tnn.ModuleList([tnn.Sequential(
+            tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),
+            tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),
+            tnn.Linear(C, num_classes)) for _ in range(num_layers)])
+        self.reg_branches = tnn.ModuleList([tnn.Sequential(
+            tnn.Linear(C, C), tnn.ReLU(), tnn.Linear(C, C), tnn.ReLU(),
+            tnn.Linear(C, code_size)) for _ in range(num_layers)])
+
+    def forward(self, reference_points, keys, key_pos, self_allowed,
+                cross_allowed):
+        """reference_points [Q, 3] normalized to pc_range; keys/key_pos
+        [K, C]; self_allowed [Q, Q]; cross_allowed [Q, K]."""
+        emb = pos2posemb3d(reference_points, self.embed_dims // 2)
+        query_pos = linear(emb, self.query_embedding[0])
+        query_pos = self.query_embedding[2](F.relu(query_pos))
+        query = torch.zeros_like(query_pos)
+        outs = self.transformer.decoder(query, query_pos, keys, key_pos,
+                                        self_allowed, cross_allowed)
+        reference = inverse_sigmoid(reference_points.float())
+        pr = self.pc_range
+        span_xy = reference.new_tensor([pr[3] - pr[0], pr[4] - pr[1]])
+        lo_xy = reference.new_tensor([pr[0], pr[1]])
+        all_cls, all_box = [], []
+        for lvl in range(len(self.cls_branches)):
+            cls = self.cls_branches[lvl](outs[lvl])
+            reg = self.reg_branches[lvl](outs[lvl]).float()
+            xy = torch.sigmoid(reg[..., 0:2] + reference[..., 0:2])
+            z = torch.sigmoid(reg[..., 4:5] + reference[..., 2:3])
+            xy = xy * span_xy + lo_xy
+            z = z * (pr[5] - pr[2]) + pr[2]
+            all_cls.append(cls)
+            all_box.append(torch.cat([xy, reg[..., 2:4], z, reg[..., 5:]],
+                                     dim=-1))
+        return torch.stack(all_cls), torch.stack(all_box)
