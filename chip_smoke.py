@@ -4,19 +4,36 @@
 
 Phases, in order; any failure exits non-zero without the final line:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from mv2d_tpu_torch/csrc (nvcc, sm_90a);
-  3. each kernel against its plain PyTorch version at the eval path's
-     shapes (12 views at 512x1408) plus edge cases: float32 with TF32 off
-     (max error <= 1e-4 of the reference's max magnitude) and bfloat16
-     (<= 3e-2), with both times;
-  4. the tiny config with DCN, GPU (kernels) against CPU (plain versions),
-     same seeded weights: valid slots, labels, scores and boxes;
-  5. three full-width MV2D-T R50 forwards (12 x 512 x 1408, k_max 16384)
-     in bfloat16 with seeded weights (bench fixture rules): finite outputs
-     of the expected shapes, every kernel's launch counter above zero,
-     ms per forward, key_active / key_overflow, and the inputs each kernel
-     saw first replayed through its plain version.
-Then one JSON line with the kernels' results, and the last line
+  2. build the CUDA kernels from mv2d_tpu_torch/csrc (nvcc, sm_90a, one
+     nvcc per source, all started together);
+  3. kernels: each kernel against its plain PyTorch version (a backward
+     kernel against the plain version's autograd) at the shapes of the
+     eval path (12 views at 512x1408) and of the training step, plus edge
+     cases: float32 with TF32 off (max error <= 1e-4 of the reference's
+     max magnitude) and bfloat16 (<= 3e-2).  The main-path cases are
+     timed (kernel, plain version, and for attention the masked
+     F.scaled_dot_product_attention, timed only) beside their bound: the
+     larger of the bytes the function moves over 3.35 TB/s and its
+     operations over 989 TFLOP/s (H100 SXM bf16 peaks);
+  4. tiny: the tiny config with DCN, eval forward, GPU (kernels) against
+     CPU (plain versions), same seeded weights;
+  5. tiny_train: one tiny+DCN training step (float32, TF32 off, dropout
+     0), GPU against CPU with the same weights and draws: every loss and
+     every parameter's gradient;
+  6. serve: three full-width MV2D-T R50 forwards (12 x 512 x 1408, k_max
+     16384) in bfloat16 with seeded weights (bench fixture rules): finite
+     outputs of the expected shapes, the eval kernels' launch counters
+     above zero, ms per forward, and the inputs each kernel saw first
+     replayed through its plain version;
+  7. train: four full-width MV2D-T R50 training steps (bf16 mixed
+     precision, synthetic_train_batch(seed=0), seeded weights; the first
+     is warm-up): finite losses, total and grad norm, trained parameters
+     moved and frozen ones not, each training kernel's launches per step,
+     ms per step and peak memory, and the inputs each training kernel saw
+     first replayed through its plain version.
+Each path's launch counters are set to 0 just before it and read just
+after.  Then one JSON line with the kernels' results, the card's name and
+power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import json
@@ -41,8 +58,44 @@ KERNELS = {
         replaces='mv2d_tpu/ops/pallas_roi_align.py:1263'),
     'masked_attention': dict(
         source='mv2d_tpu_torch/csrc/attention.cu',
-        replaces='mv2d_tpu/ops/pallas_attention.py:179'),
+        replaces='mv2d_tpu/ops/pallas_attention.py:179 and :78'),
+    'dcn_samples': dict(
+        source='mv2d_tpu_torch/csrc/dcn.cu',
+        replaces='mv2d_tpu/ops/pallas_dcn.py:575'),
+    'dcn_samples_backward': dict(
+        source='mv2d_tpu_torch/csrc/dcn.cu',
+        replaces='mv2d_tpu/ops/pallas_dcn.py:378'),
+    'masked_attention_backward': dict(
+        source='mv2d_tpu_torch/csrc/attention.cu',
+        replaces='mv2d_tpu/ops/pallas_attention.py:328'),
+    'roi_align_multilevel_backward': dict(
+        source='mv2d_tpu_torch/csrc/roi_align.cu',
+        replaces='mv2d_tpu/ops/pallas_roi_align.py:1524'),
 }
+SERVE_KERNELS = ('fused_stage1', 'dcn_conv', 'roi_align_multilevel',
+                 'masked_attention')
+# launches per training step (K1: 3 bottlenecks; K3: at least the no-grad
+# detect pass and the R-CNN RoIs)
+TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_samples': 9,
+                  'dcn_samples_backward': 9, 'masked_attention': 12,
+                  'masked_attention_backward': 12,
+                  'roi_align_multilevel_backward': 1}
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM
+BF16_OPS_PER_S = 989e12
+
+
+def counters():
+    """Kernel name -> the wrapper that holds its launch counter."""
+    from mv2d_tpu_torch.ops import attention, dcn, roi_align, stage
+    return {'fused_stage1': stage.fused_stage1, 'dcn_conv': dcn.dcn_conv,
+            'roi_align_multilevel': roi_align.roi_align_multilevel,
+            'masked_attention': attention.masked_attention,
+            'dcn_samples': dcn.dcn_samples_forward,
+            'dcn_samples_backward': dcn.dcn_samples_backward,
+            'masked_attention_backward':
+                attention.masked_attention_backward,
+            'roi_align_multilevel_backward':
+                roi_align.roi_align_multilevel_backward}
 
 
 def log(*a):
@@ -75,6 +128,40 @@ def compare(kernel_out, plain_out):
 def torch_isfinite(t):
     import torch
     return torch.isfinite(t).all().item()
+
+
+def compare_all(kernel_outs, plain_outs):
+    """compare() over paired tensors: (worst abs error, worst relative
+    error, all finite, shapes equal)."""
+    errs = [compare(k, p) for k, p in zip(kernel_outs, plain_outs)]
+    same = len(kernel_outs) == len(plain_outs) and all(
+        k.shape == p.shape for k, p in zip(kernel_outs, plain_outs))
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs), same)
+
+
+def cotangent(like, seed=7):
+    """A seeded N(0, 1) cotangent of `like`'s shape, dtype and device."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(like.shape, generator=g).to(like.device, like.dtype)
+
+
+def plain_grads(fn, args, diff, cot):
+    """(output, gradients of <output, cot> w.r.t. args[i] for i in diff)
+    through fn's autograd; the other args pass through unchanged."""
+    import torch
+    leaves = list(args)
+    for i in diff:
+        leaves[i] = args[i].detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, [leaves[i] for i in diff], cot,
+                                    allow_unused=True)
+    # an input the function never read (a RoIAlign level no RoI routes
+    # to) has a zero gradient
+    return out.detach(), [torch.zeros_like(leaves[i]) if g is None
+                          else g.detach() for i, g in zip(diff, grads)]
 
 
 # ----------------------------------------------------------- kernel inputs
@@ -174,57 +261,289 @@ def attention_inputs(dev, dtype, Q=900, K=16384, C=256, seed=0,
             allowed.to(dev))
 
 
-# ------------------------------------------------------------------ phases
+
+
+def train_attention_inputs(dev, dtype, self_attn=False, Q=2628, K=16384,
+                           C=256, dn=960, G=96, seed=0):
+    """The training decoder's attention at full width: Q = 960 DN rows +
+    12 * (75 + 64) queries.  Cross: DN rows see every valid key (85%; the
+    rest are keys no row may attend), the others a few correlated runs,
+    10% of them none.  Self: the DN block mask (DN groups of 96 see
+    themselves, match queries no DN row, 80% of slots valid)."""
+    import torch
+    from types import SimpleNamespace
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    g = torch.Generator().manual_seed(seed)
+    if self_attn:
+        K = Q
+        cfg = configs.mv2d_t_r50()
+        host = SimpleNamespace(cfg=cfg)
+        valid = torch.rand(Q, generator=g) < 0.8
+        allowed = MV2D._dn_self_mask(host, valid[dn:], valid[:dn])
+    else:
+        key_ok = torch.rand(K, generator=g) < 0.85
+        _, _, _, runs = attention_inputs('cpu', torch.float32, Q=Q - dn, K=K,
+                                         C=8, seed=seed)
+        allowed = torch.cat([key_ok[None].expand(dn, K), runs & key_ok])
+    q = torch.randn(Q, C, generator=g)
+    k = torch.randn(K, C, generator=g)
+    v = torch.randn(K, C, generator=g)
+    return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
+            allowed.to(dev))
+
+
+# ------------------------------------------------------------ kernel cases
+
+class Case:
+    """One kernel case: `kernel()` and `plain()` give the results to
+    compare (a tensor or a sequence of tensors), `work` = (bytes, ops) of
+    the function for its bound, `library()` one PyTorch call computing the
+    same function (timed only), or None."""
+
+    def __init__(self, kernel, plain, work, library=None):
+        self.kernel, self.plain = kernel, plain
+        self.work, self.library = work, library
+
+
+def nbytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def bound(work):
+    """(bound_ms, bound_by) of (bytes, operations) at the H100's peaks."""
+    b, ops = work
+    t_b, t_o = b / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ('bytes' if t_b >= t_o else 'operations')
+
+
+def as_list(x):
+    import torch
+    return [x] if torch.is_tensor(x) else list(x)
+
+
+def roi_samples(rois, feats, strides):
+    """Bilinear samples K3 takes for these RoIs (adaptive ceil(bin))."""
+    import torch
+    from mv2d_tpu_torch.ops.roi_align import roi_levels
+    lvl = roi_levels(rois.float())
+    scale = 1.0 / torch.tensor(strides, device=rois.device)[lvl]
+    ext = (rois[..., 2:] - rois[..., :2]).float() * scale[..., None] / 7
+    n = torch.ceil(ext).clamp(min=0)
+    return float((n[..., 0] * n[..., 1]).sum()) * 49
+
 
 def kernel_cases():
-    """(kernel name, case label, main-path shape?, make(dev, dtype) ->
-    (kernel fn, plain fn, args))."""
+    """(kernel name, case label, main-path shape?, build(dev, dtype) ->
+    Case)."""
+    import torch
+    import torch.nn.functional as F
     from mv2d_tpu_torch.ops import attention, dcn, roi_align, stage
 
     def stage1(dev, dt):
-        return (stage.fused_stage1, stage.fused_stage1_plain,
-                stage1_inputs(dev, dt))
+        x, blocks = stage1_inputs(dev, dt)
+        N = x.shape[0] * x.shape[1] * x.shape[2]
+        macs = sum(w.numel() for blk in blocks for k, w in blk.items()
+                   if k.startswith('w'))
+        return Case(lambda: stage.fused_stage1(x, blocks),
+                    lambda: stage.fused_stage1_plain(x, blocks),
+                    (nbytes(x) * 5 + macs * 2, 2.0 * N * macs))
 
-    def dcn_case(V, H, W, C, F, s, far=0.0):
+    def dcn_conv(V, H, W, C, F_, s, far=0.0):
         def build(dev, dt):
-            return dcn.dcn_conv, dcn.dcn_conv_plain, dcn_inputs(
-                dev, dt, V, H, W, C, F, s, far=far)
+            args = dcn_inputs(dev, dt, V, H, W, C, F_, s, far=far)
+            x, sy, sx, m, w = args
+            N = sy.numel() // 9
+            return Case(lambda: dcn.dcn_conv(*args),
+                        lambda: dcn.dcn_conv_plain(*args),
+                        (nbytes(x, sy, sx, m, w) + N * F_ * x.element_size(),
+                         2.0 * N * 9 * C * F_))
         return build
 
-    def roi(edge):
+    def samples_args(dev, dt, V, H, W, C, s, far, integer):
+        x, sy, sx, m, _ = dcn_inputs(dev, dt, V, H, W, C, 64, s, far=far)
+        if integer:                     # zero offsets: integer coordinates
+            sy, sx = sy.round(), sx.round()
+        return x, sy, sx, m
+
+    def dcn_fwd(V, H, W, C, s, far=0.0, integer=False):
         def build(dev, dt):
-            feats, rois = roi_inputs(dev, dt, edge=edge)
+            x, sy, sx, m = samples_args(dev, dt, V, H, W, C, s, far, integer)
+            out_bytes = sy.numel() * C * x.element_size()
+            return Case(lambda: dcn.dcn_samples_forward(x, sy, sx, m),
+                        lambda: dcn.dcn_samples_plain(x, sy, sx, m),
+                        (nbytes(x, sy, sx, m) + out_bytes,
+                         8.0 * sy.numel() * C))
+        return build
+
+    def dcn_bwd(V, H, W, C, s, far=0.0, integer=False):
+        def build(dev, dt):
+            x, sy, sx, m = samples_args(dev, dt, V, H, W, C, s, far, integer)
+            leaves = [t.clone().requires_grad_(True) for t in (x, sy, sx, m)]
+            with torch.enable_grad():
+                out = dcn.dcn_samples_plain(*leaves)
+            g = cotangent(out)
+            return Case(
+                lambda: dcn.dcn_samples_backward(x, sy, sx, m, g),
+                lambda: torch.autograd.grad(out, leaves, g,
+                                            retain_graph=True),
+                (nbytes(x, sy, sx, m, g) + x.numel() * 4 + 3 * nbytes(sy),
+                 20.0 * sy.numel() * C))
+        return build
+
+    def roi(edge, V=12, P=1000):
+        def build(dev, dt):
+            feats, rois = roi_inputs(dev, dt, V=V, P=P, edge=edge)
             strides = (4, 8, 16, 32)
-            return (roi_align.roi_align_multilevel,
-                    roi_align.multilevel_roi_align_plain,
-                    (feats, rois, strides))
+            C = feats[0].shape[-1]
+            out_bytes = V * P * 49 * C * feats[0].element_size()
+            return Case(
+                lambda: roi_align.roi_align_multilevel(feats, rois, strides),
+                lambda: roi_align.multilevel_roi_align_plain(feats, rois,
+                                                             strides),
+                (nbytes(*feats, rois) + out_bytes,
+                 8.0 * C * roi_samples(rois, feats, strides)))
         return build
 
-    def attn(self_attn):
+    def roi_bwd(edge, V=6, P=512):
         def build(dev, dt):
-            return (attention.masked_attention,
-                    attention.masked_attention_plain,
-                    (*attention_inputs(dev, dt, self_attn=self_attn), 8))
+            feats, rois = roi_inputs(dev, dt, V=V, P=P, edge=edge)
+            strides = (4, 8, 16, 32)
+            C = feats[0].shape[-1]
+            leaves = [f.clone().requires_grad_(True) for f in feats]
+            with torch.enable_grad():
+                out = roi_align.multilevel_roi_align_plain(leaves, rois,
+                                                           strides)
+            g = cotangent(out)
+            return Case(
+                lambda: roi_align.roi_align_multilevel_backward(
+                    feats, rois, g, strides),
+                lambda: torch.autograd.grad(out, leaves, g,
+                                            retain_graph=True),
+                (nbytes(g, rois) + sum(f.numel() for f in feats) * 4,
+                 8.0 * C * roi_samples(rois, feats, strides)))
         return build
+
+    def sdpa_args(q, k, v, a, H):
+        Q, C = q.shape
+        D = C // H
+
+        def heads(t):
+            return t.reshape(t.shape[0], H, D).transpose(0, 1)[None]
+        return heads(q), heads(k), heads(v), a[None, None]
+
+    def attn(inputs, train=False):
+        def build(dev, dt):
+            q, k, v, a = inputs(dev, dt)
+            nnz = float(a.sum())
+            C = q.shape[1]
+            work = (nbytes(q, k, v, a) * 1.0 + nbytes(q)
+                    + q.shape[0] * 8 * 4, 4.0 * C * nnz)
+            sq, sk, sv, sm = sdpa_args(q, k, v, a, 8)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                sq, sk, sv, attn_mask=sm)
+            if train:        # K4 with its log-sum-exp, the training forward
+                return Case(
+                    lambda: attention.masked_attention_forward(q, k, v, a,
+                                                               8),
+                    lambda: (attention.masked_attention_plain(q, k, v, a, 8),
+                             attention.attention_lse_plain(q, k, a, 8)),
+                    work, lib)
+            return Case(lambda: attention.masked_attention(q, k, v, a, 8),
+                        lambda: attention.masked_attention_plain(q, k, v, a,
+                                                                 8),
+                        work, lib)
+        return build
+
+    def attn_bwd(inputs):
+        def build(dev, dt):
+            q, k, v, a = inputs(dev, dt)
+            out, lse = attention.masked_attention_forward(q, k, v, a, 8)
+            g = cotangent(out)
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            sl = [t.requires_grad_(True) for t in
+                  (x.detach().clone() for x in sdpa_args(q, k, v, a, 8)[:3])]
+            with torch.enable_grad():
+                pout = attention.masked_attention_plain(*leaves, a, 8)
+                lout = F.scaled_dot_product_attention(
+                    *sl, attn_mask=a[None, None])
+            lg = sdpa_args(g, g, g, a, 8)[0]
+            nnz = float(a.sum())
+            return Case(
+                lambda: attention.masked_attention_backward(
+                    q, k, v, a, out, lse, g, 8),
+                lambda: torch.autograd.grad(pout, leaves, g,
+                                            retain_graph=True),
+                (nbytes(q, k, v, a, out, g, lse) + 4.0 * (q.numel()
+                                                          + 2 * k.numel()),
+                 10.0 * q.shape[1] * nnz),
+                lambda: torch.autograd.grad(lout, sl, lg,
+                                            retain_graph=True))
+        return build
+
+    def eval_attn(self_attn):
+        return lambda dev, dt: attention_inputs(dev, dt, self_attn=self_attn)
+
+    def train_attn(self_attn):
+        return lambda dev, dt: train_attention_inputs(dev, dt, self_attn)
 
     return [
         ('fused_stage1', 'layer1 [12,128,352,64]', True, stage1),
         ('dcn_conv', 'stage3 s2 [12,64,176,256]', True,
-         dcn_case(12, 64, 176, 256, 256, 2)),
+         dcn_conv(12, 64, 176, 256, 256, 2)),
         ('dcn_conv', 'stage3 s1 [12,32,88,256]', False,
-         dcn_case(12, 32, 88, 256, 256, 1)),
+         dcn_conv(12, 32, 88, 256, 256, 1)),
         ('dcn_conv', 'stage4 s2 [12,32,88,512]', False,
-         dcn_case(12, 32, 88, 512, 512, 2)),
+         dcn_conv(12, 32, 88, 512, 512, 2)),
         ('dcn_conv', 'stage4 s1 [12,16,44,512]', False,
-         dcn_case(12, 16, 44, 512, 512, 1)),
+         dcn_conv(12, 16, 44, 512, 512, 1)),
         ('dcn_conv', 'edge: 20% offsets far outside', False,
-         dcn_case(12, 16, 44, 512, 512, 1, far=0.2)),
-        ('roi_align_multilevel', 'p2-p5, rois [12,1000,4]', True, roi(False)),
+         dcn_conv(12, 16, 44, 512, 512, 1, far=0.2)),
+        ('roi_align_multilevel', 'p2-p5, rois [12,1000,4]', True,
+         roi(False)),
+        ('roi_align_multilevel', 'train rois [6,512,4]', True,
+         roi(False, 6, 512)),
         ('roi_align_multilevel', 'edge: extreme aspect/empty/outside',
          False, roi(True)),
         ('masked_attention', 'cross q900 k16384 (10% rows empty)', True,
-         attn(False)),
-        ('masked_attention', 'self q900 k900', False, attn(True)),
+         attn(eval_attn(False))),
+        ('masked_attention', 'self q900 k900', False, attn(eval_attn(True))),
+        ('masked_attention', 'train cross q2628 k16384 +lse', True,
+         attn(train_attn(False), train=True)),
+        ('masked_attention', 'train self q2628 DN mask +lse', False,
+         attn(train_attn(True), train=True)),
+        ('dcn_samples', 'stage3 s2 [12,64,176,256]', True,
+         dcn_fwd(12, 64, 176, 256, 2)),
+        ('dcn_samples', 'stage3 s1 [12,32,88,256]', False,
+         dcn_fwd(12, 32, 88, 256, 1)),
+        ('dcn_samples', 'stage4 s2 [12,32,88,512]', False,
+         dcn_fwd(12, 32, 88, 512, 2)),
+        ('dcn_samples', 'stage4 s1 [12,16,44,512]', False,
+         dcn_fwd(12, 16, 44, 512, 1)),
+        ('dcn_samples', 'edge: 20% offsets far outside', False,
+         dcn_fwd(12, 16, 44, 512, 1, far=0.2)),
+        ('dcn_samples', 'edge: integer coordinates', False,
+         dcn_fwd(12, 16, 44, 512, 1, integer=True)),
+        ('dcn_samples_backward', 'stage3 s2 [12,64,176,256]', True,
+         dcn_bwd(12, 64, 176, 256, 2)),
+        ('dcn_samples_backward', 'stage3 s1 [12,32,88,256]', False,
+         dcn_bwd(12, 32, 88, 256, 1)),
+        ('dcn_samples_backward', 'stage4 s2 [12,32,88,512]', False,
+         dcn_bwd(12, 32, 88, 512, 2)),
+        ('dcn_samples_backward', 'stage4 s1 [12,16,44,512]', False,
+         dcn_bwd(12, 16, 44, 512, 1)),
+        ('dcn_samples_backward', 'edge: 20% offsets far outside', False,
+         dcn_bwd(12, 16, 44, 512, 1, far=0.2)),
+        ('dcn_samples_backward', 'edge: integer coordinates', False,
+         dcn_bwd(12, 16, 44, 512, 1, integer=True)),
+        ('masked_attention_backward', 'train cross q2628 k16384', True,
+         attn_bwd(train_attn(False))),
+        ('masked_attention_backward', 'train self q2628 DN mask', False,
+         attn_bwd(train_attn(True))),
+        ('roi_align_multilevel_backward', 'train rois [6,512,4]', True,
+         roi_bwd(False)),
+        ('roi_align_multilevel_backward',
+         'edge: 1408x8, 6x512, empty, outside', False, roi_bwd(True)),
     ]
 
 
@@ -233,27 +552,37 @@ def phase_kernels(dev, results):
     ok = True
     for name, label, main, build in kernel_cases():
         for dt, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            kern, plain, args = build(dev, dt)
-            out_k = kern(*args)
-            out_p = plain(*args)
+            case = build(dev, dt)
+            out_k, out_p = as_list(case.kernel()), as_list(case.plain())
             torch.cuda.synchronize()
-            err, rel, finite = compare(out_k, out_p)
-            good = finite and rel <= tol and out_k.shape == out_p.shape
+            err, rel, finite, same = compare_all(out_k, out_p)
+            good = finite and same and rel <= tol
             ok &= good
-            line = (f'  {name:<22} {label:<38} {str(dt)[6:]:<9} '
+            line = (f'  {name:<30} {label:<38} {str(dt)[6:]:<9} '
                     f'max_abs_err={err:.3e} rel={rel:.2e} tol={tol:.0e} '
                     f'{"ok" if good else "FAIL"}')
             if main and dt == torch.bfloat16:
-                p1 = time_ms(lambda: plain(*args))
-                k1 = time_ms(lambda: kern(*args))
-                k2 = time_ms(lambda: kern(*args))
-                p2 = time_ms(lambda: plain(*args))
+                p1 = time_ms(case.plain)
+                k1 = time_ms(case.kernel)
+                k2 = time_ms(case.kernel)
+                p2 = time_ms(case.plain)
+                lib = time_ms(case.library) if case.library else None
+                b_ms, b_by = bound(case.work)
+                timing = dict(label=label, max_abs_err=err, ms=(k1 + k2) / 2,
+                              plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib)
                 r = results[name]
-                r.update(max_abs_err=err, ms=(k1 + k2) / 2,
-                         plain_ms=(p1 + p2) / 2)
-                line += f'  kernel {r["ms"]:.3f} ms  plain {r["plain_ms"]:.3f} ms'
+                if r['ms'] is None:
+                    r.update(timing)
+                else:
+                    r.setdefault('other_shapes', []).append(timing)
+                line += (f'  kernel {timing["ms"]:.3f} ms  plain '
+                         f'{timing["plain_ms"]:.3f} ms  bound {b_ms:.3f} ms '
+                         f'({b_by})')
+                if lib is not None:
+                    line += f'  library {lib:.3f} ms'
             log(line)
-            del out_k, out_p, args
+            del case, out_k, out_p
             torch.cuda.empty_cache()
     return ok
 
@@ -295,6 +624,72 @@ def phase_tiny_parity(dev):
     return ok
 
 
+def to_device(obj, dev):
+    """Tensors inside NamedTuples, dataclasses and sequences, moved."""
+    import dataclasses
+    import torch
+    if torch.is_tensor(obj):
+        return obj.to(dev)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: to_device(getattr(obj, f.name), dev)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, '_fields'):
+        return type(obj)(*(to_device(x, dev) for x in obj))
+    return obj
+
+
+def phase_tiny_train(dev):
+    """One tiny+DCN training step (float32, dropout 0) on the GPU (kernels)
+    and on the CPU (plain versions), same weights and draws: every loss
+    term within 1e-4 relative, every parameter's gradient within 1e-3 of
+    its max magnitude (floored at 1e-5 of the largest gradient), the
+    discrete counts equal; the training kernels launched."""
+    import copy
+    import torch
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.synthetic import (init_random_weights,
+                                          synthetic_train_batch)
+    from mv2d_tpu_torch.train.train_step import draw_train, forward_backward
+    cfg = configs.tiny(stage_with_dcn=(False, False, True, True),
+                       num_frames=2, dropout=0.0, use_flash_attention=True)
+    batch = synthetic_train_batch(cfg, seed=0, device='cpu')
+    draws = draw_train(cfg, batch.gt2d.boxes.shape[1],
+                       torch.Generator().manual_seed(1))
+    model = init_random_weights(MV2D(cfg), seed=3)
+    fns = counters()
+    runs = {}
+    for d in ('cpu', dev):
+        m = copy.deepcopy(model).to(d)
+        for fn in fns.values():
+            fn.launches = 0
+        _, metrics = forward_backward(m, to_device(batch, d),
+                                      to_device(draws, d),
+                                      mixed_precision=False)
+        runs[d] = ({k: float(v) for k, v in metrics.items()},
+                   {n: p.grad.detach().cpu() for n, p in
+                    m.named_parameters() if p.grad is not None})
+    launched = {n: fn.launches for n, fn in fns.items()}
+    (mc, gc), (mg, gg) = runs['cpu'], runs[dev]
+    loss_err = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-6)
+                   for k in mc if 'loss' in k)
+    counts_same = all(mg[k] == mc[k] for k in mc if 'loss' not in k)
+    floor = 1e-5 * max(g.abs().max().item() for g in gc.values())
+    grad_err = max((gg[n] - gc[n]).abs().max().item()
+                   / max(gc[n].abs().max().item(), floor) for n in gc)
+    need = ('dcn_samples', 'dcn_samples_backward', 'masked_attention',
+            'masked_attention_backward', 'roi_align_multilevel',
+            'roi_align_multilevel_backward')
+    ok = (loss_err <= 1e-4 and grad_err <= 1e-3 and counts_same
+          and set(gg) == set(gc) and all(launched[n] > 0 for n in need))
+    log(f'  tiny+DCN train step GPU vs CPU: {len(gc)} gradients, '
+        f'worst loss rel err {loss_err:.2e} (tol 1e-4), worst grad err '
+        f'{grad_err:.2e} of max (tol 1e-3), counts_same={counts_same}, '
+        f'GPU launches {launched} {"ok" if ok else "FAIL"}')
+    return ok
+
+
 def _clone(a):
     import torch
     if torch.is_tensor(a):
@@ -304,6 +699,57 @@ def _clone(a):
     if isinstance(a, dict):
         return {k: _clone(v) for k, v in a.items()}
     return a
+
+
+class _Recorder:
+    """Stands in for a module function: keeps the first call's (filtered)
+    arguments in `seen`, calls the function, and passes its `launches`
+    counter through (a wrapper counts its launches under its own module
+    name, which the recorder then holds)."""
+
+    def __init__(self, fn, seen, key, want):
+        self.fn, self.seen, self.key, self.want = fn, seen, key, want
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args):
+        if self.key not in self.seen and self.want(args):
+            self.seen[self.key] = _clone(args)
+        return self.fn(*args)
+
+
+def _record_first(seen, patches):
+    """Put a _Recorder in place of each (module, name); returns the
+    originals to restore."""
+    originals = {}
+    for mod, name, key, want in patches:
+        fn = getattr(mod, name)
+        originals[(mod, name)] = fn
+        setattr(mod, name, _Recorder(fn, seen, key, want))
+    return originals
+
+
+def _replay(seen, plain, kernels, label):
+    """Each recorded call through kernel and plain version (bf16 tol)."""
+    ok = True
+    for name, args in seen.items():
+        err, rel, fin, same = compare_all(as_list(kernels[name](*args)),
+                                          as_list(plain[name](*args)))
+        good = fin and same and rel <= BF16_TOL
+        ok &= good
+        log(f'  replay {label} {name:<30} max_abs_err={err:.3e} '
+            f'rel={rel:.2e} {"ok" if good else "FAIL"}')
+    missing = set(kernels) - set(seen)
+    if missing:
+        log(f'  kernels never reached: {sorted(missing)}')
+        ok = False
+    return ok
 
 
 def phase_serve(dev, results, n_requests=3, cfg=None):
@@ -328,30 +774,19 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
     model = init_random_weights(MV2D(cfg).eval(), seed=0).to(
         dev, torch.bfloat16)
 
-    counted = (stage.fused_stage1, dcn.dcn_conv,
-               roi_align.roi_align_multilevel, attention.masked_attention)
     # record the inputs each kernel wrapper sees first on the main path:
     # wrap the callers' references (a wrapper's own module stays as it is,
-    # its launch counter lives there); the DCN wrapper's caller is in its
-    # own module, so the first DCN module's input is recorded by a hook and
-    # the kernel's inputs are derived from it in the replay
+    # its launch counter lives there); attention records a cross-attention
+    # call (layer 0's self-attention has all-zero values); the DCN
+    # wrapper's caller is in its own module, so the first DCN module's
+    # input is recorded by a hook and the kernel's inputs derived from it
     seen = {}
-    hooks = [(resnet, 'fused_stage1'), (det2d, 'roi_align_multilevel'),
-             (decoder, 'masked_attention')]
-    originals = {}
-    for mod, name in hooks:
-        fn = getattr(mod, name)
-        originals[(mod, name)] = fn
-
-        def wrapped(*args, _fn=fn, _name=name):
-            # attention: record a cross-attention call (layer 0's
-            # self-attention has all-zero values)
-            cross = _name != 'masked_attention' or \
-                args[1].shape[0] != args[0].shape[0]
-            if _name not in seen and cross:
-                seen[_name] = _clone(args)
-            return _fn(*args)
-        setattr(mod, name, wrapped)
+    originals = _record_first(seen, [
+        (resnet, 'fused_stage1', 'fused_stage1', lambda a: True),
+        (det2d, 'roi_align_multilevel', 'roi_align_multilevel',
+         lambda a: True),
+        (decoder, 'masked_attention', 'masked_attention',
+         lambda a: a[1].shape[0] != a[0].shape[0])])
     first_dcn = next(m for m in model.modules()
                      if isinstance(m, dcn.ModulatedDeformConv))
 
@@ -363,7 +798,8 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
                                 m.tap_weights(x.dtype))
     handle = first_dcn.register_forward_pre_hook(dcn_hook)
 
-    for fn in counted:
+    fns = counters()
+    for fn in fns.values():
         fn.launches = 0
     ms, out = [], None
     try:
@@ -377,15 +813,15 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
         handle.remove()
         for (mod, name), fn in originals.items():
             setattr(mod, name, fn)
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {n: fn.launches for n, fn in fns.items()}
     for name, n in launches.items():
-        results[name]['launches'] = n
+        results[name]['launches_by_path']['serve'] = n
     boxes, scores, labels, valid, diag = out
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (boxes, scores))
     shapes_ok = (tuple(boxes.shape) == (cfg.max_per_scene, 9)
                  and tuple(scores.shape) == (cfg.max_per_scene,))
-    ok = finite and shapes_ok and all(n > 0 for n in launches.values())
+    ok = finite and shapes_ok and all(launches[n] > 0 for n in SERVE_KERNELS)
     log(f'  forward ms (bf16, {H}x{W} x {V} views): '
         + ', '.join(f'{t:.1f}' for t in ms))
     log(f'  valid detections={int(valid.sum())} '
@@ -396,25 +832,133 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
     log(f'  launches per {n_requests} forwards: {launches}')
     results['_forward_ms'] = ms
 
-    # replay the recorded inputs through kernel and plain version
     plain = {'fused_stage1': stage.fused_stage1_plain,
              'dcn_conv': dcn.dcn_conv_plain,
              'roi_align_multilevel': roi_align.multilevel_roi_align_plain,
              'masked_attention': attention.masked_attention_plain}
-    kern = {'fused_stage1': stage.fused_stage1, 'dcn_conv': dcn.dcn_conv,
+    return _replay(seen, plain, {n: fns[n] for n in plain}, 'serve') and ok
+
+
+def phase_train(dev, results, n_steps=4, cfg=None):
+    """Full-width training steps (bf16 mixed precision) on the synthetic
+    scene; the first step is warm-up."""
+    import torch
+    import mv2d_tpu_torch.ops.attention as attention
+    import mv2d_tpu_torch.ops.dcn as dcn
+    import mv2d_tpu_torch.ops.roi_align as roi_align
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.synthetic import (init_random_weights,
+                                          synthetic_train_batch)
+    from mv2d_tpu_torch.train.optim import make_optimizer
+    from mv2d_tpu_torch.train.train_step import train_step
+
+    cfg = cfg or configs.mv2d_t_r50()
+    model = init_random_weights(MV2D(cfg), seed=0).to(dev)
+    opt = make_optimizer(model)
+    batch = synthetic_train_batch(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def cross(args):
+        return args[1].shape[0] != args[0].shape[0]
+    fns = counters()          # the wrappers themselves, before recording
+    seen = {}
+    originals = _record_first(seen, [
+        (dcn, 'dcn_samples_forward', 'dcn_samples', lambda a: True),
+        (dcn, 'dcn_samples_backward', 'dcn_samples_backward',
+         lambda a: True),
+        (attention, 'masked_attention_forward', 'masked_attention', cross),
+        (attention, 'masked_attention_backward',
+         'masked_attention_backward', cross),
+        (roi_align, 'roi_align_multilevel', 'roi_align_multilevel',
+         lambda a: True),
+        (roi_align, 'roi_align_multilevel_backward',
+         'roi_align_multilevel_backward', lambda a: True)])
+    for fn in fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ms, steps = [], []
+    try:
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = train_step(model, opt, batch, gen)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append({k: float(v) for k, v in metrics.items()})
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+    launches = {n: fn.launches for n, fn in fns.items()}
+    for name, n in launches.items():
+        results[name]['launches_by_path']['train'] = n
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite = all(np.isfinite(v) for s in steps for v in s.values())
+    frozen_still, moved, trainable = True, 0, 0
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        if p.requires_grad:
+            trainable += 1
+            moved += not same
+        else:
+            frozen_still &= same
+    per_step_ok = all(launches[n] == k * n_steps
+                      for n, k in TRAIN_PER_STEP.items()) and \
+        launches['roi_align_multilevel'] >= 2 * n_steps
+    ok = finite and frozen_still and moved >= 0.9 * trainable and \
+        per_step_ok
+    log(f'  train ms/step (bf16 mixed precision, {cfg.total_views} views '
+        f'{cfg.image_size[0]}x{cfg.image_size[1]}; first is warm-up): '
+        + ', '.join(f'{t:.1f}' for t in ms))
+    log(f'  peak memory {peak_gb:.2f} GiB; finite={finite} '
+        f'frozen_unchanged={frozen_still} trained_moved={moved}/{trainable}')
+    for i, s in enumerate(steps):
+        log(f'  step {i}: total_loss={s["total_loss"]:.4f} '
+            f'grad_norm={s["grad_norm"]:.4f} lr={s["lr"]:.3e} '
+            f'rpn_num_pos={s["rpn_num_pos"]:.0f} '
+            f'rcnn_num_pos={s["rcnn_num_pos"]:.0f} '
+            f'num_queries={s["num_queries"]:.0f} '
+            f'key_active={s["key_active"]:.0f} '
+            f'key_overflow={s["key_overflow"]:.0f}')
+    log('  step 0 losses: ' + ', '.join(
+        f'{k}={v:.4f}' for k, v in steps[0].items() if 'loss' in k))
+    log(f'  launches per {n_steps} steps: {launches} '
+        f'(per step expected {TRAIN_PER_STEP}, K3 >= 2) '
+        f'{"ok" if per_step_ok else "FAIL"}')
+    results['_train_ms'] = ms
+
+    def attn_bwd_plain(q, k, v, a, out, lse, dout, H):
+        return plain_grads(attention.masked_attention_plain, (q, k, v, a, H),
+                           range(3), dout)[1]
+
+    def dcn_bwd_plain(x, sy, sx, m, ds):
+        return plain_grads(dcn.dcn_samples_plain, (x, sy, sx, m), range(4),
+                           ds)[1]
+
+    def roi_bwd_plain(feats, rois, dout, strides):
+        def fwd(*fs):
+            return roi_align.multilevel_roi_align_plain(fs, rois, strides)
+        return plain_grads(fwd, feats, range(len(feats)), dout)[1]
+
+    def attn_fwd_plain(q, k, v, a, H):
+        return (attention.masked_attention_plain(q, k, v, a, H),
+                attention.attention_lse_plain(q, k, a, H))
+
+    plain = {'dcn_samples': dcn.dcn_samples_plain,
+             'dcn_samples_backward': dcn_bwd_plain,
+             'masked_attention': attn_fwd_plain,
+             'masked_attention_backward': attn_bwd_plain,
+             'roi_align_multilevel': roi_align.multilevel_roi_align_plain,
+             'roi_align_multilevel_backward': roi_bwd_plain}
+    kern = {'dcn_samples': dcn.dcn_samples_forward,
+            'dcn_samples_backward': dcn.dcn_samples_backward,
+            'masked_attention': attention.masked_attention_forward,
+            'masked_attention_backward': attention.masked_attention_backward,
             'roi_align_multilevel': roi_align.roi_align_multilevel,
-            'masked_attention': attention.masked_attention}
-    for name, args in seen.items():
-        err, rel, fin = compare(kern[name](*args), plain[name](*args))
-        good = fin and rel <= BF16_TOL
-        ok &= good
-        log(f'  replay {name:<22} max_abs_err={err:.3e} rel={rel:.2e} '
-            f'{"ok" if good else "FAIL"}')
-    missing = set(kern) - set(seen)
-    if missing:
-        log(f'  kernels never reached: {sorted(missing)}')
-        ok = False
-    return ok
+            'roi_align_multilevel_backward':
+                roi_align.roi_align_multilevel_backward}
+    return _replay(seen, plain, kern, 'train') and ok
 
 
 def main():
@@ -431,9 +975,11 @@ def main():
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f'python {sys.version.split()[0]} torch {torch.__version__} '
-        f'cuda {torch.version.cuda}')
+        f'cuda {torch.version.cuda}; {smi}')
     results = {name: dict(name=name, route='cuda', **info, launches=0,
-                          max_abs_err=None, ms=None, plain_ms=None)
+                          launches_by_path={}, max_abs_err=None, ms=None,
+                          plain_ms=None, bound_ms=None, bound_by=None,
+                          library_ms=None)
                for name, info in KERNELS.items()}
 
     failed = []
@@ -444,7 +990,9 @@ def main():
     log(f'  built {lib.name} in {time.perf_counter() - t0:.1f} s')
     for phase, fn in (('kernels', lambda: phase_kernels(dev, results)),
                       ('tiny', lambda: phase_tiny_parity(dev)),
-                      ('serve', lambda: phase_serve(dev, results))):
+                      ('tiny_train', lambda: phase_tiny_train(dev)),
+                      ('serve', lambda: phase_serve(dev, results)),
+                      ('train', lambda: phase_train(dev, results))):
         log(f'[{phase}]')
         t1 = time.perf_counter()
         try:
@@ -458,9 +1006,13 @@ def main():
             f'({time.perf_counter() - t1:.1f} s)')
         if not good:
             failed.append(phase)
+    log(f'total {time.perf_counter() - t0:.1f} s')
     if failed:
         log(f'chip_smoke: failed phases {failed}')
         sys.exit(1)
+    for r in results.values():
+        if isinstance(r, dict) and 'launches_by_path' in r:
+            r['launches'] = sum(r['launches_by_path'].values())
     log(json.dumps({'kernels': [results[n] for n in KERNELS]}))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

@@ -1,12 +1,24 @@
 """Box utilities: 3D box codes, axis-aligned IoU, rotated BEV IoU.
 
-Port of `mv2d_tpu/core/boxes.py` (the parts the eval path uses).
+Port of `mv2d_tpu/core/boxes.py` (the parts the eval and training paths
+use).
 3D boxes are (cx, cy, cz, w, l, h, yaw[, vx, vy]); "gravity" boxes have z
 at the geometric center, "bottom" boxes at the bottom face.
 """
 from __future__ import annotations
 
 import torch
+
+
+def normalize_bbox(boxes: torch.Tensor) -> torch.Tensor:
+    """Gravity-center 3D boxes (..., 9 or 7) -> normalized code
+    (cx, cy, log w, log l, cz, log h, sin, cos[, vx, vy])."""
+    parts = [boxes[..., 0:1], boxes[..., 1:2], boxes[..., 3:4].log(),
+             boxes[..., 4:5].log(), boxes[..., 2:3], boxes[..., 5:6].log(),
+             boxes[..., 6:7].sin(), boxes[..., 6:7].cos()]
+    if boxes.shape[-1] > 7:
+        parts += [boxes[..., 7:8], boxes[..., 8:9]]
+    return torch.cat(parts, dim=-1)
 
 
 def denormalize_bbox(code: torch.Tensor) -> torch.Tensor:

@@ -35,7 +35,7 @@ class CameraParams:
 def prepare_camera_params(intrinsics: Sequence[np.ndarray],
                           extrinsics: Sequence[np.ndarray],
                           timestamps: Sequence[float] | None = None,
-                          device: torch.device | str = 'cpu',
+                          device: torch.device | str = 'cuda',
                           dtype: torch.dtype = torch.float32
                           ) -> CameraParams:
     """Host-side (float64) precompute of all per-view inverse matrices."""

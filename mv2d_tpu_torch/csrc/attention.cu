@@ -1,10 +1,14 @@
 // Kernel K4: block-sparse masked multi-head attention, forward.
 //   out[q, h] = sum_k softmax_k(q_h . k_h / sqrt(D) | allowed[q, k]) v_h[k]
 // Rows with no allowed key give zeros (mv2d_tpu/ops/attention.py
-// masked_softmax semantics).
+// masked_softmax semantics).  A second output, each (query, head)'s
+// log-sum-exp of its allowed scaled logits, feeds the backward (B8 below).
 //
 // Replaces mv2d_tpu/ops/pallas_attention.py: masked_flash_attention
-// (sparse=True -> _flash_sparse -> _sparse_fwd_call -> _sparse_kernel).
+// (sparse=True -> _flash_sparse -> _sparse_fwd_call -> _sparse_kernel) and,
+// with the log-sum-exp, the training forward (sparse=False -> _flash ->
+// _fwd_call -> _kernel): the same function, and skipping an empty tile is
+// exact.
 // The TPU kernel prefetched per-q-block lists of active key blocks; here
 // each block checks its own mask tile and skips it when empty.
 //
@@ -27,6 +31,8 @@
 namespace {
 
 constexpr int BQ = 64, BK = 64, NT = 256;
+// log-sum-exp flag of a row with no allowed key: exp(s - kEmptyLse) = 0
+constexpr float kEmptyLse = 1e30f;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) masked_attention_kernel(
@@ -132,8 +138,9 @@ template <typename T>
 __global__ void merge_splits_kernel(const float* __restrict__ po,
                                     const float* __restrict__ pm,
                                     const float* __restrict__ pl,
-                                    T* __restrict__ out, int Q, int H, int D,
-                                    int splits) {
+                                    T* __restrict__ out,
+                                    float* __restrict__ lse, int Q, int H,
+                                    int D, int splits) {
   const int C = H * D;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)Q * C) return;
@@ -149,13 +156,14 @@ __global__ void merge_splits_kernel(const float* __restrict__ po,
     l += a * pl[r * H + h];
   }
   out[e] = mv2d::from_f32<T>(o / fmaxf(l, 1e-20f));
+  if (c % D == 0) lse[(size_t)qi * H + h] = l > 0.f ? M + logf(l) : kEmptyLse;
 }
 
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* mask,
-           void* out, float* po, float* pm, float* pl, int Q, int K, int H,
-           int D, int splits, cudaStream_t s) {
+           void* out, float* lse, float* po, float* pm, float* pl, int Q,
+           int K, int H, int D, int splits, cudaStream_t s) {
   const int tiles = (K + BK - 1) / BK;
   const int keys_per_split = ((tiles + splits - 1) / splits) * BK;
   const dim3 grid((Q + BQ - 1) / BQ, H, splits);
@@ -171,24 +179,272 @@ int launch(const void* q, const void* k, const void* v, const void* mask,
   }
   const long long n = (long long)Q * H * D;
   merge_splits_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      po, pm, pl, static_cast<T*>(out), Q, H, D, splits);
+      po, pm, pl, static_cast<T*>(out), lse, Q, H, D, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- B8: the backward of the masked attention.
+// Replaces mv2d_tpu/ops/pallas_attention.py: _flash_bwd (_bwd_kernel),
+// the custom VJP of masked_flash_attention(sparse=False), which the
+// training path runs.  With P = exp(S - lse) recomputed from the forward's
+// per-(query, head) log-sum-exp and delta = rowsum(dO * O):
+//   dV = P^T dO,  dS = P * (dO V^T - delta),  dK = dS^T Q s,  dQ = dS K s
+// (s = 1 / sqrt(D)).  Masked pairs, and so every pair of a row with no
+// allowed key, get P = 0 and give nothing.
+//
+// What bounds it on the H100: for the training cross-attention (2628
+// queries, 16384 keys, 8 heads of 32, DN rows dense) the products, ~5
+// float32 FMAs of length D per allowed (query, key, head), done here on
+// the CUDA cores; the mask is one byte per (query, key) read per head.
+// Simple form: one kernel where a block owns (64 keys, one head) and walks
+// the query tiles for dK / dV, one where a block owns (64 queries, one
+// head) and walks the key tiles for dQ; both skip mask tiles that are
+// empty.  A thread keeps its key (or query) row, and its dK / dV (or dQ)
+// sums, in registers, and reads the walked rows from shared memory 16
+// bytes a load; the four thread groups that share a row split the other
+// axis and meet in float32 vector atomics into zeroed float32 outputs.
+template <typename T>
+__global__ void attention_delta_kernel(const T* __restrict__ o,
+                                       const T* __restrict__ dout,
+                                       float* __restrict__ delta,
+                                       long long rows, int D) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= rows) return;
+  float acc = 0.f;
+  for (int d = 0; d < D; ++d)
+    acc = fmaf(mv2d::to_f32(o[e * D + d]), mv2d::to_f32(dout[e * D + d]),
+               acc);
+  delta[e] = acc;
+}
+
+constexpr int GROUP = BQ / 4;   // rows of the walked axis per thread group
+
+// four floats of a 16-byte aligned shared row in one load
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc += a . b[d0..d0+4) for a float4 a
+__device__ __forceinline__ float dot4(float4 a, const float* b, float acc) {
+  acc = fmaf(a.x, b[0], acc);
+  acc = fmaf(a.y, b[1], acc);
+  acc = fmaf(a.z, b[2], acc);
+  return fmaf(a.w, b[3], acc);
+}
+
+// acc[0..4) += w * a
+__device__ __forceinline__ void axpy4(float w, float4 a, float* acc) {
+  acc[0] = fmaf(w, a.x, acc[0]);
+  acc[1] = fmaf(w, a.y, acc[1]);
+  acc[2] = fmaf(w, a.z, acc[2]);
+  acc[3] = fmaf(w, a.w, acc[3]);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) attention_dkdv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const uint8_t* __restrict__ mask,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int Q, int K, int H) {
+  using mv2d::to_f32;
+  __shared__ __align__(16) float qs[BQ][D];     // q * scale
+  __shared__ __align__(16) float gs[BQ][D];     // dO
+  __shared__ float ls[BQ], dl[BQ];
+  const int tid = threadIdx.x, j = tid % BK, g = tid / BK;
+  const int h = blockIdx.y, kj = blockIdx.x * BK + j;
+  const int C = H * D;
+  const float scale = 1.f / sqrtf((float)D);
+  float kr[D], vr[D], dkr[D], dvr[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const size_t off = (size_t)kj * C + h * D + d;
+    kr[d] = kj < K ? to_f32(k[off]) : 0.f;
+    vr[d] = kj < K ? to_f32(v[off]) : 0.f;
+    dkr[d] = dvr[d] = 0.f;
+  }
+  for (int q0 = 0; q0 < Q; q0 += BQ) {
+    unsigned bits = 0;
+    if (kj < K) {
+#pragma unroll
+      for (int ii = 0; ii < GROUP; ++ii) {
+        const int i = q0 + g * GROUP + ii;
+        if (i < Q && mask[(size_t)i * K + kj]) bits |= 1u << ii;
+      }
+    }
+    if (!__syncthreads_or(bits != 0)) continue;   // empty mask tile
+    for (int e = tid; e < BQ * D; e += NT) {
+      const int r = e / D, d = e % D, i = q0 + r;
+      const size_t off = (size_t)i * C + h * D + d;
+      qs[r][d] = i < Q ? to_f32(q[off]) * scale : 0.f;
+      gs[r][d] = i < Q ? to_f32(dout[off]) : 0.f;
+    }
+    for (int r = tid; r < BQ; r += NT) {
+      const int i = q0 + r;
+      ls[r] = i < Q ? lse[(size_t)i * H + h] : 0.f;
+      dl[r] = i < Q ? delta[(size_t)i * H + h] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int ii = 0; ii < GROUP; ++ii) {
+      const int r = g * GROUP + ii;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        s = dot4(ld4(&qs[r][d]), kr + d, s);
+        dp = dot4(ld4(&gs[r][d]), vr + d, dp);
+      }
+      const float p = (bits >> ii) & 1u ? expf(s - ls[r]) : 0.f;
+      const float ds = p * (dp - dl[r]);
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        axpy4(p, ld4(&gs[r][d]), dvr + d);
+        axpy4(ds, ld4(&qs[r][d]), dkr + d);
+      }
+    }
+    __syncthreads();
+  }
+  if (kj < K) {
+    mv2d::atomic_add<D>(dk + (size_t)kj * C + h * D, dkr);
+    mv2d::atomic_add<D>(dv + (size_t)kj * C + h * D, dvr);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) attention_dq_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const uint8_t* __restrict__ mask,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int Q, int K,
+    int H) {
+  using mv2d::to_f32;
+  __shared__ __align__(16) float ks[BK][D];
+  __shared__ __align__(16) float vs[BK][D];
+  const int tid = threadIdx.x, i = tid % BQ, g = tid / BQ;
+  const int h = blockIdx.y, qi = blockIdx.x * BQ + i;
+  const int C = H * D;
+  const float scale = 1.f / sqrtf((float)D);
+  float qr[D], gr[D], dqr[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const size_t off = (size_t)qi * C + h * D + d;
+    qr[d] = qi < Q ? to_f32(q[off]) * scale : 0.f;
+    gr[d] = qi < Q ? to_f32(dout[off]) : 0.f;
+    dqr[d] = 0.f;
+  }
+  const float li = qi < Q ? lse[(size_t)qi * H + h] : 0.f;
+  const float di = qi < Q ? delta[(size_t)qi * H + h] : 0.f;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    unsigned bits = 0;
+    if (qi < Q) {
+      const uint8_t* mrow = mask + (size_t)qi * K;
+#pragma unroll
+      for (int jj = 0; jj < GROUP; ++jj) {
+        const int kj = k0 + g * GROUP + jj;
+        if (kj < K && mrow[kj]) bits |= 1u << jj;
+      }
+    }
+    if (!__syncthreads_or(bits != 0)) continue;   // empty mask tile
+    for (int e = tid; e < BK * D; e += NT) {
+      const int r = e / D, d = e % D, kj = k0 + r;
+      const size_t off = (size_t)kj * C + h * D + d;
+      ks[r][d] = kj < K ? to_f32(k[off]) : 0.f;
+      vs[r][d] = kj < K ? to_f32(v[off]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int jj = 0; jj < GROUP; ++jj) {
+      const int r = g * GROUP + jj;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        s = dot4(ld4(&ks[r][d]), qr + d, s);
+        dp = dot4(ld4(&vs[r][d]), gr + d, dp);
+      }
+      const float p = (bits >> jj) & 1u ? expf(s - li) : 0.f;
+      const float ds = p * (dp - di);
+#pragma unroll
+      for (int d = 0; d < D; d += 4) axpy4(ds, ld4(&ks[r][d]), dqr + d);
+    }
+    __syncthreads();
+  }
+  if (qi < Q) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) dqr[d] *= scale;
+    mv2d::atomic_add<D>(dq + (size_t)qi * C + h * D, dqr);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v,
+               const void* mask, const void* o, const void* dout,
+               const float* lse, float* delta, float* dq, float* dk,
+               float* dv, int Q, int K, int H, int D, cudaStream_t s) {
+  const auto* qq = static_cast<const T*>(q);
+  const auto* kk = static_cast<const T*>(k);
+  const auto* vv = static_cast<const T*>(v);
+  const auto* mm = static_cast<const uint8_t*>(mask);
+  const auto* gg = static_cast<const T*>(dout);
+  const long long rows = (long long)Q * H;
+  attention_delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
+      static_cast<const T*>(o), gg, delta, rows, D);
+  const dim3 gk((K + BK - 1) / BK, H), gq((Q + BQ - 1) / BQ, H);
+  switch (D) {
+#define MV2D_BWD(DD)                                                      \
+    case DD:                                                              \
+      attention_dkdv_kernel<T, DD><<<gk, NT, 0, s>>>(                     \
+          qq, kk, vv, mm, gg, lse, delta, dk, dv, Q, K, H);               \
+      attention_dq_kernel<T, DD><<<gq, NT, 0, s>>>(                       \
+          qq, kk, vv, mm, gg, lse, delta, dq, Q, K, H);                   \
+      break;
+    MV2D_BWD(8)
+    MV2D_BWD(16)
+    MV2D_BWD(32)
+#undef MV2D_BWD
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// po [splits, Q, H*D], pm / pl [splits, Q, H]: float32 scratch
+// po [splits, Q, H*D], pm / pl [splits, Q, H]: float32 scratch;
+// lse [Q, H] float32: each row's log-sum-exp of its scaled allowed
+// logits, kEmptyLse for a row with no allowed key
 extern "C" int mv2d_masked_attention(const void* q, const void* k,
                                      const void* v, const void* mask,
-                                     void* out, void* po, void* pm, void* pl,
-                                     int Q, int K, int H, int D, int splits,
-                                     int dtype, void* stream) {
+                                     void* out, void* lse, void* po, void* pm,
+                                     void* pl, int Q, int K, int H, int D,
+                                     int splits, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* fo = static_cast<float*>(po);
   auto* fm = static_cast<float*>(pm);
   auto* fl = static_cast<float*>(pl);
+  auto* fs = static_cast<float*>(lse);
   MV2D_DISPATCH(dtype, T, {
-    return launch<T>(q, k, v, mask, out, fo, fm, fl, Q, K, H, D, splits, s);
+    return launch<T>(q, k, v, mask, out, fs, fo, fm, fl, Q, K, H, D, splits,
+                     s);
+  });
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// o, dout [Q, H*D] (dtype), lse [Q, H] from the forward; delta [Q, H]
+// float32 scratch; dq [Q, H*D], dk / dv [K, H*D] float32, zeroed by the
+// caller and accumulated
+extern "C" int mv2d_masked_attention_bwd(
+    const void* q, const void* k, const void* v, const void* mask,
+    const void* o, const void* dout, const void* lse, void* delta, void* dq,
+    void* dk, void* dv, int Q, int K, int H, int D, int dtype,
+    void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* fs = static_cast<const float*>(lse);
+  auto* fd = static_cast<float*>(delta);
+  auto* fq = static_cast<float*>(dq);
+  auto* fk = static_cast<float*>(dk);
+  auto* fv = static_cast<float*>(dv);
+  MV2D_DISPATCH(dtype, T, {
+    return launch_bwd<T>(q, k, v, mask, o, dout, fs, fd, fq, fk, fv, Q, K,
+                         H, D, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }

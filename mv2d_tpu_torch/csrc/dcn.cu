@@ -199,7 +199,185 @@ __global__ void __launch_bounds__(NT) dcn_conv_tc_kernel(
   }
 }
 
+// ---- B5 / B6: the training path's modulated samples and their gradient.
+//   samples[p, t, c] = m[p, t] * bilinear(x, sy[p, t], sx[p, t])[c]
+// B5 replaces mv2d_tpu/ops/pallas_dcn.py: _run_samples (_kernel_samples),
+// B6 replaces _run_samples_bwd (_kernel_samples_bwd).  The TPU kernels
+// worked on row bands kept in VMEM and sent out-of-band samples through
+// an XLA gather; here every sample reads its four corners straight from
+// the channels-last map, so any offset is exact.
+//
+// What bounds them on the H100: bytes.  B5 writes the [N, 9, C] samples
+// (the tap contraction is a separate GEMM, as in the JAX package) and B6
+// reads them back as dsamples; both read x once per tap corner, which the
+// L2 cache absorbs.  One warp owns one (pixel, tap): its lanes walk the
+// channels in 16-byte vectors, so every corner load and the sample store
+// are coalesced.  B6 scatters dx with float32 atomics into a zeroed
+// float32 buffer (several taps of several pixels hit one input pixel),
+// four channels per vector atomic, and reduces dm, dsy, dsx over the
+// channels with warp shuffles.  The
+// coordinate derivative is the floor form (exact at integer coordinates,
+// where zero-init offsets start) and is zero where the coordinate was
+// clamped into the map: the derivative of the plain version.
+constexpr int SNT = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(SNT) dcn_samples_kernel(
+    const T* __restrict__ x, const float* __restrict__ sy,
+    const float* __restrict__ sx, const float* __restrict__ m,
+    T* __restrict__ out, int H, int W, int C, int HWo, long long N) {
+  constexpr int VW = 16 / sizeof(T);
+  const long long pt = ((long long)blockIdx.x * SNT + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (pt >= N * TAPS) return;
+  int idx[4];
+  float wt[4];
+  tap_corners(pt / TAPS, (int)(pt % TAPS), sy, sx, m, H, W, HWo, N, idx, wt);
+  T* o = out + pt * C;
+  for (int c = lane * VW; c < C; c += 32 * VW) {
+    float acc[VW] = {};
+    if (wt[0] != 0.f || wt[1] != 0.f || wt[2] != 0.f || wt[3] != 0.f) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(x + (size_t)idx[q] * C + c);
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int j = 0; j < VW; ++j)
+          acc[j] = fmaf(wt[q], mv2d::to_f32(e[j]), acc[j]);
+      }
+    }
+    uint4 packed;
+    T* e = reinterpret_cast<T*>(&packed);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) e[j] = mv2d::from_f32<T>(acc[j]);
+    *reinterpret_cast<uint4*>(o + c) = packed;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SNT) dcn_samples_bwd_kernel(
+    const T* __restrict__ x, const float* __restrict__ sy,
+    const float* __restrict__ sx, const float* __restrict__ m,
+    const T* __restrict__ ds, float* __restrict__ dx,
+    float* __restrict__ dsy, float* __restrict__ dsx,
+    float* __restrict__ dm, int H, int W, int C, int HWo, long long N) {
+  constexpr int VW = 16 / sizeof(T);
+  const long long pt = ((long long)blockIdx.x * SNT + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (pt >= N * TAPS) return;
+  const float yr = sy[pt], xr = sx[pt], mm = m[pt];
+  if (!(yr > -1.f && yr < H && xr > -1.f && xr < W)) {
+    if (lane == 0) dsy[pt] = dsx[pt] = dm[pt] = 0.f;
+    return;
+  }
+  // d(clamped)/d(raw): 1 inside [0, extent - 1], 0 where clamped
+  const float gy = (yr >= 0.f && yr <= (float)(H - 1)) ? 1.f : 0.f;
+  const float gx = (xr >= 0.f && xr <= (float)(W - 1)) ? 1.f : 0.f;
+  const float yy = fminf(fmaxf(yr, 0.f), (float)(H - 1));
+  const float xx = fminf(fmaxf(xr, 0.f), (float)(W - 1));
+  const int y0 = (int)floorf(yy), x0 = (int)floorf(xx);
+  const float ly = yy - y0, lx = xx - x0;
+  const int y1 = min(y0 + 1, H - 1), x1 = min(x0 + 1, W - 1);
+  const size_t base = (size_t)(pt / TAPS / HWo) * H * W;
+  const size_t i00 = (base + (size_t)y0 * W + x0) * C;
+  const size_t i01 = (base + (size_t)y0 * W + x1) * C;
+  const size_t i10 = (base + (size_t)y1 * W + x0) * C;
+  const size_t i11 = (base + (size_t)y1 * W + x1) * C;
+  const float w00 = (1.f - ly) * (1.f - lx), w01 = (1.f - ly) * lx;
+  const float w10 = ly * (1.f - lx), w11 = ly * lx;
+  float am = 0.f, ay = 0.f, ax = 0.f;
+  const T* d = ds + pt * C;
+  for (int c = lane * VW; c < C; c += 32 * VW) {
+    float g[VW], v00[VW], v01[VW], v10[VW], v11[VW];
+    const uint4 rd = *reinterpret_cast<const uint4*>(d + c);
+    const uint4 r00 = *reinterpret_cast<const uint4*>(x + i00 + c);
+    const uint4 r01 = *reinterpret_cast<const uint4*>(x + i01 + c);
+    const uint4 r10 = *reinterpret_cast<const uint4*>(x + i10 + c);
+    const uint4 r11 = *reinterpret_cast<const uint4*>(x + i11 + c);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      g[j] = mv2d::to_f32(reinterpret_cast<const T*>(&rd)[j]);
+      v00[j] = mv2d::to_f32(reinterpret_cast<const T*>(&r00)[j]);
+      v01[j] = mv2d::to_f32(reinterpret_cast<const T*>(&r01)[j]);
+      v10[j] = mv2d::to_f32(reinterpret_cast<const T*>(&r10)[j]);
+      v11[j] = mv2d::to_f32(reinterpret_cast<const T*>(&r11)[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      const float bil = w00 * v00[j] + w01 * v01[j] + w10 * v10[j] +
+                        w11 * v11[j];
+      am = fmaf(g[j], bil, am);
+      ay = fmaf(g[j], (1.f - lx) * (v10[j] - v00[j]) +
+                          lx * (v11[j] - v01[j]), ay);
+      ax = fmaf(g[j], (1.f - ly) * (v01[j] - v00[j]) +
+                          ly * (v11[j] - v10[j]), ax);
+    }
+    const float wq[4] = {w00 * mm, w01 * mm, w10 * mm, w11 * mm};
+    const size_t at[4] = {i00, i01, i10, i11};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (wq[q] == 0.f) continue;              // lx or ly 0: no share
+      float add[VW];
+#pragma unroll
+      for (int j = 0; j < VW; ++j) add[j] = g[j] * wq[q];
+      mv2d::atomic_add<VW>(dx + at[q] + c, add);
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s /= 2) {
+    am += __shfl_xor_sync(0xffffffffu, am, s);
+    ay += __shfl_xor_sync(0xffffffffu, ay, s);
+    ax += __shfl_xor_sync(0xffffffffu, ax, s);
+  }
+  if (lane == 0) {
+    dm[pt] = am;
+    dsy[pt] = ay * mm * gy;
+    dsx[pt] = ax * mm * gx;
+  }
+}
+
 }  // namespace
+
+// x [V, H, W, C] (dtype), sy / sx / m [V, Ho, Wo, 9] float32 ->
+// out [V, Ho, Wo, 9, C] (dtype); C a multiple of 16 bytes
+extern "C" int mv2d_dcn_samples(const void* x, const void* sy,
+                                const void* sx, const void* m, void* out,
+                                int V, int H, int W, int C, int Ho, int Wo,
+                                int dtype, void* stream) {
+  const long long N = (long long)V * Ho * Wo;
+  const unsigned blocks = (unsigned)((N * TAPS * 32 + SNT - 1) / SNT);
+  auto s = static_cast<cudaStream_t>(stream);
+  MV2D_DISPATCH(dtype, T, {
+    dcn_samples_kernel<T><<<blocks, SNT, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(sy),
+        static_cast<const float*>(sx), static_cast<const float*>(m),
+        static_cast<T*>(out), H, W, C, Ho * Wo, N);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dsamples [V, Ho, Wo, 9, C] (dtype) -> dx [V, H, W, C] float32 (zeroed by
+// the caller, accumulated), dsy / dsx / dm [V, Ho, Wo, 9] float32
+extern "C" int mv2d_dcn_samples_bwd(const void* x, const void* sy,
+                                    const void* sx, const void* m,
+                                    const void* ds, void* dx, void* dsy,
+                                    void* dsx, void* dm, int V, int H, int W,
+                                    int C, int Ho, int Wo, int dtype,
+                                    void* stream) {
+  const long long N = (long long)V * Ho * Wo;
+  const unsigned blocks = (unsigned)((N * TAPS * 32 + SNT - 1) / SNT);
+  auto s = static_cast<cudaStream_t>(stream);
+  MV2D_DISPATCH(dtype, T, {
+    dcn_samples_bwd_kernel<T><<<blocks, SNT, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(sy),
+        static_cast<const float*>(sx), static_cast<const float*>(m),
+        static_cast<const T*>(ds), static_cast<float*>(dx),
+        static_cast<float*>(dsy), static_cast<float*>(dsx),
+        static_cast<float*>(dm), H, W, C, Ho * Wo, N);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int mv2d_dcn_conv(const void* x, const void* sy, const void* sx,
                              const void* m, const void* w, void* out, int V,

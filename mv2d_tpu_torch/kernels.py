@@ -34,9 +34,14 @@ _F = ctypes.c_float
 SIGNATURES = {
     'mv2d_bottleneck': [_P] * 10 + [_I] * 5 + [_P],
     'mv2d_dcn_conv': [_P] * 6 + [_I] * 8 + [_P],
+    'mv2d_dcn_samples': [_P] * 5 + [_I] * 7 + [_P],
+    'mv2d_dcn_samples_bwd': [_P] * 9 + [_I] * 7 + [_P],
     'mv2d_roi_align': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2
                       + [_I] * 4 + [_P],
-    'mv2d_masked_attention': [_P] * 8 + [_I] * 6 + [_P],
+    'mv2d_roi_align_bwd': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2
+                          + [_I] * 4 + [_P],
+    'mv2d_masked_attention': [_P] * 9 + [_I] * 6 + [_P],
+    'mv2d_masked_attention_bwd': [_P] * 11 + [_I] * 5 + [_P],
 }
 
 

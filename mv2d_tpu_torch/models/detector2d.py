@@ -1,9 +1,10 @@
-"""Two-stage 2D detector (Faster R-CNN), eval path.
+"""Two-stage 2D detector (Faster R-CNN).
 
 Port of `mv2d_tpu/models/detector2d.py:TwoStageDetector` with mmdet keys
 (backbone, neck, rpn_head, roi_head.bbox_head).  The R-CNN RoIAlign runs
 through `ops.roi_align.roi_align_multilevel` (kernel K3 on CUDA) in the
-natural [V, P] slot order.
+natural [V, P] slot order; the training RoIs through its differentiable
+form `roi_align_multilevel_train` (K3 forward, B9 backward).
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from ..nn.fpn import FPN
 from ..nn.rcnn import Shared2FCBBoxHead, decode_detections
 from ..nn.resnet import ResNet
 from ..nn.rpn import RPNHead, rpn_proposals
-from ..ops.roi_align import roi_align_multilevel
+from ..ops.roi_align import (roi_align_multilevel,
+                             roi_align_multilevel_train)
 
 
 class Proposals(NamedTuple):
@@ -58,6 +60,16 @@ class TwoStageDetector(tnn.Module):
                              nms_pre=cfg.rpn_nms_pre,
                              max_per_img=cfg.rpn_max_per_img,
                              iou_threshold=cfg.rpn_iou_threshold)
+
+    def roi_forward_views(self, feats: Sequence[torch.Tensor],
+                          rois: torch.Tensor):
+        """R-CNN head on sampled training RoIs [V, S, 4] with gradients to
+        the first V views' features -> ([V*S, K+1], [V*S, 4K])."""
+        V, S = rois.shape[:2]
+        roi_feats = roi_align_multilevel_train(
+            [f[:V] for f in feats[:4]], rois, self.fpn_strides[:4])
+        return self.roi_head.bbox_head(
+            roi_feats.reshape(V * S, *roi_feats.shape[2:]))
 
     def detect(self, feats: Sequence[torch.Tensor],
                image_shape: Tuple[int, int],

@@ -1,12 +1,15 @@
-"""MV2D / MV2D-T eval forward (pixel key mode), one fixed-shape pass.
+"""MV2D / MV2D-T (pixel key mode): the eval forward and the training
+forward, each one fixed-shape pass.
 
-Port of `mv2d_tpu/models/mv2d.py:MV2D.__call__` and the non-DN
-`roi_head_forward`:
+Port of `mv2d_tpu/models/mv2d.py:MV2D.__call__`, `forward_train` and
+`roi_head_forward` (with the training branches: DN queries, their block
+self-attention mask, and the fake key of queries without pixels):
 
-  2D detector -> padded per-view proposals -> per-RoI virtual intrinsics ->
-  separable RoIAlign(p4 ++ 3D PE) -> query generator -> epipolar
-  correlation -> k_max pixel-key gather -> masked decoder -> NMS-free
-  decode + cross-view BEV merge.
+  2D detector -> padded per-view proposals (+ missed GT in training) ->
+  per-RoI virtual intrinsics -> separable RoIAlign(p4 ++ 3D PE) -> query
+  generator -> epipolar correlation -> k_max pixel-key gather -> masked
+  decoder -> NMS-free decode + cross-view BEV merge (eval) or per-layer
+  outputs for the losses (training).
 
 Keys follow the reference checkpoint (base_detector.*, neck.*,
 roi_head.{position_encoding, query_generator, bbox_head}.*), so
@@ -28,10 +31,11 @@ from ..core.coder import nms_free_decode
 from ..core.geometry import (CameraParams, normalize_points,
                              virtual_intrinsics)
 from ..core.nms import box3d_multiclass_nms
-from ..nn.decoder import CrossAttentionBoxHead
+from ..nn.decoder import NO_DROPOUT, CrossAttentionBoxHead, Dropout
 from ..nn.fpn import FPN
 from ..nn.pe import PE, padding_mask_at_feature_res
 from ..nn.query_generator import QueryGenerator
+from ..ops.grid_mask import GridMaskDraws, grid_mask
 from ..ops.roi_align import separable_roi_align_views
 from .correlation import (adjacency_from_correlation, epipolar_in_box,
                           gather_active_keys, in_roi_pixel_masks)
@@ -40,11 +44,38 @@ from .detector2d import Proposals, TwoStageDetector
 DUMMY_BOX = (50.0, 50.0, 100.0, 100.0)
 
 
+class GroundTruth3D(NamedTuple):
+    """Padded scene-level 3D GT (bottom-center boxes, lidar frame)."""
+    boxes: torch.Tensor    # [G, 9], G = cfg.max_gt
+    labels: torch.Tensor   # [G] int
+    valid: torch.Tensor    # [G] bool
+
+
+class GroundTruth2D(NamedTuple):
+    """Padded per-view 2D GT (the 2D detector's targets and the missed-GT
+    proposals)."""
+    boxes: torch.Tensor    # [V, G2, 4] (x1, y1, x2, y2)
+    labels: torch.Tensor   # [V, G2] int
+    valid: torch.Tensor    # [V, G2] bool
+
+
+class DNInfo(NamedTuple):
+    """Denoising-query bookkeeping for the loss."""
+    known_labels: torch.Tensor   # [DN_PAD] (num_classes = negative)
+    known_boxes: torch.Tensor    # [DN_PAD, 9] gravity-center boxes
+    valid: torch.Tensor          # [DN_PAD] bool
+    num_gt: torch.Tensor         # [] valid GT count
+
+
 class HeadOutputs(NamedTuple):
     all_cls_scores: torch.Tensor   # [L, R, num_classes]
     all_bbox_preds: torch.Tensor   # [L, R, 10]
     query_valid: torch.Tensor      # [R]
     diagnostics: dict              # key_active, key_overflow, num_queries
+    # training with DN: the DN rows' outputs [L, DN_PAD, .] and their info
+    dn_cls_scores: Optional[torch.Tensor] = None
+    dn_bbox_preds: Optional[torch.Tensor] = None
+    dn_info: Optional[DNInfo] = None
 
 
 class Detections(NamedTuple):
@@ -95,12 +126,62 @@ class MV2D(tnn.Module):
         fpn_feats = self.base_detector.extract_feat(imgs)
         return fpn_feats, self.neck(fpn_feats)[0]
 
+    def _prepare_dn(self, gt: GroundTruth3D, noise: torch.Tensor):
+        """DN queries: every GT box repeated denoise_scalar times, its
+        gravity center moved by noise [S*G, 3] ~ U(-1, 1) times half its
+        size times noise_scale; a query whose noise norm exceeds
+        denoise_split is a negative (label num_classes)."""
+        c = self.cfg
+        S, G = c.denoise_scalar, c.max_gt
+        if gt.boxes.shape[0] != G:
+            raise ValueError(f'GT bucket {gt.boxes.shape[0]} must equal '
+                             f'cfg.max_gt {G} (the DN group width)')
+        gravity = box_utils.bottom_to_gravity(gt.boxes.float())
+        centers = gravity[:, :3].repeat(S, 1)
+        sizes = gt.boxes[:, 3:6].float().repeat(S, 1)
+        noise = noise.float()
+        diff = sizes / 2 + c.denoise_noise_trans
+        noisy = normalize_points(centers + noise * diff
+                                 * c.denoise_noise_scale, c.pc_range)
+        noisy = noisy.clamp(1e-4, 1.0 - 1e-4)
+        neg = torch.linalg.norm(noise, dim=1) > c.denoise_split
+        labels = gt.labels.long().repeat(S)
+        labels = torch.where(neg, torch.full_like(labels, c.num_classes),
+                             labels)
+        info = DNInfo(known_labels=labels, known_boxes=gravity.repeat(S, 1),
+                      valid=gt.valid.repeat(S), num_gt=gt.valid.sum())
+        return noisy, info
+
+    def _dn_self_mask(self, match_valid: torch.Tensor,
+                      dn_valid: torch.Tensor) -> torch.Tensor:
+        """Self-attention allowed mask [Q, Q] with the DN rows first: match
+        queries see no DN query, a DN query sees only its own group among
+        the DN queries, invalid slots are no key, the diagonal stays."""
+        c = self.cfg
+        P, G = c.dn_pad, c.max_gt
+        Q = P + match_valid.shape[0]
+        dev = match_valid.device
+        idx = torch.arange(Q, device=dev)
+        gid = idx // G
+        is_dn = idx < P
+        allowed = ~(~is_dn[:, None] & is_dn[None, :])
+        allowed &= ~(is_dn[:, None] & is_dn[None, :]
+                     & (gid[:, None] != gid[None, :]))
+        allowed &= torch.cat([dn_valid, match_valid])[None, :]
+        return allowed | torch.eye(Q, dtype=torch.bool, device=dev)
+
     def roi_head_forward(self, p4: torch.Tensor, pos: torch.Tensor,
                          proposals: Proposals, cam: CameraParams,
                          img_shapes: torch.Tensor,
-                         mean_time_delta: Optional[torch.Tensor] = None
-                         ) -> HeadOutputs:
+                         mean_time_delta: Optional[torch.Tensor] = None,
+                         gt: Optional[GroundTruth3D] = None,
+                         dn_noise: Optional[torch.Tensor] = None,
+                         drop: Dropout = NO_DROPOUT) -> HeadOutputs:
+        """The 3D head.  With `gt` (training): queries whose RoI has no
+        correlated pixel attend to the fake key pixel (view 0, 0, 0), and
+        with `dn_noise` the DN queries run first."""
         c = self.cfg
+        training = gt is not None
         head = self.roi_head
         V, h, w, C = p4.shape
         P = proposals.boxes.shape[1]
@@ -140,6 +221,12 @@ class MV2D(tnn.Module):
         # pixel (v, i) is a key iff it lies in a roi some query correlates to
         qact = A.any(0).reshape(V, P)
         union = (in_roi & qact[:, :, None]).any(1).reshape(-1)
+        if training:
+            # a query with no correlated pixel attends to pixel 0 instead
+            # of nothing, which also puts that pixel into the union
+            roi_has_pix = in_roi.any(-1).reshape(R)
+            empty_q = ~(A & roi_has_pix[None]).any(-1)            # [R]
+            union = torch.cat([union[:1] | empty_q.any(), union[1:]])
         n_active = union.sum()
         key_overflow = (n_active - c.k_max).clamp(min=0)
         key_idx, key_active = gather_active_keys(union, c.k_max)
@@ -152,19 +239,36 @@ class MV2D(tnn.Module):
                                 == vk[None, None, :])           # [V, P, K]
         hits = A.reshape(R, V * P).float() @ G.reshape(V * P, -1).float()
         cross = (hits > 0.5) & key_ok[None]                      # [R, K]
-        # self-attention keys: valid queries only; diagonal kept
-        self_allowed = flat_valid[None, :] | torch.eye(
-            R, dtype=torch.bool, device=dev)
+        if training:
+            fake_col = (key_idx == 0) & key_active
+            cross = cross | (empty_q[:, None] & fake_col[None])
+        dn_info = None
+        if training and c.use_denoise and dn_noise is not None:
+            noisy_refs, dn_info = self._prepare_dn(gt, dn_noise)
+            refs = torch.cat([noisy_refs.to(ref_pts.dtype), ref_pts])
+            self_allowed = self._dn_self_mask(flat_valid, dn_info.valid)
+            dn_cross = (union[key_idx] & key_ok)[None].expand(c.dn_pad, -1)
+            cross = torch.cat([dn_cross, cross])
+        else:
+            # self-attention keys: valid queries only; diagonal kept
+            refs = ref_pts
+            self_allowed = flat_valid[None, :] | torch.eye(
+                R, dtype=torch.bool, device=dev)
 
-        all_cls, all_box = head.bbox_head(ref_pts, keys, key_pos,
-                                          self_allowed, cross)
+        all_cls, all_box = head.bbox_head(refs, keys, key_pos, self_allowed,
+                                          cross, drop)
         if mean_time_delta is not None:
             all_box = torch.cat([all_box[..., :8],
                                  all_box[..., 8:10] / mean_time_delta,
                                  all_box[..., 10:]], dim=-1)
         diagnostics = {'key_active': n_active, 'key_overflow': key_overflow,
                        'num_queries': flat_valid.sum()}
-        return HeadOutputs(all_cls, all_box, flat_valid, diagnostics)
+        if dn_info is None:
+            return HeadOutputs(all_cls, all_box, flat_valid, diagnostics)
+        n = c.dn_pad
+        return HeadOutputs(all_cls[:, n:], all_box[:, n:], flat_valid,
+                           diagnostics, all_cls[:, :n], all_box[:, :n],
+                           dn_info)
 
     def _mean_time_delta(self, cam: CameraParams):
         c = self.cfg
@@ -199,3 +303,66 @@ class MV2D(tnn.Module):
                                       c.max_per_scene, c.bev_nms_thr,
                                       c.num_classes)
         return Detections(*merged, out.diagnostics)
+
+    # ------------------------------------------------------------ training
+
+    def complement_2d_gt(self, proposals: Proposals,
+                         gt2d: GroundTruth2D) -> Proposals:
+        """Append the GT boxes the detector missed (max IoU with a valid
+        detection below cfg.complement_2d_gt, and at least min_bbox_size
+        on each side) as extra proposal slots [V, P + G2]."""
+        c = self.cfg
+        iou = box_utils.box_iou_xyxy(gt2d.boxes.float(),
+                                     proposals.boxes.float())  # [V, G2, P]
+        iou = torch.where(proposals.valid[:, None, :], iou,
+                          torch.zeros_like(iou))
+        missed = iou.max(-1).values < c.complement_2d_gt
+        wh = gt2d.boxes[..., 2:4] - gt2d.boxes[..., 0:2]
+        big = (wh >= c.proposal_train.min_bbox_size).all(-1)
+        return Proposals(
+            boxes=torch.cat([proposals.boxes.float(),
+                             gt2d.boxes.float()], 1),
+            scores=torch.cat([proposals.scores,
+                              torch.ones_like(gt2d.boxes[..., 0]).to(
+                                  proposals.scores.dtype)], 1),
+            labels=torch.cat([proposals.labels,
+                              gt2d.labels.to(proposals.labels.dtype)], 1),
+            valid=torch.cat([proposals.valid,
+                             gt2d.valid & missed & big], 1))
+
+    def forward_train(self, imgs: torch.Tensor, cam: CameraParams,
+                      img_shapes: torch.Tensor, gt2d: GroundTruth2D,
+                      gt3d: GroundTruth3D, grid: GridMaskDraws,
+                      dn_noise: torch.Tensor, drop: Dropout = NO_DROPOUT):
+        """Training forward (the reference's MV2D(T).forward_train): grid
+        mask -> features -> RPN outputs of the current frame's views ->
+        detections without gradients, complemented with missed 2D GT ->
+        the 3D head with DN.  Returns (HeadOutputs, {'fpn_feats',
+        'rpn_scores', 'rpn_deltas', 'proposals'}); the losses are built in
+        `train.train_step`."""
+        c = self.cfg
+        fpn_feats, p4 = self.extract_feats(grid_mask(imgs, grid))
+        Vc = c.num_views
+        if not c.grad_all and c.num_frames > 1:
+            # no gradient through the history frames' features
+            fpn_feats = tuple(torch.cat([f[:Vc], f[Vc:].detach()])
+                              for f in fpn_feats)
+            p4 = torch.cat([p4[:Vc], p4[Vc:].detach()])
+        rpn_scores, rpn_deltas = self.base_detector.rpn_head(
+            [f[:Vc] for f in fpn_feats])
+        with torch.no_grad():
+            proposals = self.base_detector.detect(
+                [f.detach() for f in fpn_feats], c.image_size,
+                c.proposal_train)
+        proposals = self.complement_2d_gt(proposals, gt2d)
+        pos = self.roi_head.position_encoding(p4, cam.img2lidar, img_shapes,
+                                              c.image_size)
+        out = self.roi_head_forward(p4, pos, proposals, cam, img_shapes,
+                                    self._mean_time_delta(cam), gt=gt3d,
+                                    dn_noise=dn_noise, drop=drop)
+        return out, dict(fpn_feats=fpn_feats, rpn_scores=rpn_scores,
+                         rpn_deltas=rpn_deltas, proposals=proposals)
+
+    def rcnn_train_forward(self, fpn_feats, rois: torch.Tensor):
+        """R-CNN head on the sampled training RoIs [Vc, S, 4]."""
+        return self.base_detector.roi_forward_views(fpn_feats, rois)

@@ -9,22 +9,46 @@ query_embedding.{0,2}; cls_branches / reg_branches.  Post-norm layer order
 eps 1e-6, the JAX package's value.
 
 With use_flash, both attentions go through `ops.attention.masked_attention`
-(kernel K4 on CUDA).
+(kernel K4 on CUDA), or `masked_attention_train` (K4 and its backward B8)
+while gradients are recorded.  Training applies the reference's dropout
+(p = cfg.dropout) after each attention's output projection and inside the
+FFN; the masks come from the step's torch.Generator (`Dropout`).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as tnn
 import torch.nn.functional as F
 
 from ..core.geometry import inverse_sigmoid
-from ..ops.attention import masked_attention, masked_attention_plain
+from ..ops.attention import (masked_attention, masked_attention_plain,
+                             masked_attention_train)
 from .layers import linear
 from .pe import pos2posemb3d
 
 LN_EPS = 1e-6
+
+
+class Dropout:
+    """Inverted dropout with masks drawn from a generator: keep with
+    probability 1 - p, scale the kept values by 1 / (1 - p) (flax
+    nn.Dropout).  p = 0 or no generator leaves the input as it is."""
+
+    def __init__(self, p: float, generator: Optional[torch.Generator]):
+        self.p = p
+        self.generator = generator
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.p == 0.0 or self.generator is None:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+
+NO_DROPOUT = Dropout(0.0, None)
 
 
 class MultiheadAttention(tnn.Module):
@@ -40,7 +64,8 @@ class MultiheadAttention(tnn.Module):
         self.out_proj = tnn.Linear(embed_dims, embed_dims)
         tnn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q, k, v, allowed, use_kernel: bool = False):
+    def forward(self, q, k, v, allowed, use_kernel: bool = False,
+                drop: Dropout = NO_DROPOUT):
         """q [Q, C], k/v [K, C], allowed [Q, K] bool -> [Q, C]."""
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
@@ -48,8 +73,14 @@ class MultiheadAttention(tnn.Module):
         qp = F.linear(q.to(dt), wq, bq)
         kp = F.linear(k.to(dt), wk, bk)
         vp = F.linear(v.to(dt), wv, bv)
-        attend = masked_attention if use_kernel else masked_attention_plain
-        return self.out_proj(attend(qp, kp, vp, allowed, self.num_heads))
+        if not use_kernel:
+            attend = masked_attention_plain
+        elif torch.is_grad_enabled():
+            attend = masked_attention_train
+        else:
+            attend = masked_attention
+        return drop(self.out_proj(attend(qp, kp, vp, allowed,
+                                         self.num_heads)))
 
 
 class _Attention(tnn.Module):
@@ -65,8 +96,8 @@ class FFN(tnn.Module):
             tnn.Sequential(tnn.Linear(embed_dims, feedforward_channels)),
             tnn.Linear(feedforward_channels, embed_dims)])
 
-    def forward(self, x):
-        return self.layers[1](F.relu(self.layers[0][0](x)))
+    def forward(self, x, drop: Dropout = NO_DROPOUT):
+        return drop(self.layers[1](drop(F.relu(self.layers[0][0](x)))))
 
 
 class PETRDecoderLayer(tnn.Module):
@@ -81,15 +112,15 @@ class PETRDecoderLayer(tnn.Module):
             [tnn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3)])
 
     def forward(self, query, query_pos, keys, key_pos, self_allowed,
-                cross_allowed):
+                cross_allowed, drop: Dropout = NO_DROPOUT):
         qs = query + query_pos
         sa = self.attentions[0].attn(qs, qs, query, self_allowed,
-                                     self.use_flash)
+                                     self.use_flash, drop)
         query = self.norms[0](query + sa)
         ca = self.attentions[1].attn(query + query_pos, keys + key_pos, keys,
-                                     cross_allowed, self.use_flash)
+                                     cross_allowed, self.use_flash, drop)
         query = self.norms[1](query + ca)
-        return self.norms[2](query + self.ffns[0](query))
+        return self.norms[2](query + self.ffns[0](query, drop))
 
 
 class PETRDecoder(tnn.Module):
@@ -102,11 +133,11 @@ class PETRDecoder(tnn.Module):
         self.post_norm = tnn.LayerNorm(embed_dims, eps=LN_EPS)
 
     def forward(self, query, query_pos, keys, key_pos, self_allowed,
-                cross_allowed):
+                cross_allowed, drop: Dropout = NO_DROPOUT):
         outs = []
         for layer in self.layers:
             query = layer(query, query_pos, keys, key_pos, self_allowed,
-                          cross_allowed)
+                          cross_allowed, drop)
             outs.append(self.post_norm(query))
         return torch.stack(outs)                            # [L, Q, C]
 
@@ -143,7 +174,7 @@ class CrossAttentionBoxHead(tnn.Module):
             tnn.Linear(C, code_size)) for _ in range(num_layers)])
 
     def forward(self, reference_points, keys, key_pos, self_allowed,
-                cross_allowed):
+                cross_allowed, drop: Dropout = NO_DROPOUT):
         """reference_points [Q, 3] normalized to pc_range; keys/key_pos
         [K, C]; self_allowed [Q, Q]; cross_allowed [Q, K]."""
         emb = pos2posemb3d(reference_points, self.embed_dims // 2)
@@ -151,7 +182,7 @@ class CrossAttentionBoxHead(tnn.Module):
         query_pos = self.query_embedding[2](F.relu(query_pos))
         query = torch.zeros_like(query_pos)
         outs = self.transformer.decoder(query, query_pos, keys, key_pos,
-                                        self_allowed, cross_allowed)
+                                        self_allowed, cross_allowed, drop)
         reference = inverse_sigmoid(reference_points.float())
         pr = self.pc_range
         span_xy = reference.new_tensor([pr[3] - pr[0], pr[4] - pr[1]])

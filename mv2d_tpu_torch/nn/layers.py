@@ -44,8 +44,11 @@ class FrozenBatchNorm2d(tnn.Module):
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.weight = tnn.Parameter(torch.ones(num_features))
-        self.bias = tnn.Parameter(torch.zeros(num_features))
+        # parameters (reference checkpoints carry them) that never train
+        self.weight = tnn.Parameter(torch.ones(num_features),
+                                    requires_grad=False)
+        self.bias = tnn.Parameter(torch.zeros(num_features),
+                                  requires_grad=False)
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
         self.register_buffer('num_batches_tracked',

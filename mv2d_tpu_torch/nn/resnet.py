@@ -4,7 +4,9 @@ Port of `mv2d_tpu/nn/resnet.py` with mmdet's state-dict keys (conv1, bn1,
 layer{s}.{b}.conv{1,2,3}/bn{1,2,3}/downsample.{0,1}).  Frozen BN folds
 into each conv; the DCN conv keeps its separate BN.  Layer1 runs through
 `ops.stage.fused_stage1` (kernel K1 on CUDA).  The stem is the plain
-7x7/s2 conv.
+7x7/s2 conv.  The stem and layer1 are frozen (the reference's
+frozen_stages=1): their parameters, like every BN affine, do not train,
+and they run without recording gradients.
 """
 from __future__ import annotations
 
@@ -101,16 +103,20 @@ class ResNet(tnn.Module):
             setattr(self, f'layer{s + 1}', tnn.Sequential(*blocks))
             inplanes = planes * 4
             planes *= 2
+        for m in (self.conv1, self.bn1, self.layer1):
+            m.requires_grad_(False)
 
     def forward(self, x: torch.Tensor):
-        x = F.relu(_folded_conv(x, self.conv1, self.bn1, stride=2))
-        x = max_pool_3x3_s2(x)
         outs = []
-        for s in range(4):
-            layer = getattr(self, f'layer{s + 1}')
-            if s == 0 and not self.stage_with_dcn[0]:
-                x = fused_stage1(x, [blk.folded() for blk in layer])
+        with torch.no_grad():                      # frozen stem + layer1
+            x = F.relu(_folded_conv(x, self.conv1, self.bn1, stride=2))
+            x = max_pool_3x3_s2(x)
+            if not self.stage_with_dcn[0]:
+                x = fused_stage1(x, [blk.folded() for blk in self.layer1])
             else:
-                x = layer(x)
+                x = self.layer1(x)
+        outs.append(x)
+        for s in range(1, 4):
+            x = getattr(self, f'layer{s + 1}')(x)
             outs.append(x)
         return tuple(outs)

@@ -66,6 +66,22 @@ def delta2bbox(anchors: torch.Tensor, deltas: torch.Tensor,
     return torch.stack([x1, y1, x2, y2], dim=-1)
 
 
+def bbox2delta(anchors: torch.Tensor, gt: torch.Tensor,
+               stds=(1., 1., 1., 1.)) -> torch.Tensor:
+    """mmdet DeltaXYWHBBoxCoder.encode (target means 0) on [..., 4]."""
+    pw = anchors[..., 2] - anchors[..., 0]
+    ph = anchors[..., 3] - anchors[..., 1]
+    px = (anchors[..., 0] + anchors[..., 2]) * 0.5
+    py = (anchors[..., 1] + anchors[..., 3]) * 0.5
+    gw = (gt[..., 2] - gt[..., 0]).clamp(min=1e-6)
+    gh = (gt[..., 3] - gt[..., 1]).clamp(min=1e-6)
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    d = torch.stack([(gx - px) / pw, (gy - py) / ph, torch.log(gw / pw),
+                     torch.log(gh / ph)], dim=-1)
+    return d / d.new_tensor(stds)
+
+
 class RPNHead(tnn.Module):
     """3x3 conv + relu, then 1x1 objectness (A) and 1x1 deltas (4A)."""
 

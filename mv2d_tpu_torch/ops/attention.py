@@ -4,6 +4,10 @@ Port of `mv2d_tpu/ops/attention.py`.  Masks are "allowed" masks (True =
 may attend); a query row with no allowed key yields a zero output.
 `masked_attention` is kernel K4 (`csrc/attention.cu`), replacing
 `mv2d_tpu/ops/pallas_attention.py: masked_flash_attention(sparse=True)`.
+With gradients on, `masked_attention_train` runs `MaskedAttentionFn`: K4
+with its per-(query, head) log-sum-exp output as the forward (the TPU's
+dense training forward `_fwd_call` computes the same function) and
+kernel B8 as the backward (`_flash_bwd`).
 """
 from __future__ import annotations
 
@@ -12,6 +16,8 @@ import torch
 from .. import kernels
 
 _NEG = -1e9
+# K4's log-sum-exp of a row with no allowed key (kEmptyLse in the source)
+EMPTY_LSE = 1e30
 
 
 def masked_softmax(logits: torch.Tensor, allowed: torch.Tensor
@@ -46,13 +52,22 @@ def masked_attention_plain(q, k, v, allowed, num_heads: int):
                                 allowed[None])[0]
 
 
-def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     allowed: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Kernel K4: q [Q, C], k/v [K, C] (float32 or bfloat16, one dtype),
-    allowed [Q, K] bool -> [Q, C].  CPU tensors take
-    `masked_attention_plain`."""
-    if q.device.type == 'cpu':
-        return masked_attention_plain(q, k, v, allowed, num_heads)
+def attention_lse_plain(q, k, allowed, num_heads: int) -> torch.Tensor:
+    """[Q, H] log-sum-exp of each row's allowed scaled logits (float32);
+    EMPTY_LSE for a row with no allowed key (K4's second output)."""
+    Q, C = q.shape
+    H = num_heads
+    D = C // H
+    qh = q.float().reshape(Q, H, D).transpose(0, 1)
+    kh = k.float().reshape(-1, H, D).transpose(0, 1)
+    logits = (qh @ kh.transpose(-1, -2)) / D ** 0.5             # [H, Q, K]
+    logits = logits.masked_fill(~allowed[None], float('-inf'))
+    lse = torch.logsumexp(logits, -1).transpose(0, 1)
+    return torch.where(allowed.any(-1)[:, None], lse,
+                       torch.full_like(lse, EMPTY_LSE))
+
+
+def _check(q, k, v, allowed, num_heads):
     Q, C = q.shape
     K = k.shape[0]
     D = C // num_heads
@@ -61,6 +76,14 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f'got C={C} heads={num_heads}')
     if k.dtype != q.dtype or v.dtype != q.dtype or allowed.shape != (Q, K):
         raise ValueError('q/k/v must share a dtype; allowed must be [Q, K]')
+
+
+def masked_attention_forward(q, k, v, allowed, num_heads: int):
+    """Kernel K4 on CUDA tensors -> (out [Q, C], lse [Q, H] float32)."""
+    _check(q, k, v, allowed, num_heads)
+    Q, C = q.shape
+    K = k.shape[0]
+    D = C // num_heads
     q, k, v = (t.contiguous() for t in (q, k, v))
     mask = allowed.to(torch.bool).contiguous()
     kernels.check_cuda(q, k, v, mask)
@@ -75,13 +98,83 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     po = torch.empty((splits, Q, C), **f32)
     pm = torch.empty((splits, Q, num_heads), **f32)
     pl = torch.empty((splits, Q, num_heads), **f32)
+    lse = torch.empty((Q, num_heads), **f32)
     out = torch.empty_like(q)
     kernels.launch('mv2d_masked_attention', q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                   po.data_ptr(), pm.data_ptr(), pl.data_ptr(), Q, K,
-                   num_heads, D, splits, kernels.dtype_code(q))
+                   lse.data_ptr(), po.data_ptr(), pm.data_ptr(),
+                   pl.data_ptr(), Q, K, num_heads, D, splits,
+                   kernels.dtype_code(q))
     masked_attention.launches += 1
-    return out
+    return out, lse
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     allowed: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Kernel K4: q [Q, C], k/v [K, C] (float32 or bfloat16, one dtype),
+    allowed [Q, K] bool -> [Q, C].  CPU tensors take
+    `masked_attention_plain`."""
+    if q.device.type == 'cpu':
+        return masked_attention_plain(q, k, v, allowed, num_heads)
+    return masked_attention_forward(q, k, v, allowed, num_heads)[0]
 
 
 masked_attention.launches = 0
+
+
+def masked_attention_backward(q, k, v, allowed, out, lse, dout,
+                              num_heads: int):
+    """Kernel B8 on CUDA tensors: -> (dq, dk, dv) float32."""
+    _check(q, k, v, allowed, num_heads)
+    Q, C = q.shape
+    K = k.shape[0]
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (Q, num_heads) or dout.dtype != q.dtype:
+        raise ValueError('out / dout must be [Q, C] in q.dtype, lse [Q, H]')
+    q, k, v, out, dout, lse = (t.contiguous() for t in
+                               (q, k, v, out, dout, lse))
+    mask = allowed.to(torch.bool).contiguous()
+    kernels.check_cuda(q, k, v, mask, out, dout, lse)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((Q, num_heads), **f32)
+    dq = torch.zeros((Q, C), **f32)
+    dk = torch.zeros((K, C), **f32)
+    dv = torch.zeros((K, C), **f32)
+    kernels.launch('mv2d_masked_attention_bwd', q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                   dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), Q, K,
+                   num_heads, C // num_heads, kernels.dtype_code(q))
+    masked_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+masked_attention_backward.launches = 0
+
+
+class MaskedAttentionFn(torch.autograd.Function):
+    """K4 (with its log-sum-exp) forward, B8 backward; no gradient to the
+    mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, allowed, num_heads):
+        out, lse = masked_attention_forward(q, k, v, allowed, num_heads)
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, allowed, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, allowed, out, lse = ctx.saved_tensors
+        dq, dk, dv = masked_attention_backward(
+            q, k, v, allowed, out, lse, dout.to(q.dtype), ctx.num_heads)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def masked_attention_train(q, k, v, allowed, num_heads: int):
+    """Differentiable masked attention.  CPU tensors take
+    `masked_attention_plain` (autograd); CUDA tensors run
+    `MaskedAttentionFn` (kernels K4 / B8)."""
+    if q.device.type == 'cpu':
+        return masked_attention_plain(q, k, v, allowed, num_heads)
+    return MaskedAttentionFn.apply(q, k, v, allowed, num_heads)

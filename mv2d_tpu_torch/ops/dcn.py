@@ -5,7 +5,12 @@ Port of `mv2d_tpu/ops/dcn.py`.  A regular conv predicts per-tap offsets
 the input bilinearly at its offset position (border-clamped inside, zero
 outside the map) and the masked samples are contracted with the [9, C, F]
 tap weights.  `dcn_conv` is kernel K2 (`csrc/dcn.cu`), replacing
-`mv2d_tpu/ops/pallas_dcn.py: pallas_dcn_conv`.
+`mv2d_tpu/ops/pallas_dcn.py: pallas_dcn_conv`; it runs when no gradient
+is recorded.  With gradients on, the training path of the JAX package
+(`dcn_modulated_conv_train`) is followed: `dcn_samples` (kernel B5, its
+gradient kernel B6 in `DCNSamplesFn`) writes the modulated samples
+[V, Ho, Wo, 9, C] and one matmul against the [9C, F] tap weights
+contracts them, so dw and dsamples come from the matmul's autograd.
 
 Sampling coordinates are built in float32 for every activation dtype.
 """
@@ -83,6 +88,96 @@ def dcn_conv(x, sy, sx, mask, w):
 dcn_conv.launches = 0
 
 
+def dcn_samples_plain(x, sy, sx, mask):
+    """x [V, H, W, C]; sy, sx, mask [V, Ho, Wo, 9] float32 ->
+    [V, Ho, Wo, 9, C] masked bilinear samples in x.dtype (float32 gather;
+    its autograd is the floor-form derivative B6 computes)."""
+    V, Ho, Wo, K = sy.shape
+    C = x.shape[-1]
+    samples = bilinear_zero_outside(x, sy.reshape(V, -1), sx.reshape(V, -1))
+    return (samples.reshape(V, Ho, Wo, K, C) * mask[..., None]).to(x.dtype)
+
+
+def _check_samples_args(x, sy, sx, mask):
+    V, H, W, C = x.shape
+    if sy.shape[-1] != 9 or C % 8:
+        raise ValueError(f'dcn samples kernel takes 3x3 taps and C%8==0; '
+                         f'got taps={sy.shape[-1]} C={C}')
+    if sy.dtype != torch.float32 or sx.dtype != torch.float32 \
+            or mask.dtype != torch.float32:
+        raise TypeError('dcn samples kernel takes float32 sy/sx/mask')
+    if sx.shape != sy.shape or mask.shape != sy.shape \
+            or sy.shape[0] != V:
+        raise ValueError('sy, sx and mask must be [V, Ho, Wo, 9]')
+
+
+def dcn_samples_forward(x, sy, sx, mask):
+    """Kernel B5 on CUDA tensors: -> [V, Ho, Wo, 9, C] in x.dtype."""
+    _check_samples_args(x, sy, sx, mask)
+    x, sy, sx, mask = (t.contiguous() for t in (x, sy, sx, mask))
+    kernels.check_cuda(x, sy, sx, mask)
+    V, H, W, C = x.shape
+    _, Ho, Wo, K = sy.shape
+    out = torch.empty((V, Ho, Wo, K, C), dtype=x.dtype, device=x.device)
+    kernels.launch('mv2d_dcn_samples', x.data_ptr(), sy.data_ptr(),
+                   sx.data_ptr(), mask.data_ptr(), out.data_ptr(), V, H, W,
+                   C, Ho, Wo, kernels.dtype_code(x))
+    dcn_samples_forward.launches += 1
+    return out
+
+
+dcn_samples_forward.launches = 0
+
+
+def dcn_samples_backward(x, sy, sx, mask, dsamples):
+    """Kernel B6 on CUDA tensors: dsamples [V, Ho, Wo, 9, C] (x.dtype) ->
+    (dx [V, H, W, C], dsy, dsx, dmask [V, Ho, Wo, 9]), all float32."""
+    _check_samples_args(x, sy, sx, mask)
+    V, H, W, C = x.shape
+    _, Ho, Wo, K = sy.shape
+    if dsamples.shape != (V, Ho, Wo, K, C) or dsamples.dtype != x.dtype:
+        raise ValueError('dsamples must be [V, Ho, Wo, 9, C] in x.dtype')
+    x, sy, sx, mask, dsamples = (t.contiguous() for t in
+                                 (x, sy, sx, mask, dsamples))
+    kernels.check_cuda(x, sy, sx, mask, dsamples)
+    dx = torch.zeros((V, H, W, C), dtype=torch.float32, device=x.device)
+    dsy, dsx, dm = (torch.empty_like(sy) for _ in range(3))
+    kernels.launch('mv2d_dcn_samples_bwd', x.data_ptr(), sy.data_ptr(),
+                   sx.data_ptr(), mask.data_ptr(), dsamples.data_ptr(),
+                   dx.data_ptr(), dsy.data_ptr(), dsx.data_ptr(),
+                   dm.data_ptr(), V, H, W, C, Ho, Wo, kernels.dtype_code(x))
+    dcn_samples_backward.launches += 1
+    return dx, dsy, dsx, dm
+
+
+dcn_samples_backward.launches = 0
+
+
+class DCNSamplesFn(torch.autograd.Function):
+    """B5 forward, B6 backward (gradients to x, sy, sx and mask)."""
+
+    @staticmethod
+    def forward(ctx, x, sy, sx, mask):
+        ctx.save_for_backward(x, sy, sx, mask)
+        return dcn_samples_forward(x, sy, sx, mask)
+
+    @staticmethod
+    def backward(ctx, dsamples):
+        x, sy, sx, mask = ctx.saved_tensors
+        dx, dsy, dsx, dm = dcn_samples_backward(x, sy, sx, mask,
+                                                dsamples.to(x.dtype))
+        return dx.to(x.dtype), dsy, dsx, dm
+
+
+def dcn_samples(x, sy, sx, mask):
+    """Differentiable masked bilinear samples [V, Ho, Wo, 9, C].  CPU
+    tensors take `dcn_samples_plain` (autograd); CUDA tensors run
+    `DCNSamplesFn` (kernels B5 / B6)."""
+    if x.device.type == 'cpu':
+        return dcn_samples_plain(x, sy, sx, mask)
+    return DCNSamplesFn.apply(x, sy, sx, mask)
+
+
 class ModulatedDeformConv(tnn.Module):
     """mmcv ModulatedDeformConv2dPack (bias=False) key layout: weight
     [F, C, 3, 3] and conv_offset (3*9 outputs, zero-init)."""
@@ -126,5 +221,11 @@ class ModulatedDeformConv(tnn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         sy, sx, mask = self.sample_coords(x)
-        return dcn_conv(x, sy.contiguous(), sx.contiguous(), mask,
-                        self.tap_weights(x.dtype))
+        sy, sx = sy.contiguous(), sx.contiguous()
+        w = self.tap_weights(x.dtype)
+        if not torch.is_grad_enabled():
+            return dcn_conv(x, sy, sx, mask, w)
+        V, Ho, Wo, _ = sy.shape
+        samples = dcn_samples(x, sy, sx, mask)
+        y = samples.reshape(V * Ho * Wo, -1) @ w.reshape(-1, w.shape[-1])
+        return y.reshape(V, Ho, Wo, -1)

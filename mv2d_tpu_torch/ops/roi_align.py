@@ -10,6 +10,9 @@ S = ceil(extent / O) (0 -> zero output).
 * `roi_align_multilevel` is kernel K3 (`csrc/roi_align.cu`), replacing
   `mv2d_tpu/ops/pallas_roi_align.py: pallas_roi_align_views` for the
   R-CNN stage; its plain version is `multilevel_roi_align_plain`.
+  `roi_align_multilevel_train` is its differentiable form for the R-CNN
+  loss (`RoIAlignMultilevelFn`: K3 forward, kernel B9 backward, replacing
+  `pallas_roi_align_views_train`), with gradients to the features only.
 * `separable_roi_align_views` (3D head) stays plain torch, as the JAX
   package leaves it to XLA: every RoI row/column becomes a weight vector
   and the view tile is contracted with two matmuls.
@@ -134,12 +137,80 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     rois = rois.float().contiguous()
     kernels.check_cuda(*feats, rois)
     out = torch.empty((V, P, 7, 7, C), dtype=dt, device=rois.device)
-    dims = [d for f in feats for d in (f.shape[1], f.shape[2])]
+    dims, scales = _levels_args([f.shape for f in feats], strides)
     kernels.launch('mv2d_roi_align', *(f.data_ptr() for f in feats), *dims,
-                   *(1.0 / s for s in strides), rois.data_ptr(),
+                   *scales, rois.data_ptr(),
                    out.data_ptr(), V, P, C, kernels.dtype_code(feats[0]))
     roi_align_multilevel.launches += 1
     return out
 
 
 roi_align_multilevel.launches = 0
+
+
+def _levels_args(shapes, strides):
+    dims = [d for (_, H, W, _) in shapes for d in (H, W)]
+    return dims, [1.0 / s for s in strides]
+
+
+def roi_align_multilevel_backward(feats: Sequence[torch.Tensor],
+                                  rois: torch.Tensor, dout: torch.Tensor,
+                                  strides: Sequence[int]):
+    """Kernel B9 on CUDA tensors: dOut [V, P, 7, 7, C] (feats' dtype) ->
+    the four levels' float32 gradients [V, H_l, W_l, C] (K3's routing and
+    sampling transposed, in separable form)."""
+    if len(feats) != 4 or len(strides) != 4:
+        raise ValueError('roi_align kernel takes exactly four levels')
+    V, P = rois.shape[:2]
+    C = feats[0].shape[-1]
+    if dout.shape != (V, P, 7, 7, C) or dout.dtype != feats[0].dtype \
+            or C % 8:
+        raise ValueError('dout must be [V, P, 7, 7, C] in the levels\' '
+                         'dtype, C a multiple of 8')
+    if any(max(f.shape[1], f.shape[2]) > 512 for f in feats):
+        raise ValueError('roi_align backward kernel takes levels of at '
+                         'most 512 cells a side')
+    rois = rois.float().contiguous()
+    dout = dout.contiguous()
+    kernels.check_cuda(rois, dout)
+    grads = [torch.zeros(f.shape, dtype=torch.float32, device=rois.device)
+             for f in feats]
+    dims, scales = _levels_args([f.shape for f in feats], strides)
+    kernels.launch('mv2d_roi_align_bwd', *(g.data_ptr() for g in grads),
+                   *dims, *scales, rois.data_ptr(), dout.data_ptr(), V, P,
+                   C, kernels.dtype_code(dout))
+    roi_align_multilevel_backward.launches += 1
+    return grads
+
+
+roi_align_multilevel_backward.launches = 0
+
+
+class RoIAlignMultilevelFn(torch.autograd.Function):
+    """K3 forward, B9 backward; the RoIs get no gradient."""
+
+    @staticmethod
+    def forward(ctx, rois, strides, *feats):
+        ctx.strides = strides
+        ctx.save_for_backward(rois, *feats)
+        return roi_align_multilevel(list(feats), rois, strides)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rois, *feats = ctx.saved_tensors
+        grads = roi_align_multilevel_backward(
+            feats, rois, dout.to(feats[0].dtype), ctx.strides)
+        return (None, None, *(g.to(f.dtype) for g, f in zip(grads, feats)))
+
+
+def roi_align_multilevel_train(feats: Sequence[torch.Tensor],
+                               rois: torch.Tensor, strides: Sequence[int]
+                               ) -> torch.Tensor:
+    """Differentiable 7x7 multi-level RoIAlign [V, P, 7, 7, C] with the
+    gradient to the features.  CPU tensors take
+    `multilevel_roi_align_plain` (autograd); CUDA tensors run
+    `RoIAlignMultilevelFn` (kernels K3 / B9)."""
+    rois = rois.detach()
+    if rois.device.type == 'cpu':
+        return multilevel_roi_align_plain(feats, rois, strides)
+    return RoIAlignMultilevelFn.apply(rois, tuple(strides), *feats)

@@ -1,0 +1,187 @@
+"""One MV2D training step: the full loss and the clipped AdamW update.
+
+Port of `mv2d_tpu/train/train_step.py` (`compute_losses`,
+`make_train_step`): grid mask, backbone and FPN, RPN and R-CNN losses on
+the current frame's views, detections without gradients plus missed GT,
+the 3D head with DN, per-layer Hungarian matching on the host, and the
+update.  Mixed precision is the JAX package's: float32 master parameters,
+a bfloat16 forward through bfloat16 copies of them (their gradients reach
+the masters through the casts), losses in float32.
+
+Every random number of a step is drawn up front into `TrainDraws` (grid
+mask, DN noise, the samplers' uniform keys) or, for dropout, from the
+step's generator, so a test can pin them all.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as tnn
+
+from ..configs import MV2DConfig
+from ..core.geometry import CameraParams
+from ..models.mv2d import MV2D, GroundTruth2D, GroundTruth3D
+from ..nn.decoder import NO_DROPOUT, Dropout
+from ..nn.rpn import grid_anchors, rpn_proposals
+from ..ops.grid_mask import GridMaskDraws, draw_grid_mask
+from . import detector2d_loss as d2l
+from .losses import mv2d_head_loss
+from .optim import apply_update
+
+
+class TrainBatch(NamedTuple):
+    """One scene (the reference trains one scene per device)."""
+    imgs: torch.Tensor          # [V, H, W, 3] normalized
+    cam: CameraParams
+    img_shapes: torch.Tensor    # [V, 2]
+    gt2d: GroundTruth2D
+    gt3d: GroundTruth3D
+
+
+class TrainDraws(NamedTuple):
+    grid: GridMaskDraws
+    dn_noise: torch.Tensor      # [denoise_scalar * max_gt, 3] U(-1, 1)
+    rpn_u: torch.Tensor         # [2, Vc, anchors] U(0, 1): pos, neg keys
+    rcnn_u: torch.Tensor        # [2, Vc, rpn_max_per_img + G2]
+
+
+def all_anchors(cfg: MV2DConfig) -> torch.Tensor:
+    """Every RPN anchor [N, 4] in the flattened score order."""
+    H, W = cfg.image_size
+    return torch.from_numpy(np.concatenate(
+        [grid_anchors((-(-H // s), -(-W // s)), s)
+         for s in (4, 8, 16, 32, 64)]))
+
+
+def current_views(cfg: MV2DConfig) -> int:
+    """Views the 2D losses see: the current frame's."""
+    return cfg.num_views if cfg.num_frames > 1 else cfg.total_views
+
+
+def draw_train(cfg: MV2DConfig, num_gt2d: int,
+               generator: torch.Generator) -> TrainDraws:
+    """A step's draws, on the generator's device."""
+    g = generator
+    dev = g.device
+    Vc = current_views(cfg)
+    grid = draw_grid_mask(cfg.total_views, cfg.image_size, g)
+    n_anchor = all_anchors(cfg).shape[0]
+    n_rcnn = cfg.proposal_train.rpn_max_per_img + num_gt2d
+    return TrainDraws(
+        grid=grid,
+        dn_noise=torch.rand(cfg.dn_pad, 3, generator=g, device=dev) * 2 - 1,
+        rpn_u=torch.rand(2, Vc, n_anchor, generator=g, device=dev),
+        rcnn_u=torch.rand(2, Vc, n_rcnn, generator=g, device=dev))
+
+
+def compute_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
+                   drop: Dropout = NO_DROPOUT
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, metrics) of one scene, in float32."""
+    cfg = model.cfg
+    out, det = model.forward_train(batch.imgs, batch.cam, batch.img_shapes,
+                                   batch.gt2d, batch.gt3d, draws.grid,
+                                   draws.dn_noise, drop)
+    losses = mv2d_head_loss(out, batch.gt3d, cfg)
+
+    Vc = current_views(cfg)
+    gt2d = batch.gt2d
+    # RPN losses on the current frame's views
+    anchors = all_anchors(cfg).to(batch.imgs.device)
+    flat_scores = torch.cat([s.reshape(s.shape[0], -1)
+                             for s in det['rpn_scores']], 1)
+    flat_deltas = torch.cat([d.reshape(d.shape[0], -1, 4)
+                             for d in det['rpn_deltas']], 1)
+    rpn = d2l.rpn_loss(flat_scores, flat_deltas, anchors, gt2d.boxes[:Vc],
+                       gt2d.valid[:Vc], draws.rpn_u[0], draws.rpn_u[1])
+    losses['det_loss_rpn_cls'] = rpn['loss_rpn_cls'].mean()
+    losses['det_loss_rpn_bbox'] = rpn['loss_rpn_bbox'].mean()
+
+    # R-CNN losses on sampled RoIs (train RPN settings: nms_pre 2000)
+    with torch.no_grad():
+        rp_boxes, _, rp_valid = rpn_proposals(
+            [s.detach() for s in det['rpn_scores']],
+            [d.detach() for d in det['rpn_deltas']], (4, 8, 16, 32, 64),
+            cfg.image_size, nms_pre=min(2000, flat_scores.shape[1]),
+            max_per_img=cfg.proposal_train.rpn_max_per_img,
+            iou_threshold=0.7)
+        samples = d2l.rcnn_sample(rp_boxes, rp_valid, gt2d.boxes[:Vc],
+                                  gt2d.labels[:Vc], gt2d.valid[:Vc],
+                                  draws.rcnn_u[0], draws.rcnn_u[1],
+                                  cfg.num_classes)
+    cls_logits, reg_deltas = model.rcnn_train_forward(det['fpn_feats'],
+                                                      samples.rois)
+    rcnn = d2l.rcnn_loss(cls_logits, reg_deltas, samples, cfg.num_classes)
+    losses['det_loss_cls'] = rcnn['loss_cls']
+    losses['det_loss_bbox'] = rcnn['loss_bbox']
+
+    total = sum(v for k, v in losses.items() if 'loss' in k)
+    metrics = dict(losses)
+    metrics['rpn_num_pos'] = rpn['rpn_num_pos'].sum()
+    metrics['rcnn_num_pos'] = rcnn['rcnn_num_pos']
+    metrics['num_queries'] = out.query_valid.sum()
+    metrics['key_active'] = out.diagnostics['key_active']
+    metrics['key_overflow'] = out.diagnostics['key_overflow']
+    return total, metrics
+
+
+class _LossModule(tnn.Module):
+    """Wraps compute_losses so torch.func.functional_call can run it on
+    substituted (bfloat16) parameters."""
+
+    def __init__(self, model: MV2D):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, draws, drop):
+        return compute_losses(self.model, batch, draws, drop)
+
+
+def step_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
+                drop: Dropout = NO_DROPOUT, mixed_precision: bool = True
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """compute_losses; mixed_precision runs the forward in bfloat16
+    through bfloat16 copies of the float32 parameters and images, so the
+    gradients reach the float32 masters through the casts."""
+    if not mixed_precision:
+        return compute_losses(model, batch, draws, drop)
+    params = {f'model.{n}': p.to(torch.bfloat16)
+              if p.dtype == torch.float32 else p
+              for n, p in model.named_parameters()}
+    batch = batch._replace(imgs=batch.imgs.to(torch.bfloat16))
+    return torch.func.functional_call(_LossModule(model), params,
+                                      (batch, draws, drop), strict=False)
+
+
+def forward_backward(model: MV2D, batch: TrainBatch, draws: TrainDraws,
+                     drop: Dropout = NO_DROPOUT,
+                     mixed_precision: bool = True
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Losses of one scene and their gradients in the parameters' .grad
+    (float32 masters)."""
+    total, metrics = step_losses(model, batch, draws, drop, mixed_precision)
+    total.backward()
+    return total.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def train_step(model: MV2D, optimizer: torch.optim.Optimizer,
+               batch: TrainBatch,
+               generator: Optional[torch.Generator] = None,
+               mixed_precision: bool = True) -> Dict[str, torch.Tensor]:
+    """One update of `model` on `batch` -> metrics (the loss terms,
+    rpn_num_pos, rcnn_num_pos, num_queries, key_active, key_overflow,
+    total_loss, grad_norm, lr).  The draws come from `generator`, by
+    default a seeded one on the card."""
+    cfg = model.cfg
+    g = generator if generator is not None else \
+        torch.Generator(device='cuda').manual_seed(0)
+    draws = draw_train(cfg, batch.gt2d.boxes.shape[1], g)
+    optimizer.zero_grad(set_to_none=True)
+    total, metrics = forward_backward(model, batch, draws,
+                                      Dropout(cfg.dropout, g),
+                                      mixed_precision)
+    norm, lr = apply_update(optimizer)
+    metrics.update(grad_norm=norm, lr=torch.tensor(lr), total_loss=total)
+    return metrics

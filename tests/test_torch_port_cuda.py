@@ -80,6 +80,85 @@ def test_attention_kernel(dev, dtype, tol, self_attn):
     assert bool((got[empty] == 0).all())
 
 
+def check_all(kernel_outs, plain_outs, tol):
+    torch.cuda.synchronize()
+    err, rel, finite, same = smoke.compare_all(kernel_outs, plain_outs)
+    assert same and finite and rel <= tol, (err, rel)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('stride,far,integer', [
+    (1, 0.0, False), (2, 0.0, False), (1, 0.3, False), (1, 0.0, True)])
+def test_dcn_samples_kernels(dev, dtype, tol, stride, far, integer):
+    """B5 forward and B6 backward against autograd of the plain samples;
+    `integer` puts every sample on integer coordinates (zero offsets)."""
+    from mv2d_tpu_torch.ops import dcn
+    x, sy, sx, m, _ = smoke.dcn_inputs(dev, getattr(torch, dtype), 2, 11,
+                                       19, 64, 64, stride, far=far)
+    if integer:
+        sy, sx = sy.round(), sx.round()
+    args = (x, sy, sx, m)
+    out, grads = smoke.plain_grads(dcn.dcn_samples_plain, args, range(4),
+                                   smoke.cotangent(dcn.dcn_samples_plain(
+                                       *args)))
+    n5, n6 = dcn.dcn_samples_forward.launches, \
+        dcn.dcn_samples_backward.launches
+    got, ggot = smoke.plain_grads(dcn.dcn_samples, args, range(4),
+                                  smoke.cotangent(out))
+    assert dcn.dcn_samples_forward.launches == n5 + 1
+    assert dcn.dcn_samples_backward.launches == n6 + 1
+    check_all([got, *ggot], [out, *grads], tol)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('self_attn', [False, True])
+def test_attention_lse_and_backward_kernels(dev, dtype, tol, self_attn):
+    """K4's log-sum-exp output and B8 against the plain version's
+    logsumexp and autograd; rows with no allowed key get zero dq."""
+    from mv2d_tpu_torch.ops import attention
+    q, k, v, a = smoke.attention_inputs(dev, getattr(torch, dtype), Q=100,
+                                        K=1000, C=64, self_attn=self_attn)
+    a[:, :64] = False                         # keys no row may attend
+    _, lse = attention.masked_attention_forward(q, k, v, a, 2)
+    check_all([lse], [attention.attention_lse_plain(q, k, a, 2)], tol)
+    args = (q, k, v, a, 2)
+    out, grads = smoke.plain_grads(attention.masked_attention_plain, args,
+                                   range(3), smoke.cotangent(q))
+    n8 = attention.masked_attention_backward.launches
+    got, ggot = smoke.plain_grads(attention.masked_attention_train, args,
+                                  range(3), smoke.cotangent(q))
+    assert attention.masked_attention_backward.launches == n8 + 1
+    check_all([got, *ggot], [out, *grads], tol)
+    empty = ~a.any(-1)
+    assert bool((ggot[0][empty] == 0).all())
+    assert bool((ggot[1][:64] == 0).all() and (ggot[2][:64] == 0).all())
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+def test_roi_align_backward_kernel(dev, dtype, tol):
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois = smoke.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
+                                   img=(256, 512), C=32, edge=True)
+    strides = (4, 8, 16, 32)
+
+    def plain(*fs):
+        return roi_align.multilevel_roi_align_plain(fs, rois, strides)
+
+    def train(*fs):
+        return roi_align.roi_align_multilevel_train(fs, rois, strides)
+
+    out, grads = smoke.plain_grads(plain, feats, range(4),
+                                   smoke.cotangent(plain(*feats)))
+    ggot_levels = roi_align.roi_align_multilevel_backward(
+        feats, rois, smoke.cotangent(out), strides)
+    check_all(ggot_levels, grads, tol)
+    n9 = roi_align.roi_align_multilevel_backward.launches
+    got, ggot = smoke.plain_grads(train, feats, range(4),
+                                  smoke.cotangent(out))
+    assert roi_align.roi_align_multilevel_backward.launches == n9 + 1
+    check_all([got, *ggot], [out, *grads], tol)
+
+
 def test_kernels_refuse_cpu_fallback(dev):
     """On CUDA tensors a wrapper launches or raises; bad input raises."""
     from mv2d_tpu_torch.ops import attention

@@ -212,6 +212,24 @@ def test_wrappers_take_plain_path_only_on_cpu():
             torch.empty(5, 32, **meta), torch.empty(7, 32, **meta),
             torch.empty(7, 32, **meta),
             torch.empty(5, 7, dtype=torch.bool, **meta), 4),
+        # the training path's wrappers and their backward kernels
+        lambda: dcn.dcn_samples(x, c, c, c),
+        lambda: dcn.dcn_samples_backward(
+            x, c, c, c, torch.empty(1, 4, 4, 9, 32, **meta)),
+        lambda: attention.masked_attention_train(
+            torch.empty(5, 32, **meta), torch.empty(7, 32, **meta),
+            torch.empty(7, 32, **meta),
+            torch.empty(5, 7, dtype=torch.bool, **meta), 4),
+        lambda: attention.masked_attention_backward(
+            *(torch.empty(n, 32, **meta) for n in (5, 7, 7)),
+            torch.empty(5, 7, dtype=torch.bool, **meta),
+            torch.empty(5, 32, **meta), torch.empty(5, 4, **meta),
+            torch.empty(5, 32, **meta), 4),
+        lambda: roi_align.roi_align_multilevel_train(
+            [x] * 4, torch.empty(1, 3, 4, **meta), (4, 8, 16, 32)),
+        lambda: roi_align.roi_align_multilevel_backward(
+            [x] * 4, torch.empty(1, 3, 4, **meta),
+            torch.empty(1, 3, 7, 7, 32, **meta), (4, 8, 16, 32)),
     ]
     for call in calls:
         with pytest.raises((ValueError, KeyError)):

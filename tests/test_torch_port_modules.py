@@ -166,7 +166,7 @@ def test_correlation_and_key_gather():
     size, stride, P = (64, 96), 16, 6
     K, E = camera_rig(2, size)
     K, E = np.concatenate([K, K]), np.concatenate([E, E])
-    jcam, tcam = j_cam(K, E), t_cam(K, E)
+    jcam, tcam = j_cam(K, E), t_cam(K, E, device='cpu')
     boxes, valid = _boxes(rng, 4, P, size)
     cfg = CorrelationConfig(sample_size=2, num_depth=4, topk=2)
     ids_j, mask_j = jax.jit(jcorr.epipolar_in_box, static_argnums=(3, 4))(

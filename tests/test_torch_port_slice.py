@@ -76,7 +76,7 @@ def build(seed=0, **cfg_kw):
     K, E = camera_rig(V, jc.image_size)
     ts = [0.0] * jc.num_views + [0.5] * (V - jc.num_views)
     jcam = j_cam(K, E, timestamps=ts)
-    tcam = t_cam(K, E, timestamps=ts)
+    tcam = t_cam(K, E, timestamps=ts, device='cpu')
     rng = np.random.default_rng(seed + 1)
     imgs = rng.normal(size=(V, *jc.image_size, 3)).astype(np.float32)
     shapes = np.asarray([[*jc.image_size]] * V)
@@ -168,8 +168,14 @@ def test_port_imports_without_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
-        "print(len(names))\n")
+        "assert not any(m.startswith('mv2d_tpu.') for m in sys.modules)\n"
+        "print(' '.join(names))\n")
     r = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 15
+    names = set(r.stdout.split())
+    assert len(names) >= 15
+    for m in ('train.train_step', 'train.optim', 'train.losses',
+              'train.detector2d_loss', 'core.matching', 'ops.grid_mask',
+              'ops.focal_loss'):
+        assert f'mv2d_tpu_torch.{m}' in names, m
