@@ -30,10 +30,25 @@ Phases, in order; any failure exits non-zero without the final line:
      is warm-up): finite losses, total and grad norm, trained parameters
      moved and frozen ones not, each training kernel's launches per step,
      ms per step and peak memory, and the inputs each training kernel saw
-     first replayed through its plain version.
-Each path's launch counters are set to 0 just before it and read just
-after.  Then one JSON line with the kernels' results, the card's name and
-power limit, and the last line
+     first replayed through its plain version;
+  8. routes_tiny: the routes that the JAX package's switches select
+     (`mv2d_tpu_torch.routes.Routes`), float32 with TF32 off, GPU against
+     CPU: a ResNet-50 backbone with MV2D-T's DCN layout on 2 views at
+     256x704 with fused_stages='all' (MV2D_FUSED_STAGES=all; B10 on
+     layer2's tail, and not while gradients are recorded), and one
+     tiny+DCN training step with dcn_train_fused and flash_sparse
+     (MV2D_DCN_TRAIN_FUSED=1, MV2D_FLASH_SPARSE=1; B13, B14; B5, B6 and B8
+     not launched), every loss and gradient;
+  9. routes: at full width, two bf16 eval forwards with fused_stages='all'
+     and three training steps with both training routes: finite outputs,
+     launches, ms and peak memory beside the default route's from phases
+     6-7, and the first inputs of each new kernel replayed through its
+     plain version.
+The default phases (3-7) build their models with the default routes
+(`Routes()`), whatever the environment holds.  Each path's launch
+counters are set to 0 just before it and read just after.  Then one JSON
+line with the kernels' results, the card's name and power limit, and the
+last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import json
@@ -71,7 +86,20 @@ KERNELS = {
     'roi_align_multilevel_backward': dict(
         source='mv2d_tpu_torch/csrc/roi_align.cu',
         replaces='mv2d_tpu/ops/pallas_roi_align.py:1524'),
+    'fused_identity_chain': dict(
+        source='mv2d_tpu_torch/csrc/stage.cu',
+        replaces='mv2d_tpu/ops/pallas_stage.py:201 (fused_identity_chain '
+                 ':253)'),
+    'dcn_conv_backward': dict(
+        source='mv2d_tpu_torch/csrc/dcn.cu',
+        replaces='mv2d_tpu/ops/pallas_dcn.py:306'),
+    'masked_attention_sparse_backward': dict(
+        source='mv2d_tpu_torch/csrc/attention.cu',
+        replaces='mv2d_tpu/ops/pallas_attention.py:491'),
 }
+# kernels that only the routing switches reach: none on the default paths
+ROUTED_KERNELS = ('fused_identity_chain', 'dcn_conv_backward',
+                  'masked_attention_sparse_backward')
 SERVE_KERNELS = ('fused_stage1', 'dcn_conv', 'roi_align_multilevel',
                  'masked_attention')
 # launches per training step (K1: 3 bottlenecks; K3: at least the no-grad
@@ -79,7 +107,17 @@ SERVE_KERNELS = ('fused_stage1', 'dcn_conv', 'roi_align_multilevel',
 TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_samples': 9,
                   'dcn_samples_backward': 9, 'masked_attention': 12,
                   'masked_attention_backward': 12,
-                  'roi_align_multilevel_backward': 1}
+                  'roi_align_multilevel_backward': 1,
+                  **{n: 0 for n in ROUTED_KERNELS}}
+# launches per training step with the dcn_train_fused and flash_sparse
+# routes (K2: the nine DCN convs' forwards)
+ROUTED_TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_conv': 9,
+                         'dcn_conv_backward': 9, 'dcn_samples': 0,
+                         'dcn_samples_backward': 0, 'masked_attention': 12,
+                         'masked_attention_backward': 0,
+                         'masked_attention_sparse_backward': 12,
+                         'roi_align_multilevel_backward': 1,
+                         'fused_identity_chain': 0}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_OPS_PER_S = 989e12
 
@@ -95,7 +133,11 @@ def counters():
             'masked_attention_backward':
                 attention.masked_attention_backward,
             'roi_align_multilevel_backward':
-                roi_align.roi_align_multilevel_backward}
+                roi_align.roi_align_multilevel_backward,
+            'fused_identity_chain': stage.fused_identity_chain,
+            'dcn_conv_backward': dcn.dcn_conv_backward,
+            'masked_attention_sparse_backward':
+                attention.masked_attention_sparse_backward}
 
 
 def log(*a):
@@ -180,6 +222,28 @@ def stage1_inputs(dev, dtype, V=12, H=128, W=352, seed=0):
         blocks = [{k: v.to(dev) for k, v in blk.folded().items()}
                   for blk in net.layer1]
     x = torch.randn(V, H, W, 64, generator=g).relu().to(dev, dtype)
+    return x, blocks
+
+
+def identity_chain_inputs(dev, dtype, V=12, H=64, W=176, stage=1,
+                          seed=0):
+    """x [V, H, W, 4P] and the folded identity blocks 1..n-1 of stage
+    `stage` (P = 64 * 2**stage) of a seeded ResNet-50 with random frozen-BN
+    statistics."""
+    import torch
+    from mv2d_tpu_torch.nn.resnet import ResNet
+    from mv2d_tpu_torch.synthetic import init_random_weights
+    g = torch.Generator().manual_seed(seed)
+    layer = getattr(init_random_weights(ResNet(50), seed), f'layer{stage + 1}')
+    with torch.no_grad():
+        for m in layer.modules():
+            if hasattr(m, 'running_var'):
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.running_mean.normal_(0, 0.1, generator=g)
+        blocks = [{k: v.to(dev) for k, v in blk.folded().items()}
+                  for blk in layer[1:]]
+    x = torch.randn(V, H, W, blocks[0]['w1'].shape[0],
+                    generator=g).relu().to(dev, dtype)
     return x, blocks
 
 
@@ -299,11 +363,13 @@ class Case:
     """One kernel case: `kernel()` and `plain()` give the results to
     compare (a tensor or a sequence of tensors), `work` = (bytes, ops) of
     the function for its bound, `library()` one PyTorch call computing the
-    same function (timed only), or None."""
+    same function (timed only), or None; `extra` names further calls timed
+    beside them (the default route's kernels for the same work)."""
 
-    def __init__(self, kernel, plain, work, library=None):
+    def __init__(self, kernel, plain, work, library=None, extra=None):
         self.kernel, self.plain = kernel, plain
         self.work, self.library = work, library
+        self.extra = extra or {}
 
 
 def nbytes(*tensors):
@@ -349,6 +415,18 @@ def kernel_cases():
                     lambda: stage.fused_stage1_plain(x, blocks),
                     (nbytes(x) * 5 + macs * 2, 2.0 * N * macs))
 
+    def identity_chain(V, H, W, stage_index):
+        def build(dev, dt):
+            x, blocks = identity_chain_inputs(dev, dt, V, H, W, stage_index)
+            N = x.shape[0] * x.shape[1] * x.shape[2]
+            macs = sum(w.numel() for blk in blocks for k, w in blk.items()
+                       if k.startswith('w'))
+            return Case(lambda: stage.fused_identity_chain(x, blocks),
+                        lambda: stage.fused_identity_chain_plain(x, blocks),
+                        (nbytes(x) * 2 + macs * x.element_size(),
+                         2.0 * N * macs))
+        return build
+
     def dcn_conv(V, H, W, C, F_, s, far=0.0):
         def build(dev, dt):
             args = dcn_inputs(dev, dt, V, H, W, C, F_, s, far=far)
@@ -389,6 +467,38 @@ def kernel_cases():
                                             retain_graph=True),
                 (nbytes(x, sy, sx, m, g) + x.numel() * 4 + 3 * nbytes(sy),
                  20.0 * sy.numel() * C))
+        return build
+
+    def dcn_conv_bwd(V, H, W, C, F_, s, far=0.0, integer=False):
+        def build(dev, dt):
+            x, sy, sx, m, w = dcn_inputs(dev, dt, V, H, W, C, F_, s, far=far)
+            if integer:                 # zero offsets: integer coordinates
+                sy, sx = sy.round(), sx.round()
+            args = (x, sy, sx, m, w)
+            leaves = [t.clone().requires_grad_(True) for t in args]
+            with torch.enable_grad():
+                out = dcn.dcn_conv_plain(*leaves)
+            g = cotangent(out)
+            N = sy.numel() // 9
+
+            def fwd_bwd(fn):            # a route's forward and backward
+                with torch.enable_grad():
+                    return torch.autograd.grad(fn(*leaves), leaves, g)
+
+            def default_route(x_, sy_, sx_, m_, w_):   # B5 + matmul
+                smp = dcn.dcn_samples(x_, sy_, sx_, m_)
+                return (smp.reshape(N, -1) @ w_.reshape(-1, F_)).reshape(
+                    out.shape)
+            return Case(
+                lambda: dcn.dcn_conv_backward(x, sy, sx, m, w, g),
+                lambda: torch.autograd.grad(out, leaves, g,
+                                            retain_graph=True),
+                (nbytes(x, sy, sx, m, w, g) + 4.0 * (x.numel() + w.numel())
+                 + 3 * nbytes(sy), 4.0 * N * 9 * C * F_),
+                extra={'route_fwd_bwd_ms':
+                       lambda: fwd_bwd(dcn.dcn_conv_train),
+                       'default_route_fwd_bwd_ms':
+                       lambda: fwd_bwd(default_route)})
         return build
 
     def roi(edge, V=12, P=1000):
@@ -455,7 +565,7 @@ def kernel_cases():
                         work, lib)
         return build
 
-    def attn_bwd(inputs):
+    def attn_bwd(inputs, sparse=False):
         def build(dev, dt):
             q, k, v, a = inputs(dev, dt)
             out, lse = attention.masked_attention_forward(q, k, v, a, 8)
@@ -469,16 +579,23 @@ def kernel_cases():
                     *sl, attn_mask=a[None, None])
             lg = sdpa_args(g, g, g, a, 8)[0]
             nnz = float(a.sum())
+            b8 = (lambda: attention.masked_attention_backward(  # noqa: E731
+                q, k, v, a, out, lse, g, 8))
+            # the routed forward lists the key tiles once; B14 reads them
+            kt = attention.sparse_key_tiles(a)
             return Case(
-                lambda: attention.masked_attention_backward(
-                    q, k, v, a, out, lse, g, 8),
+                (lambda: attention.masked_attention_sparse_backward(
+                    q, k, v, a, out, lse, g, 8, kt)) if sparse else b8,
                 lambda: torch.autograd.grad(pout, leaves, g,
                                             retain_graph=True),
                 (nbytes(q, k, v, a, out, g, lse) + 4.0 * (q.numel()
                                                           + 2 * k.numel()),
                  10.0 * q.shape[1] * nnz),
                 lambda: torch.autograd.grad(lout, sl, lg,
-                                            retain_graph=True))
+                                            retain_graph=True),
+                extra={'default_b8_ms': b8, 'key_tiles_ms':
+                       lambda: attention.sparse_key_tiles(a)}
+                if sparse else None)
         return build
 
     def eval_attn(self_attn):
@@ -486,6 +603,10 @@ def kernel_cases():
 
     def train_attn(self_attn):
         return lambda dev, dt: train_attention_inputs(dev, dt, self_attn)
+
+    def full_attn(dev, dt):             # every pair allowed
+        q, k, v, a = attention_inputs(dev, dt, Q=300, K=2048)
+        return q, k, v, torch.ones_like(a)
 
     return [
         ('fused_stage1', 'layer1 [12,128,352,64]', True, stage1),
@@ -544,6 +665,28 @@ def kernel_cases():
          roi_bwd(False)),
         ('roi_align_multilevel_backward',
          'edge: 1408x8, 6x512, empty, outside', False, roi_bwd(True)),
+        ('fused_identity_chain', 'layer2 tail P128 [12,64,176,512] x3',
+         True, identity_chain(12, 64, 176, 1)),
+        ('fused_identity_chain', 'layer3 tail P256 [12,32,88,1024] x5',
+         True, identity_chain(12, 32, 88, 2)),
+        ('fused_identity_chain', 'edge: ragged tiles P128 [2,13,37,512]',
+         False, identity_chain(2, 13, 37, 1)),
+        ('dcn_conv_backward', 'stage3 s2 [12,64,176,256]', True,
+         dcn_conv_bwd(12, 64, 176, 256, 256, 2)),
+        ('dcn_conv_backward', 'stage3 s1 [12,32,88,256]', True,
+         dcn_conv_bwd(12, 32, 88, 256, 256, 1)),
+        ('dcn_conv_backward', 'stage4 s1 [12,16,44,512]', True,
+         dcn_conv_bwd(12, 16, 44, 512, 512, 1)),
+        ('dcn_conv_backward', 'edge: 20% offsets far outside', False,
+         dcn_conv_bwd(12, 16, 44, 512, 512, 1, far=0.2)),
+        ('dcn_conv_backward', 'edge: integer coordinates', False,
+         dcn_conv_bwd(12, 16, 44, 512, 512, 1, integer=True)),
+        ('masked_attention_sparse_backward', 'train cross q2628 k16384',
+         True, attn_bwd(train_attn(False), sparse=True)),
+        ('masked_attention_sparse_backward', 'train self q2628 DN mask',
+         True, attn_bwd(train_attn(True), sparse=True)),
+        ('masked_attention_sparse_backward', 'edge: every pair allowed',
+         False, attn_bwd(full_attn, sparse=True)),
     ]
 
 
@@ -571,6 +714,9 @@ def phase_kernels(dev, results):
                 timing = dict(label=label, max_abs_err=err, ms=(k1 + k2) / 2,
                               plain_ms=(p1 + p2) / 2, bound_ms=b_ms,
                               bound_by=b_by, library_ms=lib)
+                for key, fn in case.extra.items():
+                    timing[key] = time_ms(fn)
+                    line += f'  {key} {timing[key]:.3f}'
                 r = results[name]
                 if r['ms'] is None:
                     r.update(timing)
@@ -593,6 +739,7 @@ def phase_tiny_parity(dev):
     from mv2d_tpu_torch import configs
     from mv2d_tpu_torch.core.geometry import prepare_camera_params
     from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.routes import Routes
     from mv2d_tpu_torch.synthetic import camera_rig, init_random_weights
     cfg = configs.tiny(stage_with_dcn=(False, False, True, True),
                        num_frames=2, k_max=48)
@@ -602,7 +749,7 @@ def phase_tiny_parity(dev):
     imgs = torch.from_numpy(np.random.default_rng(1).normal(
         size=(V, *cfg.image_size, 3)).astype(np.float32))
     shapes = torch.tensor([list(cfg.image_size)] * V)
-    model = init_random_weights(MV2D(cfg).eval(), seed=3)
+    model = init_random_weights(MV2D(cfg, Routes()).eval(), seed=3)
     outs = {}
     for d in ('cpu', dev):
         m = model.to(d)
@@ -639,16 +786,24 @@ def to_device(obj, dev):
     return obj
 
 
-def phase_tiny_train(dev):
+DEFAULT_TRAIN_NEED = ('dcn_samples', 'dcn_samples_backward',
+                      'masked_attention', 'masked_attention_backward',
+                      'roi_align_multilevel', 'roi_align_multilevel_backward')
+
+
+def phase_tiny_train(dev, need=DEFAULT_TRAIN_NEED, absent=ROUTED_KERNELS,
+                     routes=None):
     """One tiny+DCN training step (float32, dropout 0) on the GPU (kernels)
-    and on the CPU (plain versions), same weights and draws: every loss
-    term within 1e-4 relative, every parameter's gradient within 1e-3 of
-    its max magnitude (floored at 1e-5 of the largest gradient), the
-    discrete counts equal; the training kernels launched."""
+    and on the CPU (plain versions), same weights and draws, the model
+    built with `routes` (default: `Routes()`): every loss term within 1e-4
+    relative, every parameter's gradient within 1e-3 of its max magnitude
+    (floored at 1e-5 of the largest gradient), the discrete counts equal;
+    the kernels in `need` launched on the GPU, those in `absent` not."""
     import copy
     import torch
     from mv2d_tpu_torch import configs
     from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.routes import Routes
     from mv2d_tpu_torch.synthetic import (init_random_weights,
                                           synthetic_train_batch)
     from mv2d_tpu_torch.train.train_step import draw_train, forward_backward
@@ -657,7 +812,7 @@ def phase_tiny_train(dev):
     batch = synthetic_train_batch(cfg, seed=0, device='cpu')
     draws = draw_train(cfg, batch.gt2d.boxes.shape[1],
                        torch.Generator().manual_seed(1))
-    model = init_random_weights(MV2D(cfg), seed=3)
+    model = init_random_weights(MV2D(cfg, routes or Routes()), seed=3)
     fns = counters()
     runs = {}
     for d in ('cpu', dev):
@@ -678,11 +833,9 @@ def phase_tiny_train(dev):
     floor = 1e-5 * max(g.abs().max().item() for g in gc.values())
     grad_err = max((gg[n] - gc[n]).abs().max().item()
                    / max(gc[n].abs().max().item(), floor) for n in gc)
-    need = ('dcn_samples', 'dcn_samples_backward', 'masked_attention',
-            'masked_attention_backward', 'roi_align_multilevel',
-            'roi_align_multilevel_backward')
     ok = (loss_err <= 1e-4 and grad_err <= 1e-3 and counts_same
-          and set(gg) == set(gc) and all(launched[n] > 0 for n in need))
+          and set(gg) == set(gc) and all(launched[n] > 0 for n in need)
+          and all(launched[n] == 0 for n in absent))
     log(f'  tiny+DCN train step GPU vs CPU: {len(gc)} gradients, '
         f'worst loss rel err {loss_err:.2e} (tol 1e-4), worst grad err '
         f'{grad_err:.2e} of max (tol 1e-3), counts_same={counts_same}, '
@@ -762,6 +915,7 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
     from mv2d_tpu_torch.core.geometry import prepare_camera_params
     from mv2d_tpu_torch.models.mv2d import MV2D
     from mv2d_tpu_torch.ops import attention, roi_align, stage
+    from mv2d_tpu_torch.routes import Routes
     from mv2d_tpu_torch.synthetic import camera_rig, init_random_weights
 
     cfg = cfg or configs.mv2d_t_r50()
@@ -771,7 +925,7 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
     imgs = torch.from_numpy(np.random.default_rng(0).normal(
         size=(V, H, W, 3)).astype(np.float32)).to(dev, torch.bfloat16)
     shapes = torch.tensor([[H, W]] * V, device=dev)
-    model = init_random_weights(MV2D(cfg).eval(), seed=0).to(
+    model = init_random_weights(MV2D(cfg, Routes()).eval(), seed=0).to(
         dev, torch.bfloat16)
 
     # record the inputs each kernel wrapper sees first on the main path:
@@ -801,6 +955,7 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     ms, out = [], None
     try:
         for _ in range(n_requests):
@@ -821,7 +976,9 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
                  for t in (boxes, scores))
     shapes_ok = (tuple(boxes.shape) == (cfg.max_per_scene, 9)
                  and tuple(scores.shape) == (cfg.max_per_scene,))
-    ok = finite and shapes_ok and all(launches[n] > 0 for n in SERVE_KERNELS)
+    ok = finite and shapes_ok and all(
+        launches[n] > 0 for n in SERVE_KERNELS) and all(
+        launches[n] == 0 for n in ROUTED_KERNELS)
     log(f'  forward ms (bf16, {H}x{W} x {V} views): '
         + ', '.join(f'{t:.1f}' for t in ms))
     log(f'  valid detections={int(valid.sum())} '
@@ -831,6 +988,7 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
         f'shapes_ok={shapes_ok}')
     log(f'  launches per {n_requests} forwards: {launches}')
     results['_forward_ms'] = ms
+    results['_serve_peak_gb'] = torch.cuda.max_memory_allocated() / 2 ** 30
 
     plain = {'fused_stage1': stage.fused_stage1_plain,
              'dcn_conv': dcn.dcn_conv_plain,
@@ -848,13 +1006,14 @@ def phase_train(dev, results, n_steps=4, cfg=None):
     import mv2d_tpu_torch.ops.roi_align as roi_align
     from mv2d_tpu_torch import configs
     from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.routes import Routes
     from mv2d_tpu_torch.synthetic import (init_random_weights,
                                           synthetic_train_batch)
     from mv2d_tpu_torch.train.optim import make_optimizer
     from mv2d_tpu_torch.train.train_step import train_step
 
     cfg = cfg or configs.mv2d_t_r50()
-    model = init_random_weights(MV2D(cfg), seed=0).to(dev)
+    model = init_random_weights(MV2D(cfg, Routes()), seed=0).to(dev)
     opt = make_optimizer(model)
     batch = synthetic_train_batch(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -927,6 +1086,7 @@ def phase_train(dev, results, n_steps=4, cfg=None):
         f'(per step expected {TRAIN_PER_STEP}, K3 >= 2) '
         f'{"ok" if per_step_ok else "FAIL"}')
     results['_train_ms'] = ms
+    results['_train_peak_gb'] = peak_gb
 
     def attn_bwd_plain(q, k, v, a, out, lse, dout, H):
         return plain_grads(attention.masked_attention_plain, (q, k, v, a, H),
@@ -961,6 +1121,199 @@ def phase_train(dev, results, n_steps=4, cfg=None):
     return _replay(seen, plain, kern, 'train') and ok
 
 
+def phase_routes_tiny(dev):
+    """The optional routes at a small size, float32 with TF32 off, GPU
+    (kernels) against CPU (plain versions): a ResNet-50 backbone with
+    MV2D-T's DCN layout on 2 views at 256x704 built with
+    fused_stages='all' (layer2's three tail blocks through B10; every
+    stage output within 1e-4 of its max magnitude; with gradients on, no
+    B10 and a gradient in layer2's tail), then one tiny+DCN training step
+    with dcn_train_fused and flash_sparse (phase_tiny_train's checks, with
+    B13 and B14 launched and B5, B6 and B8 not)."""
+    import torch
+    from mv2d_tpu_torch.nn.resnet import ResNet
+    from mv2d_tpu_torch.routes import Routes
+    from mv2d_tpu_torch.synthetic import init_random_weights
+    net = init_random_weights(ResNet(50, (False, False, True, True),
+                                     Routes(fused_stages='all')),
+                              seed=3).eval()
+    imgs = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 256, 704, 3)).astype(np.float32))
+    fns = counters()
+    outs, launched = {}, {}
+    with torch.no_grad():
+        for d in ('cpu', dev):
+            for fn in fns.values():
+                fn.launches = 0
+            outs[d] = [o.float().cpu() for o in net.to(d)(imgs.to(d))]
+            launched[d] = {n: fn.launches for n, fn in fns.items()}
+    err, rel, finite, same = compare_all(outs[dev], outs['cpu'])
+    want = {'fused_stage1': 3, 'fused_identity_chain': 3, 'dcn_conv': 9}
+    got = {n: launched[dev][n] for n in want}
+    ok = finite and same and rel <= F32_TOL and got == want
+    log(f'  backbone R50 (DCN in stages 3-4) 2 x 256x704 with '
+        f'fused_stages=all, GPU vs CPU: max_abs_err={err:.3e} '
+        f'rel={rel:.2e} (tol {F32_TOL:.0e}), GPU launches {got} '
+        f'(expected {want}) {"ok" if ok else "FAIL"}')
+    fns['fused_identity_chain'].launches = 0
+    with torch.enable_grad():
+        sum(o.float().sum() for o in net(imgs.to(dev))).backward()
+    b10 = fns['fused_identity_chain'].launches
+    g = net.layer2[1].conv1.weight.grad
+    grad_ok = b10 == 0 and g is not None and bool(
+        torch.isfinite(g).all()) and g.abs().max().item() > 0
+    log(f'  the same with gradients on: B10 launches {b10} (expected 0), '
+        f'layer2 block 1 conv1 grad max '
+        f'{float("nan") if g is None else g.abs().max().item():.3e} '
+        f'{"ok" if grad_ok else "FAIL"}')
+    ok_train = phase_tiny_train(
+        dev, need=('dcn_conv', 'dcn_conv_backward', 'masked_attention',
+                   'masked_attention_sparse_backward',
+                   'roi_align_multilevel', 'roi_align_multilevel_backward'),
+        absent=('dcn_samples', 'dcn_samples_backward',
+                'masked_attention_backward', 'fused_identity_chain'),
+        routes=Routes(dcn_train_fused=True, flash_sparse=True))
+    return ok and grad_ok and ok_train
+
+
+def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
+    """Full width on the optional routes: bf16 eval forwards with
+    fused_stages='all' (B10 on layer2's tail), then training steps with
+    dcn_train_fused and flash_sparse (B13, B14), each beside the default
+    route's ms and peak memory from this run."""
+    import torch
+    import mv2d_tpu_torch.nn.resnet as resnet
+    import mv2d_tpu_torch.ops.attention as attention
+    import mv2d_tpu_torch.ops.dcn as dcn
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.core.geometry import prepare_camera_params
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.ops import stage
+    from mv2d_tpu_torch.routes import Routes
+    from mv2d_tpu_torch.synthetic import (camera_rig, init_random_weights,
+                                          synthetic_train_batch)
+    from mv2d_tpu_torch.train.optim import make_optimizer
+    from mv2d_tpu_torch.train.train_step import train_step
+
+    cfg = cfg or configs.mv2d_t_r50()
+    V, (H, W) = cfg.total_views, cfg.image_size
+    fns = counters()
+    seen = {}
+
+    def run(paths, n, call, label):
+        """n host-timed calls with every counter at 0 first;
+        -> (ms list, launches, peak GiB, last result)."""
+        originals = _record_first(seen, paths)
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        ms, res = [], None
+        try:
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = call()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            for (mod, name), fn in originals.items():
+                setattr(mod, name, fn)
+        launches = {name: fn.launches for name, fn in fns.items()}
+        for name, k in launches.items():
+            results[name]['launches_by_path'][label] = k
+        return ms, launches, torch.cuda.max_memory_allocated() / 2 ** 30, res
+
+    # ---- eval forwards, fused_stages='all' (MV2D_FUSED_STAGES=all)
+    K, E = camera_rig(V, cfg.image_size)
+    cam = prepare_camera_params(K, E, [0.0] * 6 + [0.5] * 6, device=dev)
+    imgs = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(V, H, W, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+    shapes = torch.tensor([[H, W]] * V, device=dev)
+    model = init_random_weights(
+        MV2D(cfg, Routes(fused_stages='all')).eval(), seed=0).to(
+            dev, torch.bfloat16)
+    ms, launches, peak, out = run(
+        [(resnet, 'fused_identity_chain', 'fused_identity_chain',
+          lambda a: True)], n_requests,
+        lambda: model(imgs, cam, shapes), 'routes_serve')
+    boxes, scores = out[0], out[1]
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (boxes, scores))
+    serve_ok = finite and tuple(boxes.shape) == (cfg.max_per_scene, 9) \
+        and launches['fused_identity_chain'] == 3 * n_requests
+    log(f'  fused_stages=all: forward ms (bf16) '
+        + ', '.join(f'{t:.1f}' for t in ms) + ' (default route '
+        + ', '.join(f'{t:.1f}' for t in results.get('_forward_ms', []))
+        + f'); peak memory {peak:.2f} GiB (default '
+        f'{results.get("_serve_peak_gb", float("nan")):.2f}); B10 launches '
+        f'per forward {launches["fused_identity_chain"] / n_requests:g} '
+        f'(expected 3); finite={finite} {"ok" if serve_ok else "FAIL"}')
+    log(f'  launches per {n_requests} forwards: {launches}')
+    results['_routes_forward_ms'] = ms
+    del model, out, boxes, scores
+    torch.cuda.empty_cache()
+
+    # ---- training steps, dcn_train_fused and flash_sparse
+    # (MV2D_DCN_TRAIN_FUSED=1, MV2D_FLASH_SPARSE=1)
+    model = init_random_weights(
+        MV2D(cfg, Routes(dcn_train_fused=True, flash_sparse=True)),
+        seed=0).to(dev)
+    opt = make_optimizer(model)
+    batch = synthetic_train_batch(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    steps = []
+
+    def step():
+        metrics = train_step(model, opt, batch, gen)
+        steps.append({k: float(v) for k, v in metrics.items()})
+
+    def cross(args):
+        return args[1].shape[0] != args[0].shape[0]
+    ms, launches, peak, _ = run(
+        [(dcn, 'dcn_conv_backward', 'dcn_conv_backward', lambda a: True),
+         (attention, 'masked_attention_sparse_backward',
+          'masked_attention_sparse_backward', cross)],
+        n_steps, step, 'routes_train')
+    finite = all(np.isfinite(v) for s in steps for v in s.values())
+    per_step_ok = all(launches[n] == k * n_steps
+                      for n, k in ROUTED_TRAIN_PER_STEP.items()) and \
+        launches['roi_align_multilevel'] >= 2 * n_steps
+    train_ok = finite and per_step_ok
+    log(f'  dcn_train_fused, flash_sparse: train ms/step '
+        + ', '.join(f'{t:.1f}' for t in ms) + ' (default route '
+        + ', '.join(f'{t:.1f}' for t in results.get('_train_ms', []))
+        + f'); peak memory {peak:.2f} GiB (default '
+        f'{results.get("_train_peak_gb", float("nan")):.2f}); '
+        f'finite={finite}')
+    for i, s in enumerate(steps):
+        log(f'  step {i}: total_loss={s["total_loss"]:.4f} '
+            f'grad_norm={s["grad_norm"]:.4f}')
+    log(f'  launches per {n_steps} steps: {launches} (per step expected '
+        f'{ROUTED_TRAIN_PER_STEP}, K3 >= 2) '
+        f'{"ok" if per_step_ok else "FAIL"}')
+    results['_routes_train_ms'] = ms
+    results['_routes_train_peak_gb'] = peak
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+    def dcn_bwd_plain(x, sy, sx, m, w, dy):
+        return plain_grads(dcn.dcn_conv_plain, (x, sy, sx, m, w), range(5),
+                           dy)[1]
+
+    def attn_bwd_plain(q, k, v, a, out, lse, dout, H, key_tiles=None):
+        return plain_grads(attention.masked_attention_plain, (q, k, v, a, H),
+                           range(3), dout)[1]
+
+    plain = {'fused_identity_chain': stage.fused_identity_chain_plain,
+             'dcn_conv_backward': dcn_bwd_plain,
+             'masked_attention_sparse_backward': attn_bwd_plain}
+    kern = {'fused_identity_chain': stage.fused_identity_chain,
+            'dcn_conv_backward': dcn.dcn_conv_backward,
+            'masked_attention_sparse_backward':
+                attention.masked_attention_sparse_backward}
+    return _replay(seen, plain, kern, 'routes') and serve_ok and train_ok
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -988,11 +1341,14 @@ def main():
     lib = kernels.build(verbose=True)
     kernels.lib()
     log(f'  built {lib.name} in {time.perf_counter() - t0:.1f} s')
-    for phase, fn in (('kernels', lambda: phase_kernels(dev, results)),
-                      ('tiny', lambda: phase_tiny_parity(dev)),
-                      ('tiny_train', lambda: phase_tiny_train(dev)),
-                      ('serve', lambda: phase_serve(dev, results)),
-                      ('train', lambda: phase_train(dev, results))):
+    for phase, fn in (
+            ('kernels', lambda: phase_kernels(dev, results)),
+            ('tiny', lambda: phase_tiny_parity(dev)),
+            ('tiny_train', lambda: phase_tiny_train(dev)),
+            ('serve', lambda: phase_serve(dev, results)),
+            ('train', lambda: phase_train(dev, results)),
+            ('routes_tiny', lambda: phase_routes_tiny(dev)),
+            ('routes', lambda: phase_routes(dev, results))):
         log(f'[{phase}]')
         t1 = time.perf_counter()
         try:

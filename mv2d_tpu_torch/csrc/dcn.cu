@@ -337,7 +337,309 @@ __global__ void __launch_bounds__(SNT) dcn_samples_bwd_kernel(
   }
 }
 
+// ---- B13: the combined backward of the DCN conv (K2's function).
+//   ds[p, t, c] = sum_f dy[p, f] w[t, c, f]          (sample gradients)
+//   dw[t, c, f] = sum_p samples[p, t, c] dy[p, f]     (tap-weight gradient)
+// and from ds, exactly as B6: dx (scattered), dm, dsy, dsx.
+// Replaces mv2d_tpu/ops/pallas_dcn.py: _run_conv_bwd (_kernel_conv_bwd),
+// the backward of the MV2D_DCN_TRAIN_FUSED=1 training DCN, which recomputed
+// the samples per band segment so that neither they nor their gradient
+// ([V, Ho, Wo, 9C], ~156 MB a stage-3 layer in float32) reach memory.
+//
+// What bounds it on the H100: operations.  Both products (ds and dw) are
+// 2 * N * 9C * F operations each (39.9 GFLOP each at the stage-3 stride-1
+// layer); the bytes (x, dy, the coordinates, dx and dw) are a few tens of
+// MB.  Two kernels, neither of which writes the samples or ds:
+//  * dcn_conv_bwd_input_kernel: a block owns 64 output pixels and keeps
+//    their dy rows in shared memory; per tap and 64-channel slice it forms
+//    the ds tile = dy tile . w[t]^T (float32 FMAs, 4x4 per thread) in
+//    shared memory, then, as B6 does per sample, reads the four corners,
+//    scatters ds * weight * mask into dx with 16-byte float32 vector
+//    atomics and reduces dm, dsy, dsx over the channels (shuffles within
+//    16-lane groups, registers across the slices);
+//  * dcn_conv_bwd_weight_kernel: a block owns a 64 (tap, channel) x 64
+//    output-channel tile of dw and a share of the pixels (a split over
+//    pixels that fills the card); per 32-pixel chunk it gathers the masked
+//    samples into shared memory, loads the dy rows, and accumulates
+//    samples^T . dy in registers.  Each split writes its partial tile once
+//    and dcn_reduce_splits_kernel sums them: no atomic per product.
+// Products are float32 FMAs in both dtypes (the samples are recomputed in
+// float32 from x); tensor cores are later work.
+constexpr int BTP = 64;    // pixels per input-gradient block
+constexpr int BKF = 32;    // output-channel chunk of the ds product
+constexpr int BNC = 64;    // channel slice
+constexpr int BDS = BNC + 4;
+constexpr int WPB = 32;    // pixels per dw chunk
+
+// four consecutive channels of x at element offset i, as float32
+__device__ __forceinline__ void load4(const float* x, size_t i, float* v) {
+  const float4 r = *reinterpret_cast<const float4*>(x + i);
+  v[0] = r.x;
+  v[1] = r.y;
+  v[2] = r.z;
+  v[3] = r.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* x, size_t i,
+                                      float* v) {
+  const uint2 r = *reinterpret_cast<const uint2*>(x + i);
+  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&r);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = __bfloat162float(e[j]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) dcn_conv_bwd_input_kernel(
+    const T* __restrict__ x, const float* __restrict__ sy,
+    const float* __restrict__ sx, const float* __restrict__ m,
+    const T* __restrict__ w, const T* __restrict__ dy,
+    float* __restrict__ dx, float* __restrict__ dsy,
+    float* __restrict__ dsx, float* __restrict__ dm, int H, int W, int C,
+    int HWo, long long N, int F) {
+  using mv2d::to_f32;
+  extern __shared__ float sm[];
+  const int FS = F + 1;
+  float* dys = sm;                   // [BTP][F + 1] dy rows
+  float* wts = dys + BTP * FS;       // [BKF][BNC + 1] w[t, c0 + c, f0 + f]
+  float* dss = wts + BKF * (BNC + 1);  // [BTP][BDS] ds slice
+  __shared__ int cidx[BTP][4];       // corner pixel indices
+  __shared__ float cwt[BTP][4];      // bilinear weights (no mask)
+  __shared__ float cinfo[BTP][6];    // ly, lx, mask, gy, gx, valid
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int cg = tid % 16;           // channel group of the scatter
+  const long long p0 = (long long)blockIdx.x * BTP;
+
+  for (int e = tid; e < BTP * F; e += NT) {
+    const int p = e / F, f = e % F;
+    dys[p * FS + f] = p0 + p < N ? to_f32(dy[(p0 + p) * F + f]) : 0.f;
+  }
+  for (int t = 0; t < TAPS; ++t) {
+    if (tid < BTP) {
+      const long long p = p0 + tid;
+      float valid = 0.f;
+      if (p < N) {
+        const float yr = sy[p * TAPS + t], xr = sx[p * TAPS + t];
+        if (yr > -1.f && yr < H && xr > -1.f && xr < W) {
+          valid = 1.f;
+          const float yy = fminf(fmaxf(yr, 0.f), (float)(H - 1));
+          const float xx = fminf(fmaxf(xr, 0.f), (float)(W - 1));
+          const int y0 = (int)floorf(yy), x0 = (int)floorf(xx);
+          const float ly = yy - y0, lx = xx - x0;
+          const int y1 = min(y0 + 1, H - 1), x1 = min(x0 + 1, W - 1);
+          const int base = (int)(p / HWo) * H * W;
+          cidx[tid][0] = base + y0 * W + x0;
+          cidx[tid][1] = base + y0 * W + x1;
+          cidx[tid][2] = base + y1 * W + x0;
+          cidx[tid][3] = base + y1 * W + x1;
+          cwt[tid][0] = (1.f - ly) * (1.f - lx);
+          cwt[tid][1] = (1.f - ly) * lx;
+          cwt[tid][2] = ly * (1.f - lx);
+          cwt[tid][3] = ly * lx;
+          cinfo[tid][0] = ly;
+          cinfo[tid][1] = lx;
+          cinfo[tid][2] = m[p * TAPS + t];
+          // d(clamped)/d(raw): 1 inside [0, extent - 1], 0 where clamped
+          cinfo[tid][3] = (yr >= 0.f && yr <= (float)(H - 1)) ? 1.f : 0.f;
+          cinfo[tid][4] = (xr >= 0.f && xr <= (float)(W - 1)) ? 1.f : 0.f;
+        }
+      }
+      cinfo[tid][5] = valid;
+    }
+    __syncthreads();
+    float am[4] = {}, ay[4] = {}, ax[4] = {};
+    for (int c0 = 0; c0 < C; c0 += BNC) {
+      float acc[4][4] = {};
+      for (int f0 = 0; f0 < F; f0 += BKF) {
+        for (int e = tid; e < BKF * BNC; e += NT) {
+          const int c = e / BKF, f = e % BKF;
+          wts[f * (BNC + 1) + c] =
+              to_f32(w[((size_t)t * C + c0 + c) * F + f0 + f]);
+        }
+        __syncthreads();
+#pragma unroll 8
+        for (int k = 0; k < BKF; ++k) {
+          float a[4], b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = dys[(ty + 16 * i) * FS + f0 + k];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) b[j] = wts[k * (BNC + 1) + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dss[(ty + 16 * i) * BDS + tx + 16 * j] = acc[i][j];
+      __syncthreads();
+      // pixel it * 16 + tid / 16, channels c0 + 4 cg .. + 3
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int p = it * 16 + tid / 16;
+        if (cinfo[p][5] == 0.f) continue;
+        const float4 g4 =
+            *reinterpret_cast<const float4*>(&dss[p * BDS + 4 * cg]);
+        const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+        const size_t c = (size_t)c0 + 4 * cg;
+        float v[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) load4(x, (size_t)cidx[p][q] * C + c, v[q]);
+        const float ly = cinfo[p][0], lx = cinfo[p][1], mm = cinfo[p][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float bil = cwt[p][0] * v[0][j] + cwt[p][1] * v[1][j] +
+                            cwt[p][2] * v[2][j] + cwt[p][3] * v[3][j];
+          am[it] = fmaf(g[j], bil, am[it]);
+          ay[it] = fmaf(g[j], (1.f - lx) * (v[2][j] - v[0][j]) +
+                                  lx * (v[3][j] - v[1][j]), ay[it]);
+          ax[it] = fmaf(g[j], (1.f - ly) * (v[1][j] - v[0][j]) +
+                                  ly * (v[3][j] - v[2][j]), ax[it]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float wq = cwt[p][q] * mm;
+          if (wq == 0.f) continue;               // lx or ly 0: no share
+          float add[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) add[j] = g[j] * wq;
+          mv2d::atomic_add<4>(dx + (size_t)cidx[p][q] * C + c, add);
+        }
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+#pragma unroll
+      for (int s = 8; s > 0; s /= 2) {
+        am[it] += __shfl_xor_sync(0xffffffffu, am[it], s);
+        ay[it] += __shfl_xor_sync(0xffffffffu, ay[it], s);
+        ax[it] += __shfl_xor_sync(0xffffffffu, ax[it], s);
+      }
+      const int p = it * 16 + tid / 16;
+      if (cg == 0 && p0 + p < N) {
+        const size_t o = (size_t)(p0 + p) * TAPS + t;
+        const bool ok = cinfo[p][5] != 0.f;
+        const float mm = cinfo[p][2];
+        dm[o] = ok ? am[it] : 0.f;
+        dsy[o] = ok ? ay[it] * mm * cinfo[p][3] : 0.f;
+        dsx[o] = ok ? ax[it] * mm * cinfo[p][4] : 0.f;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) dcn_conv_bwd_weight_kernel(
+    const T* __restrict__ x, const float* __restrict__ sy,
+    const float* __restrict__ sx, const float* __restrict__ m,
+    const T* __restrict__ dy, float* __restrict__ part, int H, int W, int C,
+    int HWo, long long N, int F, long long per_split) {
+  using mv2d::to_f32;
+  __shared__ float as[WPB][BNC];   // masked samples [pixel][channel]
+  __shared__ float bs[WPB][BNC];   // dy [pixel][output channel]
+  __shared__ int cidx[WPB][4];
+  __shared__ float cwt[WPB][4];    // bilinear weight * mask (0 outside)
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int r0 = blockIdx.x * BNC, t = r0 / C, c0 = r0 % C;
+  const int f0 = blockIdx.y * BNC;
+  const long long beg = (long long)blockIdx.z * per_split;
+  const long long end = min(N, beg + per_split);
+  float acc[4][4] = {};
+  for (long long pc = beg; pc < end; pc += WPB) {
+    if (tid < WPB)
+      tap_corners(pc + tid, t, sy, sx, m, H, W, HWo, end, cidx[tid],
+                  cwt[tid]);
+    __syncthreads();
+    for (int e = tid; e < WPB * BNC; e += NT) {
+      const int p = e / BNC, c = e % BNC;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        s = fmaf(cwt[p][q], to_f32(x[(size_t)cidx[p][q] * C + c0 + c]), s);
+      as[p][c] = s;
+      bs[p][c] = pc + p < end ? to_f32(dy[(pc + p) * F + f0 + c]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int p = 0; p < WPB; ++p) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = as[p][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = bs[p][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = part + (size_t)blockIdx.z * TAPS * C * F;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      out[(size_t)(r0 + ty + 16 * i) * F + f0 + tx + 16 * j] = acc[i][j];
+}
+
+// dw[e] = sum_s part[s][e]
+__global__ void dcn_reduce_splits_kernel(const float* __restrict__ part,
+                                         float* __restrict__ dw,
+                                         long long n, int splits) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += part[(size_t)k * n + e];
+  dw[e] = s;
+}
+
 }  // namespace
+
+// B13: dy [V, Ho, Wo, F] (dtype) -> dx [V, H, W, C] float32 (zeroed by the
+// caller, accumulated), dsy / dsx / dm [V, Ho, Wo, 9] float32, dw [9, C, F]
+// float32; part [splits, 9, C, F] float32 scratch (unused when splits == 1);
+// C and F multiples of 64, F <= 512
+extern "C" int mv2d_dcn_conv_bwd(const void* x, const void* sy,
+                                 const void* sx, const void* m, const void* w,
+                                 const void* dy, void* dx, void* dsy,
+                                 void* dsx, void* dm, void* dw, void* part,
+                                 int V, int H, int W, int C, int Ho, int Wo,
+                                 int F, int splits, int dtype, void* stream) {
+  const long long N = (long long)V * Ho * Wo;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* fy = static_cast<const float*>(sy);
+  const auto* fx = static_cast<const float*>(sx);
+  const auto* fm = static_cast<const float*>(m);
+  const int smem = (BTP * (F + 1) + BKF * (BNC + 1) + BTP * BDS) * 4;
+  const long long per_split = ((N + splits - 1) / splits + WPB - 1) / WPB *
+                              WPB;
+  float* pw = splits == 1 ? static_cast<float*>(dw)
+                          : static_cast<float*>(part);
+  const dim3 gw(TAPS * C / BNC, F / BNC, splits);
+  MV2D_DISPATCH(dtype, T, {
+    cudaFuncSetAttribute(dcn_conv_bwd_input_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    dcn_conv_bwd_input_kernel<T><<<(unsigned)((N + BTP - 1) / BTP), NT,
+                                   smem, s>>>(
+        static_cast<const T*>(x), fy, fx, fm, static_cast<const T*>(w),
+        static_cast<const T*>(dy), static_cast<float*>(dx),
+        static_cast<float*>(dsy), static_cast<float*>(dsx),
+        static_cast<float*>(dm), H, W, C, Ho * Wo, N, F);
+    dcn_conv_bwd_weight_kernel<T><<<gw, NT, 0, s>>>(
+        static_cast<const T*>(x), fy, fx, fm, static_cast<const T*>(dy), pw,
+        H, W, C, Ho * Wo, N, F, per_split);
+  });
+  if (splits > 1) {
+    const long long n = (long long)TAPS * C * F;
+    dcn_reduce_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        static_cast<const float*>(part), static_cast<float*>(dw), n, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x [V, H, W, C] (dtype), sy / sx / m [V, Ho, Wo, 9] float32 ->
 // out [V, Ho, Wo, 9, C] (dtype); C a multiple of 16 bytes

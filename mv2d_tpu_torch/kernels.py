@@ -42,6 +42,9 @@ SIGNATURES = {
                           + [_I] * 4 + [_P],
     'mv2d_masked_attention': [_P] * 9 + [_I] * 6 + [_P],
     'mv2d_masked_attention_bwd': [_P] * 11 + [_I] * 5 + [_P],
+    'mv2d_identity_block': [_P] * 8 + [_I] * 5 + [_P],
+    'mv2d_dcn_conv_bwd': [_P] * 12 + [_I] * 9 + [_P],
+    'mv2d_masked_attention_sparse_bwd': [_P] * 13 + [_I] * 5 + [_P],
 }
 
 

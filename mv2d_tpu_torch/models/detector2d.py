@@ -21,6 +21,7 @@ from ..nn.resnet import ResNet
 from ..nn.rpn import RPNHead, rpn_proposals
 from ..ops.roi_align import (roi_align_multilevel,
                              roi_align_multilevel_train)
+from ..routes import Routes
 
 
 class Proposals(NamedTuple):
@@ -41,10 +42,11 @@ class TwoStageDetector(tnn.Module):
 
     def __init__(self, depth: int = 50, num_classes: int = 10,
                  stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
-                 fpn_channels: int = 256, rcnn_fc_channels: int = 1024):
+                 fpn_channels: int = 256, rcnn_fc_channels: int = 1024,
+                 routes: Routes = Routes()):
         super().__init__()
         self.num_classes = num_classes
-        self.backbone = ResNet(depth, stage_with_dcn)
+        self.backbone = ResNet(depth, stage_with_dcn, routes)
         self.neck = FPN([256, 512, 1024, 2048], fpn_channels, num_outs=5)
         self.rpn_head = RPNHead(fpn_channels)
         self.roi_head = _RoIHead(Shared2FCBBoxHead(

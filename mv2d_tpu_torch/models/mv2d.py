@@ -37,6 +37,7 @@ from ..nn.pe import PE, padding_mask_at_feature_res
 from ..nn.query_generator import QueryGenerator
 from ..ops.grid_mask import GridMaskDraws, grid_mask
 from ..ops.roi_align import separable_roi_align_views
+from ..routes import Routes, from_env
 from .correlation import (adjacency_from_correlation, epipolar_in_box,
                           gather_active_keys, in_roi_pixel_masks)
 from .detector2d import Proposals, TwoStageDetector
@@ -87,7 +88,7 @@ class Detections(NamedTuple):
 
 
 class _RoIHead3D(tnn.Module):
-    def __init__(self, c: MV2DConfig):
+    def __init__(self, c: MV2DConfig, flash_sparse: bool = False):
         super().__init__()
         C = c.embed_dims
         self.position_encoding = PE(
@@ -101,25 +102,29 @@ class _RoIHead3D(tnn.Module):
             num_classes=c.num_classes, embed_dims=C,
             num_layers=c.num_decoder_layers, num_heads=c.num_heads,
             feedforward_channels=c.feedforward_channels,
-            pc_range=c.pc_range, use_flash=c.use_flash_attention)
+            pc_range=c.pc_range, use_flash=c.use_flash_attention,
+            flash_sparse=flash_sparse)
 
 
 class MV2D(tnn.Module):
-    def __init__(self, cfg: MV2DConfig):
+    def __init__(self, cfg: MV2DConfig, routes: Optional[Routes] = None):
+        """`routes` picks the optional kernel routes; by default they are
+        read from the JAX package's switches (`routes.from_env`)."""
         super().__init__()
         if cfg.detector_type != 'two_stage' or cfg.backbone_type != 'resnet' \
                 or cfg.key_mode != 'pixel':
             raise NotImplementedError(
                 'the port runs the two-stage ResNet detector in pixel mode')
         self.cfg = cfg
+        self.routes = routes = from_env() if routes is None else routes
         self.base_detector = TwoStageDetector(
             depth=cfg.depth, num_classes=cfg.num_classes,
             stage_with_dcn=cfg.stage_with_dcn,
             fpn_channels=cfg.fpn_channels,
-            rcnn_fc_channels=cfg.rcnn_fc_channels)
+            rcnn_fc_channels=cfg.rcnn_fc_channels, routes=routes)
         self.neck = FPN([cfg.fpn_channels] * 5, cfg.embed_dims, num_outs=1,
                         start_level=2, end_level=2)
-        self.roi_head = _RoIHead3D(cfg)
+        self.roi_head = _RoIHead3D(cfg, routes.flash_sparse)
 
     def extract_feats(self, imgs: torch.Tensor):
         """[V, H, W, 3] -> (fpn p2..p6, neck p4)."""

@@ -9,10 +9,11 @@ query_embedding.{0,2}; cls_branches / reg_branches.  Post-norm layer order
 eps 1e-6, the JAX package's value.
 
 With use_flash, both attentions go through `ops.attention.masked_attention`
-(kernel K4 on CUDA), or `masked_attention_train` (K4 and its backward B8)
-while gradients are recorded.  Training applies the reference's dropout
-(p = cfg.dropout) after each attention's output projection and inside the
-FFN; the masks come from the step's torch.Generator (`Dropout`).
+(kernel K4 on CUDA), or `masked_attention_train` (K4 and its backward B8,
+or B14 with flash_sparse) while gradients are recorded.  Training applies
+the reference's dropout (p = cfg.dropout) after each attention's output
+projection and inside the FFN; the masks come from the step's
+torch.Generator (`Dropout`).
 """
 from __future__ import annotations
 
@@ -65,7 +66,7 @@ class MultiheadAttention(tnn.Module):
         tnn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, q, k, v, allowed, use_kernel: bool = False,
-                drop: Dropout = NO_DROPOUT):
+                drop: Dropout = NO_DROPOUT, flash_sparse: bool = False):
         """q [Q, C], k/v [K, C], allowed [Q, K] bool -> [Q, C]."""
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
@@ -74,13 +75,13 @@ class MultiheadAttention(tnn.Module):
         kp = F.linear(k.to(dt), wk, bk)
         vp = F.linear(v.to(dt), wv, bv)
         if not use_kernel:
-            attend = masked_attention_plain
+            out = masked_attention_plain(qp, kp, vp, allowed, self.num_heads)
         elif torch.is_grad_enabled():
-            attend = masked_attention_train
+            out = masked_attention_train(qp, kp, vp, allowed, self.num_heads,
+                                         flash_sparse)
         else:
-            attend = masked_attention
-        return drop(self.out_proj(attend(qp, kp, vp, allowed,
-                                         self.num_heads)))
+            out = masked_attention(qp, kp, vp, allowed, self.num_heads)
+        return drop(self.out_proj(out))
 
 
 class _Attention(tnn.Module):
@@ -102,9 +103,10 @@ class FFN(tnn.Module):
 
 class PETRDecoderLayer(tnn.Module):
     def __init__(self, embed_dims=256, num_heads=8, feedforward_channels=2048,
-                 use_flash: bool = False):
+                 use_flash: bool = False, flash_sparse: bool = False):
         super().__init__()
         self.use_flash = use_flash
+        self.flash_sparse = flash_sparse
         self.attentions = tnn.ModuleList(
             [_Attention(embed_dims, num_heads) for _ in range(2)])
         self.ffns = tnn.ModuleList([FFN(embed_dims, feedforward_channels)])
@@ -115,21 +117,24 @@ class PETRDecoderLayer(tnn.Module):
                 cross_allowed, drop: Dropout = NO_DROPOUT):
         qs = query + query_pos
         sa = self.attentions[0].attn(qs, qs, query, self_allowed,
-                                     self.use_flash, drop)
+                                     self.use_flash, drop, self.flash_sparse)
         query = self.norms[0](query + sa)
         ca = self.attentions[1].attn(query + query_pos, keys + key_pos, keys,
-                                     cross_allowed, self.use_flash, drop)
+                                     cross_allowed, self.use_flash, drop,
+                                     self.flash_sparse)
         query = self.norms[1](query + ca)
         return self.norms[2](query + self.ffns[0](query, drop))
 
 
 class PETRDecoder(tnn.Module):
     def __init__(self, num_layers=6, embed_dims=256, num_heads=8,
-                 feedforward_channels=2048, use_flash: bool = False):
+                 feedforward_channels=2048, use_flash: bool = False,
+                 flash_sparse: bool = False):
         super().__init__()
         self.layers = tnn.ModuleList([
             PETRDecoderLayer(embed_dims, num_heads, feedforward_channels,
-                             use_flash) for _ in range(num_layers)])
+                             use_flash, flash_sparse)
+            for _ in range(num_layers)])
         self.post_norm = tnn.LayerNorm(embed_dims, eps=LN_EPS)
 
     def forward(self, query, query_pos, keys, key_pos, self_allowed,
@@ -156,7 +161,7 @@ class CrossAttentionBoxHead(tnn.Module):
                  num_layers=6, num_heads=8, feedforward_channels=2048,
                  pc_range: Sequence[float] = (-51.2, -51.2, -5.0, 51.2, 51.2,
                                               3.0),
-                 use_flash: bool = False):
+                 use_flash: bool = False, flash_sparse: bool = False):
         super().__init__()
         C = embed_dims
         self.embed_dims = C
@@ -164,7 +169,8 @@ class CrossAttentionBoxHead(tnn.Module):
         self.query_embedding = tnn.Sequential(
             tnn.Linear(C * 3 // 2, C), tnn.ReLU(), tnn.Linear(C, C))
         self.transformer = _Transformer(PETRDecoder(
-            num_layers, C, num_heads, feedforward_channels, use_flash))
+            num_layers, C, num_heads, feedforward_channels, use_flash,
+            flash_sparse))
         self.cls_branches = tnn.ModuleList([tnn.Sequential(
             tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),
             tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),

@@ -2,9 +2,14 @@
 
 Port of `mv2d_tpu/nn/resnet.py` with mmdet's state-dict keys (conv1, bn1,
 layer{s}.{b}.conv{1,2,3}/bn{1,2,3}/downsample.{0,1}).  Frozen BN folds
-into each conv; the DCN conv keeps its separate BN.  Layer1 runs through
-`ops.stage.fused_stage1` (kernel K1 on CUDA).  The stem is the plain
-7x7/s2 conv.  The stem and layer1 are frozen (the reference's
+into each conv; the DCN conv keeps its separate BN.  The stem is the plain
+7x7/s2 conv.  A DCN-free layer1 runs through `ops.stage.fused_stage1`
+(kernel K1 on CUDA).  Stage routing follows the JAX package's
+MV2D_FUSED_STAGES (`routes.Routes.fused_stages`): with 'all', the identity
+tail of a later stage that `fuses_tail` admits runs through
+`ops.stage.fused_identity_chain` (kernel B10) while no gradient is
+recorded (JAX's fast_inference).  `Routes.dcn_train_fused` goes to each
+DCN conv.  The stem and layer1 are frozen (the reference's
 frozen_stages=1): their parameters, like every BN affine, do not train,
 and they run without recording gradients.
 """
@@ -17,7 +22,8 @@ import torch.nn as tnn
 import torch.nn.functional as F
 
 from ..ops.dcn import ModulatedDeformConv
-from ..ops.stage import fused_stage1
+from ..ops.stage import fused_identity_chain, fused_stage1
+from ..routes import Routes
 from .layers import FrozenBatchNorm2d, conv2d_nhwc, max_pool_3x3_s2
 
 STAGE_BLOCKS = {
@@ -25,6 +31,15 @@ STAGE_BLOCKS = {
     50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
 }
+
+
+def fuses_tail(stage: int, n_blocks: int, h_in: int, w_in: int,
+               with_dcn: bool, mode: str) -> bool:
+    """Whether blocks 1..n-1 of `stage` (input map h_in x w_in) run as one
+    fused identity chain: `mv2d_tpu/nn/resnet.py`'s can_fuse for a stage
+    after layer1 (its stride-2 block 0 stays plain)."""
+    return (mode == 'all' and stage > 0 and not with_dcn and n_blocks > 1
+            and (h_in // 2) % 32 == 0 and w_in // 2 >= 24)
 
 
 def _folded_conv(x, conv: tnn.Conv2d, bn: FrozenBatchNorm2d, stride=1):
@@ -38,14 +53,16 @@ class Bottleneck(tnn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, use_dcn: bool = False):
+                 downsample: bool = False, use_dcn: bool = False,
+                 dcn_train_fused: bool = False):
         super().__init__()
         self.stride = stride
         self.use_dcn = use_dcn
         self.conv1 = tnn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = FrozenBatchNorm2d(planes)
         if use_dcn:
-            self.conv2 = ModulatedDeformConv(planes, planes, stride)
+            self.conv2 = ModulatedDeformConv(planes, planes, stride,
+                                             fused_train=dcn_train_fused)
         else:
             self.conv2 = tnn.Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = FrozenBatchNorm2d(planes)
@@ -88,9 +105,11 @@ class ResNet(tnn.Module):
     """[V, H, W, 3] -> the four stage outputs (strides 4, 8, 16, 32)."""
 
     def __init__(self, depth: int = 50,
-                 stage_with_dcn: Tuple[bool, ...] = (False,) * 4):
+                 stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
+                 routes: Routes = Routes()):
         super().__init__()
         self.stage_with_dcn = tuple(stage_with_dcn)
+        self.fused_stages = routes.fused_stages
         self.conv1 = tnn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         inplanes, planes = 64, 64
@@ -98,7 +117,8 @@ class ResNet(tnn.Module):
             stride = 1 if s == 0 else 2
             blocks = [Bottleneck(inplanes if i == 0 else planes * 4, planes,
                                  stride if i == 0 else 1, downsample=(i == 0),
-                                 use_dcn=self.stage_with_dcn[s])
+                                 use_dcn=self.stage_with_dcn[s],
+                                 dcn_train_fused=routes.dcn_train_fused)
                       for i in range(n)]
             setattr(self, f'layer{s + 1}', tnn.Sequential(*blocks))
             inplanes = planes * 4
@@ -117,6 +137,13 @@ class ResNet(tnn.Module):
                 x = self.layer1(x)
         outs.append(x)
         for s in range(1, 4):
-            x = getattr(self, f'layer{s + 1}')(x)
+            layer = getattr(self, f'layer{s + 1}')
+            if not torch.is_grad_enabled() and fuses_tail(
+                    s, len(layer), x.shape[1], x.shape[2],
+                    self.stage_with_dcn[s], self.fused_stages):
+                x = fused_identity_chain(
+                    layer[0](x), [blk.folded() for blk in layer[1:]])
+            else:
+                x = layer(x)
             outs.append(x)
         return tuple(outs)

@@ -7,7 +7,11 @@ may attend); a query row with no allowed key yields a zero output.
 With gradients on, `masked_attention_train` runs `MaskedAttentionFn`: K4
 with its per-(query, head) log-sum-exp output as the forward (the TPU's
 dense training forward `_fwd_call` computes the same function) and
-kernel B8 as the backward (`_flash_bwd`).
+kernel B8 as the backward (`_flash_bwd`).  With `sparse` (a model built
+under MV2D_FLASH_SPARSE=1, see `routes`), the JAX package's block-sparse
+training form is followed: `SparseMaskedAttentionFn`, K4 forward (the
+sparse forward `_sparse_fwd_call` computes the same function) and kernel
+B14 as the single-pass backward (`_flash_sparse_bwd`).
 """
 from __future__ import annotations
 
@@ -171,10 +175,102 @@ class MaskedAttentionFn(torch.autograd.Function):
         return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
-def masked_attention_train(q, k, v, allowed, num_heads: int):
+SPARSE_TILE = 64          # B14's query and key tiles
+
+
+def sparse_key_tiles(allowed: torch.Tensor, tile: int = SPARSE_TILE):
+    """JAX's `_sparse_blocks` in CSR form: the key tiles holding any
+    allowed pair, per query tile, ascending.  allowed [Q, K] bool ->
+    (starts [nQ + 1], tiles [nQ * nK + 1]), int32: query tile i's key
+    tiles are tiles[starts[i]:starts[i + 1]], and the rest of `tiles` is
+    not read.  Built on the mask's device with no host sync."""
+    Q, K = allowed.shape
+    nq, nk = -(-Q // tile), -(-K // tile)
+    full = K // tile * tile
+    cols = [allowed[:, :full].reshape(Q, K // tile, tile).any(2)]
+    if full < K:
+        cols.append(allowed[:, full:].any(1, keepdim=True))
+    rows = torch.cat(cols, 1)                                    # [Q, nK]
+    rows = torch.cat([rows, rows.new_zeros(nq * tile - Q, nk)])
+    blk = rows.view(nq, tile, nk).any(1).reshape(-1)             # [nQ * nK]
+    dev = allowed.device
+    starts = torch.zeros(nq + 1, dtype=torch.int32, device=dev)
+    starts[1:] = blk.view(nq, nk).sum(1).cumsum(0)
+    # an active pair's place in the list is its rank among active pairs in
+    # row-major order; inactive pairs all land in the unread last slot
+    slot = torch.where(blk, blk.cumsum(0) - 1, nq * nk)
+    tiles = torch.zeros(nq * nk + 1, dtype=torch.int32, device=dev)
+    tiles.scatter_(0, slot, torch.arange(nk, dtype=torch.int32,
+                                         device=dev).repeat(nq))
+    return starts, tiles
+
+
+def masked_attention_sparse_backward(q, k, v, allowed, out, lse, dout,
+                                     num_heads: int, key_tiles=None):
+    """Kernel B14 on CUDA tensors: -> (dq, dk, dv) float32, one pass per
+    (query tile, head) over its active key tiles.  `key_tiles` is
+    `sparse_key_tiles(allowed)`, built here when not given."""
+    _check(q, k, v, allowed, num_heads)
+    Q, C = q.shape
+    K = k.shape[0]
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (Q, num_heads) or dout.dtype != q.dtype:
+        raise ValueError('out / dout must be [Q, C] in q.dtype, lse [Q, H]')
+    q, k, v, out, dout, lse = (t.contiguous() for t in
+                               (q, k, v, out, dout, lse))
+    mask = allowed.to(torch.bool).contiguous()
+    kernels.check_cuda(q, k, v, mask, out, dout, lse)
+    starts, tiles = key_tiles if key_tiles is not None \
+        else sparse_key_tiles(mask)
+    kernels.check_cuda(starts, tiles)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((Q, num_heads), **f32)
+    dq = torch.empty((Q, C), **f32)
+    dk = torch.zeros((K, C), **f32)
+    dv = torch.zeros((K, C), **f32)
+    kernels.launch('mv2d_masked_attention_sparse_bwd', q.data_ptr(),
+                   k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                   out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), starts.data_ptr(), tiles.data_ptr(),
+                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), Q, K,
+                   num_heads, C // num_heads, kernels.dtype_code(q))
+    masked_attention_sparse_backward.launches += 1
+    return dq, dk, dv
+
+
+masked_attention_sparse_backward.launches = 0
+
+
+class SparseMaskedAttentionFn(torch.autograd.Function):
+    """K4 (with its log-sum-exp) forward, B14 backward; no gradient to the
+    mask.  The forward lists the mask's active key tiles for the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, allowed, num_heads):
+        out, lse = masked_attention_forward(q, k, v, allowed, num_heads)
+        starts, tiles = sparse_key_tiles(allowed.to(torch.bool))
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, allowed, out, lse, starts, tiles)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, allowed, out, lse, starts, tiles = ctx.saved_tensors
+        dq, dk, dv = masked_attention_sparse_backward(
+            q, k, v, allowed, out, lse, dout.to(q.dtype), ctx.num_heads,
+            (starts, tiles))
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def masked_attention_train(q, k, v, allowed, num_heads: int,
+                           sparse: bool = False):
     """Differentiable masked attention.  CPU tensors take
     `masked_attention_plain` (autograd); CUDA tensors run
+    `SparseMaskedAttentionFn` (kernels K4 / B14) with `sparse`, else
     `MaskedAttentionFn` (kernels K4 / B8)."""
     if q.device.type == 'cpu':
         return masked_attention_plain(q, k, v, allowed, num_heads)
+    if sparse:
+        return SparseMaskedAttentionFn.apply(q, k, v, allowed, num_heads)
     return MaskedAttentionFn.apply(q, k, v, allowed, num_heads)

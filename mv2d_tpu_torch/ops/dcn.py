@@ -11,6 +11,11 @@ is recorded.  With gradients on, the training path of the JAX package
 gradient kernel B6 in `DCNSamplesFn`) writes the modulated samples
 [V, Ho, Wo, 9, C] and one matmul against the [9C, F] tap weights
 contracts them, so dw and dsamples come from the matmul's autograd.
+A conv built with `fused_train` (MV2D_DCN_TRAIN_FUSED=1, see `routes`)
+follows the JAX package's fused training form instead: `dcn_conv_train`
+runs `DCNConvFn`, K2 as the forward and kernel B13 (`dcn_conv_backward`,
+replacing `pallas_dcn.py: _run_conv_bwd`) as one combined backward, so the
+[V, Ho, Wo, 9C] samples reach memory in neither direction.
 
 Sampling coordinates are built in float32 for every activation dtype.
 """
@@ -178,13 +183,88 @@ def dcn_samples(x, sy, sx, mask):
     return DCNSamplesFn.apply(x, sy, sx, mask)
 
 
+def dcn_conv_backward(x, sy, sx, mask, w, dy):
+    """Kernel B13 on CUDA tensors: the VJP of `dcn_conv` at dy
+    [V, Ho, Wo, F] (x.dtype) -> (dx [V, H, W, C], dsy, dsx, dmask
+    [V, Ho, Wo, 9], dw [9, C, F]), all float32.  The derivatives follow
+    B6's conventions (floor form; zero where a coordinate was clamped)."""
+    V, H, W, C = x.shape
+    _, Ho, Wo, K = sy.shape
+    F_ = w.shape[-1]
+    if K != 9 or w.shape != (9, C, F_) or C % 64 or F_ % 64 or F_ > 512:
+        raise ValueError(f'dcn backward kernel takes 3x3 taps, C%64==0, '
+                         f'F%64==0 and F<=512; got taps={K} '
+                         f'w={tuple(w.shape)}')
+    if sy.dtype != torch.float32 or sx.dtype != torch.float32 \
+            or mask.dtype != torch.float32 or w.dtype != x.dtype \
+            or dy.dtype != x.dtype:
+        raise TypeError('dcn backward kernel takes float32 sy/sx/mask, w '
+                        'and dy in x.dtype')
+    if sx.shape != sy.shape or mask.shape != sy.shape or sy.shape[0] != V \
+            or dy.shape != (V, Ho, Wo, F_):
+        raise ValueError('sy, sx, mask must be [V, Ho, Wo, 9], dy '
+                         '[V, Ho, Wo, F]')
+    x, sy, sx, mask, w, dy = (t.contiguous() for t in
+                              (x, sy, sx, mask, w, dy))
+    kernels.check_cuda(x, sy, sx, mask, w, dy)
+    # split the pixels of the dw product so that its 64 x 64 tiles fill
+    # the card about four times over; the splits' partials are summed
+    N = V * Ho * Wo
+    tiles = (9 * C // 64) * (F_ // 64)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = max(1, min(-(-4 * sms // tiles), -(-N // 512)))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros((V, H, W, C), **f32)
+    dsy, dsx, dm = (torch.empty_like(sy) for _ in range(3))
+    dw = torch.empty((9, C, F_), **f32)
+    part = torch.empty((splits, 9, C, F_) if splits > 1 else (1,), **f32)
+    kernels.launch('mv2d_dcn_conv_bwd', x.data_ptr(), sy.data_ptr(),
+                   sx.data_ptr(), mask.data_ptr(), w.data_ptr(),
+                   dy.data_ptr(), dx.data_ptr(), dsy.data_ptr(),
+                   dsx.data_ptr(), dm.data_ptr(), dw.data_ptr(),
+                   part.data_ptr(), V, H, W, C, Ho, Wo, F_, splits,
+                   kernels.dtype_code(x))
+    dcn_conv_backward.launches += 1
+    return dx, dsy, dsx, dm, dw
+
+
+dcn_conv_backward.launches = 0
+
+
+class DCNConvFn(torch.autograd.Function):
+    """K2 forward, B13 backward (gradients to x, sy, sx, mask and w)."""
+
+    @staticmethod
+    def forward(ctx, x, sy, sx, mask, w):
+        ctx.save_for_backward(x, sy, sx, mask, w)
+        return dcn_conv(x, sy, sx, mask, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, sy, sx, mask, w = ctx.saved_tensors
+        dx, dsy, dsx, dm, dw = dcn_conv_backward(x, sy, sx, mask, w,
+                                                 dy.to(x.dtype))
+        return dx.to(x.dtype), dsy, dsx, dm, dw.to(w.dtype)
+
+
+def dcn_conv_train(x, sy, sx, mask, w):
+    """Differentiable DCN conv, the `fused_train` route.  CPU
+    tensors take `dcn_conv_plain` (autograd); CUDA tensors run
+    `DCNConvFn` (kernels K2 / B13)."""
+    if x.device.type == 'cpu':
+        return dcn_conv_plain(x, sy, sx, mask, w)
+    return DCNConvFn.apply(x, sy, sx, mask, w)
+
+
 class ModulatedDeformConv(tnn.Module):
     """mmcv ModulatedDeformConv2dPack (bias=False) key layout: weight
     [F, C, 3, 3] and conv_offset (3*9 outputs, zero-init)."""
 
-    def __init__(self, in_channels: int, out_channels: int, stride: int = 1):
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 fused_train: bool = False):
         super().__init__()
         self.stride = stride
+        self.fused_train = fused_train
         self.weight = tnn.Parameter(torch.empty(out_channels, in_channels,
                                                 3, 3))
         tnn.init.kaiming_normal_(self.weight)
@@ -225,6 +305,8 @@ class ModulatedDeformConv(tnn.Module):
         w = self.tap_weights(x.dtype)
         if not torch.is_grad_enabled():
             return dcn_conv(x, sy, sx, mask, w)
+        if self.fused_train:
+            return dcn_conv_train(x, sy, sx, mask, w)
         V, Ho, Wo, _ = sy.shape
         samples = dcn_samples(x, sy, sx, mask)
         y = samples.reshape(V * Ho * Wo, -1) @ w.reshape(-1, w.shape[-1])

@@ -1,13 +1,19 @@
-"""ResNet layer1 (three bottlenecks) with frozen BN folded: kernel K1.
+"""Fused ResNet bottleneck chains with frozen BN folded: kernels K1, B10.
 
-Replaces `mv2d_tpu/ops/pallas_stage.py: fused_stage1` (`_run_chain`,
-`_kernel`), which runs layer1 of the backbone as one VMEM-resident chain.
-The CUDA kernel (`csrc/stage1.cu`) runs one launch per bottleneck; see the
-note there for what bounds it on the H100.
+K1 (`fused_stage1`, `csrc/stage1.cu`) runs layer1 (three bottlenecks, width
+64, block 0 with its projection) and replaces
+`mv2d_tpu/ops/pallas_stage.py: fused_stage1`.  B10
+(`fused_identity_chain`, `csrc/stage.cu`) runs the identity tail (blocks
+1..n-1, width 128 or 256) of a later DCN-free stage and replaces
+`pallas_stage.py: fused_identity_chain`; `nn.resnet` routes to it under
+MV2D_FUSED_STAGES=all.  Both TPU kernels ran a whole chain as one
+VMEM-resident call; each CUDA kernel runs one launch per bottleneck (see
+the notes in the sources for what bounds them on the H100).
 
 Block weights come folded (BN affine in the weights, float32; the kernel
-takes them in the activation dtype), in the layouts the kernel reads: w1 [Cin, P], w2 [9, P, P] (tap-major, (dy, dx)
-row-major), w3 [P, 4P], wd [Cin, 4P]; biases [P] or [4P].
+takes them in the activation dtype), in the layouts the kernels read:
+w1 [Cin, P], w2 [9, P, P] (tap-major, (dy, dx) row-major), w3 [P, 4P],
+wd [Cin, 4P]; biases [P] or [4P].
 """
 from __future__ import annotations
 
@@ -79,3 +85,47 @@ def fused_stage1(x: torch.Tensor, blocks: Sequence[Block]) -> torch.Tensor:
 
 
 fused_stage1.launches = 0
+
+
+IDENTITY_PLANES = (128, 256)
+
+
+def identity_block_cuda(x: torch.Tensor, blk: Block) -> torch.Tensor:
+    V, H, W, cin = x.shape
+    planes = blk['w1'].shape[1]
+    if planes not in IDENTITY_PLANES or cin != 4 * planes or 'wd' in blk:
+        raise ValueError(f'identity-chain kernel takes planes 128 or 256, '
+                         f'Cin == 4 * planes and no projection; got '
+                         f'planes={planes} Cin={cin}')
+    # biases float32; weights in the activation dtype
+    ws = {k: v.to(x.dtype if k.startswith('w') else torch.float32)
+          .contiguous() for k, v in blk.items()}
+    kernels.check_cuda(x, *ws.values())
+    out = torch.empty_like(x)
+    kernels.launch(
+        'mv2d_identity_block', x.data_ptr(), ws['w1'].data_ptr(),
+        ws['b1'].data_ptr(), ws['w2'].data_ptr(), ws['b2'].data_ptr(),
+        ws['w3'].data_ptr(), ws['b3'].data_ptr(), out.data_ptr(), V, H, W,
+        planes, kernels.dtype_code(x))
+    fused_identity_chain.launches += 1
+    return out
+
+
+# B10's oracle is the same unfused chain of folded bottlenecks as K1's
+fused_identity_chain_plain = fused_stage1_plain
+
+
+def fused_identity_chain(x: torch.Tensor,
+                         blocks: Sequence[Block]) -> torch.Tensor:
+    """x [V, H, W, 4P] -> same shape through stride-1 identity bottlenecks
+    (no wd/bd), P = 128 or 256.  CPU tensors take
+    `fused_identity_chain_plain`; CUDA tensors take kernel B10, one launch
+    per bottleneck."""
+    if x.device.type == 'cpu':
+        return fused_identity_chain_plain(x, blocks)
+    for blk in blocks:
+        x = identity_block_cuda(x.contiguous(), blk)
+    return x
+
+
+fused_identity_chain.launches = 0

@@ -166,3 +166,84 @@ def test_kernels_refuse_cpu_fallback(dev):
     with pytest.raises(ValueError):
         attention.masked_attention(q, q, q, torch.ones(4, 4, dtype=torch.bool,
                                                        device=dev), 1)
+
+
+# ------------------------------------------------ kernels of the routes
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('stage_index', [1, 2])
+def test_identity_chain_kernel(dev, dtype, tol, stage_index):
+    """B10 at planes 128 (layer2's tail) and 256 (layer3's), ragged
+    tiles."""
+    from mv2d_tpu_torch.ops import stage
+    x, blocks = smoke.identity_chain_inputs(dev, getattr(torch, dtype), V=2,
+                                            H=13, W=37, stage=stage_index)
+    want = stage.fused_identity_chain_plain(x, blocks)
+    before = stage.fused_identity_chain.launches
+    got = stage.fused_identity_chain(x, blocks)
+    assert stage.fused_identity_chain.launches == before + len(blocks)
+    check(got, want, tol)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('stride,far,integer', [
+    (1, 0.0, False), (2, 0.0, False), (1, 0.3, False), (1, 0.0, True)])
+def test_dcn_conv_backward_kernel(dev, dtype, tol, stride, far, integer):
+    """K2 forward and B13 backward (DCNConvFn) against autograd of the
+    plain conv: the output and all five gradients."""
+    from mv2d_tpu_torch.ops import dcn
+    x, sy, sx, m, w = smoke.dcn_inputs(dev, getattr(torch, dtype), 2, 11, 19,
+                                       64, 128, stride, far=far)
+    if integer:
+        sy, sx = sy.round(), sx.round()
+    args = (x, sy, sx, m, w)
+    out, grads = smoke.plain_grads(dcn.dcn_conv_plain, args, range(5),
+                                   smoke.cotangent(dcn.dcn_conv_plain(*args)))
+    n13 = dcn.dcn_conv_backward.launches
+    got, ggot = smoke.plain_grads(dcn.dcn_conv_train, args, range(5),
+                                  smoke.cotangent(out))
+    assert dcn.dcn_conv_backward.launches == n13 + 1
+    check_all([got, *ggot], [out, *grads], tol)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('mask', ['cross', 'self', 'full'])
+def test_attention_sparse_backward_kernel(dev, dtype, tol, mask):
+    """B14 (masked_attention_train with sparse) against the plain
+    version's autograd: rows with no allowed key, keys no row may attend,
+    every pair allowed."""
+    from mv2d_tpu_torch.ops import attention
+    q, k, v, a = smoke.attention_inputs(dev, getattr(torch, dtype), Q=100,
+                                        K=1000, C=64,
+                                        self_attn=mask == 'self')
+    if mask == 'full':
+        a = torch.ones_like(a)
+    else:
+        a[:, :64] = False                     # keys no row may attend
+    args = (q, k, v, a, 2)
+    out, grads = smoke.plain_grads(attention.masked_attention_plain, args,
+                                   range(3), smoke.cotangent(q))
+    n8 = attention.masked_attention_backward.launches
+    n14 = attention.masked_attention_sparse_backward.launches
+    got, ggot = smoke.plain_grads(attention.masked_attention_train,
+                                  args + (True,), range(3),
+                                  smoke.cotangent(q))
+    assert attention.masked_attention_sparse_backward.launches == n14 + 1
+    assert attention.masked_attention_backward.launches == n8
+    check_all([got, *ggot], [out, *grads], tol)
+    empty = ~a.any(-1)
+    assert bool((ggot[0][empty] == 0).all())
+    if mask != 'full':
+        assert bool((ggot[1][:64] == 0).all() and (ggot[2][:64] == 0).all())
+
+
+def test_routed_kernels_refuse_what_they_do_not_take(dev):
+    """On CUDA tensors the new wrappers launch or raise."""
+    from mv2d_tpu_torch.ops import dcn, stage
+    x, blocks = smoke.stage1_inputs(dev, torch.float32, V=1, H=8, W=8)
+    with pytest.raises(ValueError):           # planes 64: K1's width
+        stage.fused_identity_chain(torch.zeros(1, 8, 8, 256, device=dev),
+                                   blocks[1:])
+    args = smoke.dcn_inputs(dev, torch.float32, 1, 8, 8, 32, 64, 1)
+    with pytest.raises(ValueError):           # C % 64 != 0
+        dcn.dcn_conv_backward(*args, torch.zeros(1, 8, 8, 64, device=dev))

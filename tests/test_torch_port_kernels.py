@@ -24,7 +24,8 @@ from mv2d_tpu.train.checkpoint import convert_torch_state_dict  # noqa: E402
 from mv2d_tpu_torch.nn.resnet import ResNet              # noqa: E402
 from mv2d_tpu_torch.ops import attention, roi_align      # noqa: E402
 from mv2d_tpu_torch.ops.dcn import ModulatedDeformConv   # noqa: E402
-from mv2d_tpu_torch.ops.stage import fused_stage1        # noqa: E402
+from mv2d_tpu_torch.ops.stage import (fused_identity_chain,  # noqa: E402
+                                      fused_stage1)
 
 REL = 1e-4
 
@@ -202,6 +203,7 @@ def test_wrappers_take_plain_path_only_on_cpu():
     meta = dict(device='meta')
     x = torch.empty(1, 4, 4, 32, **meta)
     c = torch.empty(1, 4, 4, 9, **meta)
+    x64, w64 = torch.empty(1, 4, 4, 64, **meta), torch.empty(9, 64, 64, **meta)
     calls = [
         lambda: fused_stage1(torch.empty(1, 4, 4, 64, **meta), [
             dict(w1=torch.empty(64, 64, **meta))]),
@@ -230,6 +232,25 @@ def test_wrappers_take_plain_path_only_on_cpu():
         lambda: roi_align.roi_align_multilevel_backward(
             [x] * 4, torch.empty(1, 3, 4, **meta),
             torch.empty(1, 3, 7, 7, 32, **meta), (4, 8, 16, 32)),
+        # the wrappers that the routing switches reach
+        lambda: fused_identity_chain(torch.empty(1, 4, 4, 512, **meta), [
+            dict(w1=torch.empty(512, 128, **meta),
+                 b1=torch.empty(128, **meta),
+                 w2=torch.empty(9, 128, 128, **meta),
+                 b2=torch.empty(128, **meta),
+                 w3=torch.empty(128, 512, **meta),
+                 b3=torch.empty(512, **meta))]),
+        lambda: dcn.dcn_conv_train(x64, c, c, c, w64),
+        lambda: dcn.dcn_conv_backward(x64, c, c, c, w64, x64),
+        lambda: attention.SparseMaskedAttentionFn.apply(
+            torch.empty(5, 32, **meta), torch.empty(7, 32, **meta),
+            torch.empty(7, 32, **meta),
+            torch.empty(5, 7, dtype=torch.bool, **meta), 4),
+        lambda: attention.masked_attention_sparse_backward(
+            *(torch.empty(n, 32, **meta) for n in (5, 7, 7)),
+            torch.empty(5, 7, dtype=torch.bool, **meta),
+            torch.empty(5, 32, **meta), torch.empty(5, 4, **meta),
+            torch.empty(5, 32, **meta), 4),
     ]
     for call in calls:
         with pytest.raises((ValueError, KeyError)):
