@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero without the final line:
      nvcc per source, all started together);
   3. kernels: each kernel against its plain PyTorch version (a backward
      kernel against the plain version's autograd) at the shapes of the
-     eval path (12 views at 512x1408) and of the training step, plus edge
-     cases: float32 with TF32 off (max error <= 1e-4 of the reference's
+     eval path (12 views at 512x1408), of the training step and, for B12,
+     of the JAX package's micro-bench (12000 RoIs on random views), plus
+     edge cases: float32 with TF32 off (max error <= 1e-4 of the reference's
      max magnitude) and bfloat16 (<= 3e-2).  The main-path cases are
      timed (kernel, plain version, and for attention the masked
      F.scaled_dot_product_attention, timed only) beside their bound: the
@@ -25,27 +26,40 @@ Phases, in order; any failure exits non-zero without the final line:
      outputs of the expected shapes, the eval kernels' launch counters
      above zero, ms per forward, and the inputs each kernel saw first
      replayed through its plain version;
-  7. train: four full-width MV2D-T R50 training steps (bf16 mixed
+  7. http: the port's HTTP server (`mv2d_tpu_torch.tools.serve`) in
+     process on 127.0.0.1, built from the R50 file of configs/mv2d/ with
+     align_v2 (the JAX package's MV2D_ALIGN_V2=1: kernel B11), max
+     batch 2: one request, then three at once, each response equal to a
+     direct forward of the same model on the same arrays, B11 launched
+     once a forward and K3 never, the /metrics counts, a bad request
+     answered 400; then `roi_forward` (kernel B12) on that scene's FPN
+     levels and flattened proposals, its RoI features against K3's and
+     B11's; then one request to a server built from the R101 1600x640
+     file (k_max 24576);
+  8. train: four full-width MV2D-T R50 training steps (bf16 mixed
      precision, synthetic_train_batch(seed=0), seeded weights; the first
      is warm-up): finite losses, total and grad norm, trained parameters
      moved and frozen ones not, each training kernel's launches per step,
      ms per step and peak memory, and the inputs each training kernel saw
      first replayed through its plain version;
-  8. routes_tiny: the routes that the JAX package's switches select
+  9. routes_tiny: the routes that the JAX package's switches select
      (`mv2d_tpu_torch.routes.Routes`), float32 with TF32 off, GPU against
      CPU: a ResNet-50 backbone with MV2D-T's DCN layout on 2 views at
      256x704 with fused_stages='all' (MV2D_FUSED_STAGES=all; B10 on
-     layer2's tail, and not while gradients are recorded), and one
-     tiny+DCN training step with dcn_train_fused and flash_sparse
+     layer2's tail, and not while gradients are recorded), one tiny+DCN
+     training step with dcn_train_fused and flash_sparse
      (MV2D_DCN_TRAIN_FUSED=1, MV2D_FLASH_SPARSE=1; B13, B14; B5, B6 and B8
-     not launched), every loss and gradient;
-  9. routes: at full width, two bf16 eval forwards with fused_stages='all'
-     and three training steps with both training routes: finite outputs,
+     not launched), and one with align_v2 (MV2D_ALIGN_V2=1; B11 and B9,
+     K3 not launched), every loss and gradient;
+  10. routes: at full width, two bf16 eval forwards with fused_stages='all'
+     and three training steps with the three training routes (B13, B14,
+     and B11 with B9 for the R-CNN RoIAlign): finite outputs,
      launches, ms and peak memory beside the default route's from phases
-     6-7, and the first inputs of each new kernel replayed through its
+     6 and 8, and the first inputs of each new kernel replayed through its
      plain version.
-The default phases (3-7) build their models with the default routes
-(`Routes()`), whatever the environment holds.  Each path's launch
+The default phases (3-6, 8) build their models with the default routes
+(`Routes()`), whatever the environment holds; phase 7 sets align_v2 for
+its R50 server and the default routes for its R101 server.  Each path's launch
 counters are set to 0 just before it and read just after.  Then one JSON
 line with the kernels' results, the card's name and power limit, and the
 last line
@@ -96,10 +110,18 @@ KERNELS = {
     'masked_attention_sparse_backward': dict(
         source='mv2d_tpu_torch/csrc/attention.cu',
         replaces='mv2d_tpu/ops/pallas_attention.py:491'),
+    'roi_align_slab': dict(
+        source='mv2d_tpu_torch/csrc/roi_align_slab.cu',
+        replaces='mv2d_tpu/ops/pallas_roi_align.py:1219'),
+    'roi_align_flat': dict(
+        source='mv2d_tpu_torch/csrc/roi_align_patch.cu',
+        replaces='mv2d_tpu/ops/pallas_roi_align.py:456'),
 }
-# kernels that only the routing switches reach: none on the default paths
+# kernels that only the routing switches and other entry points reach:
+# none on the default paths
 ROUTED_KERNELS = ('fused_identity_chain', 'dcn_conv_backward',
-                  'masked_attention_sparse_backward')
+                  'masked_attention_sparse_backward', 'roi_align_slab',
+                  'roi_align_flat')
 SERVE_KERNELS = ('fused_stage1', 'dcn_conv', 'roi_align_multilevel',
                  'masked_attention')
 # launches per training step (K1: 3 bottlenecks; K3: at least the no-grad
@@ -109,15 +131,17 @@ TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_samples': 9,
                   'masked_attention_backward': 12,
                   'roi_align_multilevel_backward': 1,
                   **{n: 0 for n in ROUTED_KERNELS}}
-# launches per training step with the dcn_train_fused and flash_sparse
-# routes (K2: the nine DCN convs' forwards)
+# launches per training step with the dcn_train_fused, flash_sparse and
+# align_v2 routes (K2: the nine DCN convs' forwards; B11: the detect pass
+# and the R-CNN RoIs)
 ROUTED_TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_conv': 9,
                          'dcn_conv_backward': 9, 'dcn_samples': 0,
                          'dcn_samples_backward': 0, 'masked_attention': 12,
                          'masked_attention_backward': 0,
                          'masked_attention_sparse_backward': 12,
+                         'roi_align_multilevel': 0, 'roi_align_slab': 2,
                          'roi_align_multilevel_backward': 1,
-                         'fused_identity_chain': 0}
+                         'fused_identity_chain': 0, 'roi_align_flat': 0}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_OPS_PER_S = 989e12
 
@@ -137,7 +161,9 @@ def counters():
             'fused_identity_chain': stage.fused_identity_chain,
             'dcn_conv_backward': dcn.dcn_conv_backward,
             'masked_attention_sparse_backward':
-                attention.masked_attention_sparse_backward}
+                attention.masked_attention_sparse_backward,
+            'roi_align_slab': roi_align.roi_align_slab,
+            'roi_align_flat': roi_align.roi_align_flat}
 
 
 def log(*a):
@@ -299,6 +325,32 @@ def roi_inputs(dev, dtype, V=12, P=1000, img=(512, 1408), C=256, seed=0,
     return feats, rois.to(dev)
 
 
+def flat_roi_inputs(dev, dtype, R=12000, V=12, img=(512, 1408), C=256,
+                    seed=0, edge=False):
+    """The JAX package's micro-bench of its flat RoIAlign
+    (tools/micro_bench.py 'palign'): p2..p5 maps, R RoIs with corners
+    ~ U(0, 1000) and sides ~ U(100, 400) on random views; with `edge`,
+    RoIs outside the image, zero-area, whole-image and > 61-cell slivers
+    are mixed in."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(V, img[0] // s, img[1] // s, C, generator=g)
+             .to(dev, dtype) for s in (4, 8, 16, 32)]
+    xy = torch.rand(R, 2, generator=g) * 1000
+    rois = torch.cat([xy, xy + 100 + 300 * torch.rand(R, 2, generator=g)],
+                     1)
+    views = torch.randint(0, V, (R,), generator=g, dtype=torch.int32)
+    if edge:
+        rois[:6] = torch.tensor([
+            [-300.0, -200.0, -40.0, -10.0],       # outside the image
+            [500.0, 300.0, 500.0, 300.0],         # zero area
+            [0.0, 0.0, img[1], img[0]],           # whole image
+            [0.0, 100.0, img[1], 110.0],          # 352 x 2.5 cells at p2
+            [900.0, 0.0, 907.0, img[0]],          # 1.75 x 128 cells
+            [-50.0, 400.0, 300.0, 700.0]])        # across the bottom edge
+    return feats, rois.to(dev), views.to(dev)
+
+
 def attention_inputs(dev, dtype, Q=900, K=16384, C=256, seed=0,
                      self_attn=False):
     """Projected q/k/v and a correlation-like mask: each query sees a few
@@ -388,10 +440,13 @@ def as_list(x):
     return [x] if torch.is_tensor(x) else list(x)
 
 
-def roi_samples(rois, feats, strides):
-    """Bilinear samples K3 takes for these RoIs (adaptive ceil(bin))."""
+def roi_samples(rois, feats, strides, sampling_ratio=0):
+    """Bilinear samples RoIAlign takes for these RoIs (adaptive ceil(bin),
+    or a fixed ratio)."""
     import torch
     from mv2d_tpu_torch.ops.roi_align import roi_levels
+    if sampling_ratio > 0:
+        return float(rois[..., 0].numel()) * 49 * sampling_ratio ** 2
     lvl = roi_levels(rois.float())
     scale = 1.0 / torch.tensor(strides, device=rois.device)[lvl]
     ext = (rois[..., 2:] - rois[..., :2]).float() * scale[..., None] / 7
@@ -513,6 +568,41 @@ def kernel_cases():
                                                              strides),
                 (nbytes(*feats, rois) + out_bytes,
                  8.0 * C * roi_samples(rois, feats, strides)))
+        return build
+
+    def slab(edge, V=12, P=1000):
+        def build(dev, dt):
+            feats, rois = roi_inputs(dev, dt, V=V, P=P, edge=edge)
+            strides = (4, 8, 16, 32)
+            C = feats[0].shape[-1]
+            out_bytes = V * P * 49 * C * feats[0].element_size()
+            return Case(
+                lambda: roi_align.roi_align_slab(feats, rois, strides),
+                lambda: roi_align.multilevel_roi_align_plain(feats, rois,
+                                                             strides),
+                (nbytes(*feats, rois) + out_bytes,
+                 8.0 * C * roi_samples(rois, feats, strides)),
+                extra={'k3_ms': lambda: roi_align.roi_align_multilevel(
+                    feats, rois, strides)})
+        return build
+
+    def flat(S, edge=False):
+        def build(dev, dt):
+            feats, rois, views = flat_roi_inputs(dev, dt, edge=edge)
+            strides = (4, 8, 16, 32)
+            R, C = rois.shape[0], feats[0].shape[-1]
+            out_bytes = R * 49 * C * feats[0].element_size()
+            # context: K3 on the same RoIs, 1000 a view
+            vp = rois.reshape(feats[0].shape[0], -1, 4)
+            return Case(
+                lambda: roi_align.roi_align_flat(feats, rois, views, strides,
+                                                 S),
+                lambda: roi_align.multilevel_roi_align_flat_plain(
+                    feats, rois, views, strides, S),
+                (nbytes(*feats, rois, views) + out_bytes,
+                 8.0 * C * roi_samples(rois, feats, strides, S)),
+                extra={'k3_ms': lambda: roi_align.roi_align_multilevel(
+                    feats, vp, strides)})
         return build
 
     def roi_bwd(edge, V=6, P=512):
@@ -687,6 +777,18 @@ def kernel_cases():
          True, attn_bwd(train_attn(True), sparse=True)),
         ('masked_attention_sparse_backward', 'edge: every pair allowed',
          False, attn_bwd(full_attn, sparse=True)),
+        ('roi_align_slab', 'p2-p5, rois [12,1000,4]', True, slab(False)),
+        ('roi_align_slab', 'train rois [6,512,4]', True,
+         slab(False, 6, 512)),
+        ('roi_align_slab', 'edge: extreme aspect/empty/outside', False,
+         slab(True)),
+        ('roi_align_flat', '12000 rois, random views, adaptive', True,
+         flat(0)),
+        ('roi_align_flat', '12000 rois, random views, S=2', True, flat(2)),
+        ('roi_align_flat', 'edge: outside/empty/whole/slivers, adaptive',
+         False, flat(0, edge=True)),
+        ('roi_align_flat', 'edge: outside/empty/whole/slivers, S=2', False,
+         flat(2, edge=True)),
     ]
 
 
@@ -997,6 +1099,221 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
     return _replay(seen, plain, {n: fns[n] for n in plain}, 'serve') and ok
 
 
+def _scene(mc, seed=0):
+    """A request's arrays for a config: N(0, 1) images, the camera rig,
+    timestamps 0 / 0.5 for the two frames."""
+    from mv2d_tpu_torch.synthetic import camera_rig
+    V = mc.total_views
+    K, E = camera_rig(V, mc.image_size)
+    return dict(images=np.random.default_rng(seed).normal(
+        size=(V, *mc.image_size, 3)).astype(np.float32),
+        intrinsics=K, extrinsics=E,
+        timestamps=np.asarray([0.0] * mc.num_views
+                              + [0.5] * (V - mc.num_views)))
+
+
+def _post(url, arrays):
+    """POST /predict -> (status, response arrays or error, client ms)."""
+    import io
+    import urllib.error
+    import urllib.request
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(url + '/predict', data=buf.getvalue(),
+                                 method='POST')
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = dict(np.load(io.BytesIO(r.read())))
+            code = r.status
+    except urllib.error.HTTPError as e:
+        code, body = e.code, json.load(e)
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+class _Server:
+    """The port's HTTP server on 127.0.0.1 (a free port) in a thread."""
+
+    def __init__(self, path, routes, max_batch, timeout_ms, dev,
+                 options=None):
+        import threading
+        from http.server import ThreadingHTTPServer
+        from mv2d_tpu_torch.tools.common import load_cli_config
+        from mv2d_tpu_torch.tools.serve import (ModelRunner, make_handler,
+                                                metadata)
+        cfg = load_cli_config(path, options)
+        self.runner = ModelRunner(cfg, None, max_batch, timeout_ms,
+                                  device=dev, routes=routes)
+        self.srv = ThreadingHTTPServer(
+            ('127.0.0.1', 0), make_handler(self.runner,
+                                           metadata(cfg, self.runner)))
+        self.url = f'http://127.0.0.1:{self.srv.server_address[1]}'
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def get(self, route):
+        import urllib.request
+        with urllib.request.urlopen(self.url + route, timeout=60) as r:
+            return json.load(r)
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join()
+        self.runner.close()
+
+
+def _response_ok(out, mc):
+    n = mc.max_per_scene
+    v = out['valid'].astype(bool)
+    return (out['boxes_3d'].shape == (n, 9) and out['scores_3d'].shape == (n,)
+            and out['labels_3d'].shape == (n,) and out['valid'].shape == (n,)
+            and bool(v.any()) and bool(np.isfinite(out['boxes_3d'][v]).all())
+            and bool(np.isfinite(out['scores_3d'][v]).all()))
+
+
+def phase_http(dev, results, options=(), options_r101=()):
+    """The port's server, as a user reaches the eval forward: the R50
+    config file with align_v2 (B11), max batch 2, batch timeout 200 ms;
+    then roi_forward (B12) on one scene's proposals; then the R101 file.
+    `options` (--cfg-options) shrink the configs for a rehearsal."""
+    import threading
+    import torch
+    from mv2d_tpu_torch.ops import roi_align
+    from mv2d_tpu_torch.routes import Routes
+
+    fns = counters()
+    srv = _Server('configs/mv2d/mv2d_r50_frcnn_two_frames_1408x512_ep24.py',
+                  Routes(align_v2=True), 2, 200.0, dev, list(options))
+    runner, mc = srv.runner, srv.runner.mc
+    ok = srv.get('/health') == {'status': 'ok'}
+    meta = srv.get('/metadata')
+    ok &= meta['views'] == 12 and meta['image_size'] == list(mc.image_size)
+    scenes = [_scene(mc, seed) for seed in range(4)]
+    for fn in fns.values():
+        fn.launches = 0
+    answers = [_post(srv.url, scenes[0])] + [None] * 3
+
+    def ask(i):
+        answers[i] = _post(srv.url, scenes[i])
+    threads = [threading.Thread(target=ask, args=(i,)) for i in (1, 2, 3)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    for name, n in launches.items():
+        results[name]['launches_by_path']['http'] = n
+    metrics = srv.get('/metrics')
+    codes = [a[0] for a in answers]
+    shapes_ok = codes == [200] * 4 and all(_response_ok(a[1], mc)
+                                           for a in answers)
+    launch_ok = (launches['roi_align_slab'] == 4
+                 and launches['roi_align_multilevel'] == 0
+                 and launches['roi_align_flat'] == 0
+                 and all(launches[n] > 0 for n in SERVE_KERNELS
+                         if n != 'roi_align_multilevel'))
+    metrics_ok = (metrics['requests'] == 4 and metrics['errors'] == 0
+                  and metrics['batches'] < 4)
+    log(f'  R50 align_v2: statuses {codes}; client ms '
+        + ', '.join(f'{a[2]:.1f}' for a in answers)
+        + f' (the first alone, then three at once); /metrics {metrics}')
+    log(f'  launches for the 4 requests: {launches} '
+        f'(B11 4, K3 0) {"ok" if launch_ok else "FAIL"}')
+    results['_http'] = dict(client_ms=[a[2] for a in answers], **metrics)
+
+    # each answer against a direct forward of the same model and arrays
+    match_ok = True
+    for (code, out, _), arrays in zip(answers, scenes):
+        with torch.inference_mode():
+            det = runner.model(*runner.inputs(arrays))
+        same = code == 200 and np.array_equal(det.valid.cpu().numpy(),
+                                              out['valid'])
+        err = float('nan')
+        if same:
+            v = out['valid'].astype(bool)
+            err = max(compare(torch.from_numpy(out[k][v]),
+                              getattr(det, a).float().cpu()[v])[1]
+                      for k, a in (('scores_3d', 'scores'),
+                                   ('boxes_3d', 'boxes')))
+        match_ok &= same and err <= BF16_TOL
+        log(f'  answer vs direct forward: same valid {same}, worst score / '
+            f'box error {err:.2e} of max (tol {BF16_TOL:.0e})')
+
+    code, body, _ = _post(srv.url, dict(images=np.zeros((2, 8, 8, 3),
+                                                        np.float32),
+                                        intrinsics=np.eye(4)[None],
+                                        extrinsics=np.eye(4)[None]))
+    bad_ok = code == 400
+    log(f'  bad request: status {code} {body} {"ok" if bad_ok else "FAIL"}')
+
+    # roi_forward (B12) on the first scene's FPN levels and proposals
+    model = runner.model
+    det2d = model.base_detector
+    strides = (4, 8, 16, 32)
+    with torch.inference_mode():
+        fpn = det2d.extract_feat(runner.inputs(scenes[0])[0])
+        boxes, _, _ = det2d.rpn(fpn, mc.image_size, mc.proposal_test)
+        V, P = boxes.shape[:2]
+        rois = boxes.reshape(V * P, 4)
+        views = torch.arange(V, device=dev).repeat_interleave(P)
+        for fn in fns.values():
+            fn.launches = 0
+        cls, reg = det2d.roi_forward(fpn, rois, views)
+        torch.cuda.synchronize()
+        rf = {n: fn.launches for n, fn in fns.items()}
+        for name, n in rf.items():
+            results[name]['launches_by_path']['roi_forward'] = n
+        feats = list(fpn[:4])
+        f12 = roi_align.roi_align_flat(feats, rois, views, strides)
+        f3 = roi_align.roi_align_multilevel(feats, boxes, strides)
+        f11 = roi_align.roi_align_slab(feats, boxes, strides)
+        torch.cuda.synchronize()
+        e3 = compare(f12.reshape(f3.shape), f3)
+        e11 = compare(f12.reshape(f3.shape), f11)
+        head = det2d.roi_head.bbox_head(f3.reshape(V * P, *f3.shape[2:]))
+        eh = compare_all([cls, reg], head)
+    rf_ok = (rf['roi_align_flat'] == 1 and rf['roi_align_slab'] == 0
+             and rf['roi_align_multilevel'] == 0 and e3[1] <= BF16_TOL
+             and e11[1] <= BF16_TOL and e3[2] and e11[2]
+             and eh[1] <= BF16_TOL)
+    log(f'  roi_forward on {V * P} proposals: launches B12 '
+        f'{rf["roi_align_flat"]}, B11 {rf["roi_align_slab"]}, K3 '
+        f'{rf["roi_align_multilevel"]}; features vs K3 rel {e3[1]:.2e}, vs '
+        f'B11 rel {e11[1]:.2e}; head vs head on K3 rel {eh[1]:.2e} (tol '
+        f'{BF16_TOL:.0e}) {"ok" if rf_ok else "FAIL"}')
+    srv.close()
+    del srv, runner, model, det2d, fpn, feats, f12, f3, f11
+    torch.cuda.empty_cache()
+
+    # one request to the R101 1600x640 server (default routes)
+    srv = _Server('configs/mv2d/mv2d_r101_frcnn_two_frames_1600x640_ep24.py',
+                  Routes(), 1, 8.0, dev, list(options_r101))
+    mc101 = srv.runner.mc
+    for fn in fns.values():
+        fn.launches = 0
+    code, out, ms = _post(srv.url, _scene(mc101, 7))
+    torch.cuda.synchronize()
+    l101 = {n: fn.launches for n, fn in fns.items()}
+    for name, n in l101.items():
+        results[name]['launches_by_path']['http_r101'] = n
+    r101_ok = (code == 200 and _response_ok(out, mc101)
+               and (mc101.depth, mc101.k_max) == (101, 24576)
+               and all(l101[n] > 0 for n in SERVE_KERNELS))
+    log(f'  R101 {mc101.image_size[1]}x{mc101.image_size[0]} k_max '
+        f'{mc101.k_max}: status {code}, client ms '
+        f'{ms:.1f}, valid {int(out["valid"].sum()) if code == 200 else 0}, '
+        f'launches {l101} {"ok" if r101_ok else "FAIL"}')
+    results['_http_r101_ms'] = ms
+    srv.close()
+    del srv
+    torch.cuda.empty_cache()
+    return (ok and shapes_ok and launch_ok and metrics_ok and match_ok
+            and bad_ok and rf_ok and r101_ok)
+
+
 def phase_train(dev, results, n_steps=4, cfg=None):
     """Full-width training steps (bf16 mixed precision) on the synthetic
     scene; the first step is warm-up."""
@@ -1129,7 +1446,8 @@ def phase_routes_tiny(dev):
     stage output within 1e-4 of its max magnitude; with gradients on, no
     B10 and a gradient in layer2's tail), then one tiny+DCN training step
     with dcn_train_fused and flash_sparse (phase_tiny_train's checks, with
-    B13 and B14 launched and B5, B6 and B8 not)."""
+    B13 and B14 launched and B5, B6 and B8 not), and one with align_v2
+    (B11 and B9 launched, K3 not)."""
     import torch
     from mv2d_tpu_torch.nn.resnet import ResNet
     from mv2d_tpu_torch.routes import Routes
@@ -1171,20 +1489,30 @@ def phase_routes_tiny(dev):
                    'masked_attention_sparse_backward',
                    'roi_align_multilevel', 'roi_align_multilevel_backward'),
         absent=('dcn_samples', 'dcn_samples_backward',
-                'masked_attention_backward', 'fused_identity_chain'),
+                'masked_attention_backward', 'fused_identity_chain',
+                'roi_align_slab', 'roi_align_flat'),
         routes=Routes(dcn_train_fused=True, flash_sparse=True))
-    return ok and grad_ok and ok_train
+    ok_v2 = phase_tiny_train(
+        dev, need=('dcn_samples', 'dcn_samples_backward', 'masked_attention',
+                   'masked_attention_backward', 'roi_align_slab',
+                   'roi_align_multilevel_backward'),
+        absent=('roi_align_multilevel', 'roi_align_flat',
+                'fused_identity_chain', 'dcn_conv_backward',
+                'masked_attention_sparse_backward'),
+        routes=Routes(align_v2=True))
+    return ok and grad_ok and ok_train and ok_v2
 
 
 def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     """Full width on the optional routes: bf16 eval forwards with
     fused_stages='all' (B10 on layer2's tail), then training steps with
-    dcn_train_fused and flash_sparse (B13, B14), each beside the default
-    route's ms and peak memory from this run."""
+    dcn_train_fused, flash_sparse and align_v2 (B13, B14, B11 / B9), each
+    beside the default route's ms and peak memory from this run."""
     import torch
     import mv2d_tpu_torch.nn.resnet as resnet
     import mv2d_tpu_torch.ops.attention as attention
     import mv2d_tpu_torch.ops.dcn as dcn
+    import mv2d_tpu_torch.ops.roi_align as roi_align
     from mv2d_tpu_torch import configs
     from mv2d_tpu_torch.core.geometry import prepare_camera_params
     from mv2d_tpu_torch.models.mv2d import MV2D
@@ -1253,11 +1581,11 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     del model, out, boxes, scores
     torch.cuda.empty_cache()
 
-    # ---- training steps, dcn_train_fused and flash_sparse
-    # (MV2D_DCN_TRAIN_FUSED=1, MV2D_FLASH_SPARSE=1)
+    # ---- training steps, dcn_train_fused, flash_sparse and align_v2
+    # (MV2D_DCN_TRAIN_FUSED=1, MV2D_FLASH_SPARSE=1, MV2D_ALIGN_V2=1)
     model = init_random_weights(
-        MV2D(cfg, Routes(dcn_train_fused=True, flash_sparse=True)),
-        seed=0).to(dev)
+        MV2D(cfg, Routes(dcn_train_fused=True, flash_sparse=True,
+                         align_v2=True)), seed=0).to(dev)
     opt = make_optimizer(model)
     batch = synthetic_train_batch(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1272,14 +1600,14 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     ms, launches, peak, _ = run(
         [(dcn, 'dcn_conv_backward', 'dcn_conv_backward', lambda a: True),
          (attention, 'masked_attention_sparse_backward',
-          'masked_attention_sparse_backward', cross)],
+          'masked_attention_sparse_backward', cross),
+         (roi_align, 'roi_align_slab', 'roi_align_slab', lambda a: True)],
         n_steps, step, 'routes_train')
     finite = all(np.isfinite(v) for s in steps for v in s.values())
     per_step_ok = all(launches[n] == k * n_steps
-                      for n, k in ROUTED_TRAIN_PER_STEP.items()) and \
-        launches['roi_align_multilevel'] >= 2 * n_steps
+                      for n, k in ROUTED_TRAIN_PER_STEP.items())
     train_ok = finite and per_step_ok
-    log(f'  dcn_train_fused, flash_sparse: train ms/step '
+    log(f'  dcn_train_fused, flash_sparse, align_v2: train ms/step '
         + ', '.join(f'{t:.1f}' for t in ms) + ' (default route '
         + ', '.join(f'{t:.1f}' for t in results.get('_train_ms', []))
         + f'); peak memory {peak:.2f} GiB (default '
@@ -1289,7 +1617,7 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
         log(f'  step {i}: total_loss={s["total_loss"]:.4f} '
             f'grad_norm={s["grad_norm"]:.4f}')
     log(f'  launches per {n_steps} steps: {launches} (per step expected '
-        f'{ROUTED_TRAIN_PER_STEP}, K3 >= 2) '
+        f'{ROUTED_TRAIN_PER_STEP}) '
         f'{"ok" if per_step_ok else "FAIL"}')
     results['_routes_train_ms'] = ms
     results['_routes_train_peak_gb'] = peak
@@ -1306,11 +1634,13 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
 
     plain = {'fused_identity_chain': stage.fused_identity_chain_plain,
              'dcn_conv_backward': dcn_bwd_plain,
-             'masked_attention_sparse_backward': attn_bwd_plain}
+             'masked_attention_sparse_backward': attn_bwd_plain,
+             'roi_align_slab': roi_align.multilevel_roi_align_plain}
     kern = {'fused_identity_chain': stage.fused_identity_chain,
             'dcn_conv_backward': dcn.dcn_conv_backward,
             'masked_attention_sparse_backward':
-                attention.masked_attention_sparse_backward}
+                attention.masked_attention_sparse_backward,
+            'roi_align_slab': roi_align.roi_align_slab}
     return _replay(seen, plain, kern, 'routes') and serve_ok and train_ok
 
 
@@ -1346,6 +1676,7 @@ def main():
             ('tiny', lambda: phase_tiny_parity(dev)),
             ('tiny_train', lambda: phase_tiny_train(dev)),
             ('serve', lambda: phase_serve(dev, results)),
+            ('http', lambda: phase_http(dev, results)),
             ('train', lambda: phase_train(dev, results)),
             ('routes_tiny', lambda: phase_routes_tiny(dev)),
             ('routes', lambda: phase_routes(dev, results))):

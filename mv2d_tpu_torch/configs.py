@@ -5,7 +5,9 @@ imported where JAX is absent.  These tuples carry the same fields and
 defaults as `mv2d_tpu.models.mv2d.MV2DConfig`,
 `mv2d_tpu.models.correlation.CorrelationConfig` and
 `mv2d_tpu.models.detector2d.DetectionProposalCfg`; the presets mirror
-`mv2d_tpu.configs.mv2d_t_r50` and `mv2d_tpu.configs.tiny`.
+`mv2d_tpu.configs.mv2d_t_r50`, `mv2d_t_r101`, `mv2d_s_r50` and `tiny`
+(the port's model runs the two-stage ResNet detector in pixel key mode,
+so `mv2d_s_r50`, in roi key mode, builds a config that `MV2D` refuses).
 """
 from __future__ import annotations
 
@@ -118,6 +120,30 @@ def mv2d_t_r50(**overrides) -> MV2DConfig:
         use_denoise=True, denoise_noise_scale=1.25, denoise_split=0.6,
         use_flash_attention=True,
     )
+    return cfg._replace(**overrides)
+
+
+def mv2d_s_r50(**overrides) -> MV2DConfig:
+    """MV2D-S R50 single-frame RoI-correlation 1408x512
+    (ref: ..._single_frame_roi_1408x512_ep24.py: no DCN, no DN,
+    correlation topk_matched:1)."""
+    cfg = MV2DConfig(
+        num_views=6, num_frames=1, image_size=(512, 1408), depth=50,
+        stage_with_dcn=(False, False, False, False),
+        key_mode='roi',
+        correlation=CorrelationConfig.from_mode_string(
+            'topk_matched:1:0.0:0.0', expand_stride=0.0),
+        proposal_train=PROPOSAL_CFG, proposal_test=PROPOSAL_CFG,
+        use_denoise=False,
+    )
+    return cfg._replace(**overrides)
+
+
+def mv2d_t_r101(**overrides) -> MV2DConfig:
+    """MV2D-T R101 two-frame 1600x640: the reference's R101 detector base
+    (configs/mv2d/detectors/maskrcnn_r101.py) at the higher resolution;
+    the same head recipe as mv2d_t_r50."""
+    cfg = mv2d_t_r50(depth=101, image_size=(640, 1600), k_max=24576)
     return cfg._replace(**overrides)
 
 

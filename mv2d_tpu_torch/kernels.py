@@ -45,6 +45,10 @@ SIGNATURES = {
     'mv2d_identity_block': [_P] * 8 + [_I] * 5 + [_P],
     'mv2d_dcn_conv_bwd': [_P] * 12 + [_I] * 9 + [_P],
     'mv2d_masked_attention_sparse_bwd': [_P] * 13 + [_I] * 5 + [_P],
+    'mv2d_roi_align_flat': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3
+                           + [_I] * 4 + [_P],
+    'mv2d_roi_align_slab': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3
+                           + [_I] * 5 + [_P],
 }
 
 

@@ -4,7 +4,12 @@ Port of `mv2d_tpu/models/detector2d.py:TwoStageDetector` with mmdet keys
 (backbone, neck, rpn_head, roi_head.bbox_head).  The R-CNN RoIAlign runs
 through `ops.roi_align.roi_align_multilevel` (kernel K3 on CUDA) in the
 natural [V, P] slot order; the training RoIs through its differentiable
-form `roi_align_multilevel_train` (K3 forward, B9 backward).
+form `roi_align_multilevel_train` (K3 forward, B9 backward).  With
+`Routes.align_v2` (the JAX package's MV2D_ALIGN_V2=1) both go through the
+slab kernel B11 instead (`roi_align_slab`; B11 forward, B9 backward).
+`roi_forward` takes flat RoIs with a view index through kernel B12
+(`roi_align_flat`), as the JAX package's `roi_forward` takes its Pallas
+patch kernel.
 """
 from __future__ import annotations
 
@@ -19,8 +24,8 @@ from ..nn.fpn import FPN
 from ..nn.rcnn import Shared2FCBBoxHead, decode_detections
 from ..nn.resnet import ResNet
 from ..nn.rpn import RPNHead, rpn_proposals
-from ..ops.roi_align import (roi_align_multilevel,
-                             roi_align_multilevel_train)
+from ..ops.roi_align import (roi_align_flat, roi_align_multilevel,
+                             roi_align_multilevel_train, roi_align_slab)
 from ..routes import Routes
 
 
@@ -46,6 +51,7 @@ class TwoStageDetector(tnn.Module):
                  routes: Routes = Routes()):
         super().__init__()
         self.num_classes = num_classes
+        self.align_v2 = routes.align_v2
         self.backbone = ResNet(depth, stage_with_dcn, routes)
         self.neck = FPN([256, 512, 1024, 2048], fpn_channels, num_outs=5)
         self.rpn_head = RPNHead(fpn_channels)
@@ -63,13 +69,25 @@ class TwoStageDetector(tnn.Module):
                              max_per_img=cfg.rpn_max_per_img,
                              iou_threshold=cfg.rpn_iou_threshold)
 
+    def roi_forward(self, feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                    view_idx: torch.Tensor):
+        """R-CNN head on flat RoIs [N, 4] (image pixels) of views view_idx
+        [N] -> ([N, K+1], [N, 4K]), with mmcv's adaptive sampling
+        (sampling_ratio 0).  The RoIAlign is kernel B12 on CUDA tensors,
+        with no gradient (the JAX kernel's zero tangents); its plain
+        version on the CPU."""
+        roi_feats = roi_align_flat(list(feats[:4]), rois, view_idx,
+                                   self.fpn_strides[:4], sampling_ratio=0)
+        return self.roi_head.bbox_head(roi_feats)
+
     def roi_forward_views(self, feats: Sequence[torch.Tensor],
                           rois: torch.Tensor):
         """R-CNN head on sampled training RoIs [V, S, 4] with gradients to
         the first V views' features -> ([V*S, K+1], [V*S, 4K])."""
         V, S = rois.shape[:2]
         roi_feats = roi_align_multilevel_train(
-            [f[:V] for f in feats[:4]], rois, self.fpn_strides[:4])
+            [f[:V] for f in feats[:4]], rois, self.fpn_strides[:4],
+            slab=self.align_v2)
         return self.roi_head.bbox_head(
             roi_feats.reshape(V * S, *roi_feats.shape[2:]))
 
@@ -81,8 +99,8 @@ class TwoStageDetector(tnn.Module):
         V = feats[0].shape[0]
         prop_boxes, _, prop_valid = self.rpn(feats, image_shape, cfg)
         Rp = prop_boxes.shape[1]
-        roi_feats = roi_align_multilevel(list(feats[:4]), prop_boxes,
-                                         self.fpn_strides[:4])
+        align = roi_align_slab if self.align_v2 else roi_align_multilevel
+        roi_feats = align(list(feats[:4]), prop_boxes, self.fpn_strides[:4])
         cls_logits, deltas = self.roi_head.bbox_head(
             roi_feats.reshape(V * Rp, *roi_feats.shape[2:]))
         boxes, scores = decode_detections(

@@ -5,7 +5,9 @@ sample (si, sj) sits at x = x1 + (j + (sj + 0.5) / S) * bin_w with
 x1 = box_x1 * scale - 0.5, bilinear with border clamping inside and zeros
 outside (-1, extent), averaged over S*S samples, with mmcv's adaptive
 rule (sampling_ratio 0 / -1, the reference's setting): per RoI and axis
-S = ceil(extent / O) (0 -> zero output).
+S = ceil(extent / O) (0 -> zero output), or a fixed S (sampling_ratio > 0).
+The multi-level forms route each RoI to one of four FPN levels by mmdet's
+rule (`roi_levels`).  Four kernels compute the multi-level function:
 
 * `roi_align_multilevel` is kernel K3 (`csrc/roi_align.cu`), replacing
   `mv2d_tpu/ops/pallas_roi_align.py: pallas_roi_align_views` for the
@@ -13,6 +15,14 @@ S = ceil(extent / O) (0 -> zero output).
   `roi_align_multilevel_train` is its differentiable form for the R-CNN
   loss (`RoIAlignMultilevelFn`: K3 forward, kernel B9 backward, replacing
   `pallas_roi_align_views_train`), with gradients to the features only.
+* `roi_align_slab` is kernel B11 (`csrc/roi_align_slab.cu`), the same
+  function through a per-view work list of size-class buckets (the JAX
+  package's `MV2D_ALIGN_V2` slab kernel); `roi_align_multilevel_train`
+  with `slab` is its differentiable form (B11 forward, B9 backward).
+* `roi_align_flat` is kernel B12 (`csrc/roi_align_patch.cu`) for flat
+  RoIs [R, 4] with a view index, with a fixed or adaptive S (the JAX
+  package's `pallas_multilevel_roi_align`); its plain version is
+  `multilevel_roi_align_flat_plain`.
 * `separable_roi_align_views` (3D head) stays plain torch, as the JAX
   package leaves it to XLA: every RoI row/column becomes a weight vector
   and the view tile is contracted with two matmuls.
@@ -27,16 +37,22 @@ from .. import kernels
 
 
 def _axis_weights(lo: torch.Tensor, extent: torch.Tensor, n_cells: int,
-                  output_size: int, adaptive_max: int) -> torch.Tensor:
+                  output_size: int, adaptive_max: int,
+                  sampling_ratio: int = 0) -> torch.Tensor:
     """Per-RoI averaged bilinear hat profile [..., O, n_cells] along one
     axis: W[o, c] = (1/S) sum_s hat(clip(x_s) - c) * 1[-1 < x_s < n], with
-    S = ceil(extent / O) capped at adaptive_max sample slots."""
+    S = ceil(extent / O) capped at adaptive_max sample slots, or
+    S = sampling_ratio when that is > 0."""
     O = output_size
     dev, dt = extent.device, extent.dtype
     bin_ = extent / O
     oi = torch.arange(O, device=dev, dtype=dt)
-    S = adaptive_max
-    sf = torch.ceil(bin_).clamp(0.0, float(S))
+    if sampling_ratio > 0:
+        S = sampling_ratio
+        sf = torch.full_like(bin_, float(S))
+    else:
+        S = adaptive_max
+        sf = torch.ceil(bin_).clamp(0.0, float(S))
     div = sf.clamp(min=1.0)
     s = torch.arange(S, device=dev, dtype=dt)
     frac = (s + 0.5) / div[..., None]                          # [..., S]
@@ -80,40 +96,76 @@ def roi_levels(rois: torch.Tensor, num_levels: int = 4,
     return lvl.clamp(0, num_levels - 1).long()
 
 
-def multilevel_roi_align_plain(feats: Sequence[torch.Tensor],
-                               rois: torch.Tensor, strides: Sequence[int],
-                               output_size: int = 7,
-                               finest_scale: float = 56.0,
-                               chunk: int = 256) -> torch.Tensor:
-    """feats: L maps [V, H_l, W_l, C]; rois [V, P, 4] image pixels ->
-    [V, P, O, O, C] with adaptive sampling (no cap on S).  Runs the
-    separable form per (level, view) group, in float32."""
-    V, P = rois.shape[:2]
+def multilevel_roi_align_flat_plain(feats: Sequence[torch.Tensor],
+                                    rois: torch.Tensor,
+                                    view_idx: torch.Tensor,
+                                    strides: Sequence[int],
+                                    sampling_ratio: int = 0,
+                                    output_size: int = 7,
+                                    finest_scale: float = 56.0,
+                                    chunk: int = 256) -> torch.Tensor:
+    """feats: L maps [V, H_l, W_l, C]; rois [R, 4] image pixels on views
+    view_idx [R] -> [R, O, O, C], with adaptive sampling (no cap on S) or
+    a fixed S = sampling_ratio > 0.  Runs the separable form per (level,
+    view) group, in float32."""
+    R = rois.shape[0]
     C = feats[0].shape[-1]
     O = output_size
     rois = rois.float()
+    view_idx = view_idx.long()
     lvl = roi_levels(rois, len(feats), finest_scale)
-    out = torch.zeros((V, P, O, O, C), dtype=torch.float32,
-                      device=rois.device)
+    out = torch.zeros((R, O, O, C), dtype=torch.float32, device=rois.device)
     for l, (f, s) in enumerate(zip(feats, strides)):
         H, W = f.shape[1], f.shape[2]
         sc = 1.0 / s
-        for v in range(V):
-            idx = torch.nonzero(lvl[v] == l).flatten()
+        for v in range(f.shape[0]):
+            idx = torch.nonzero((lvl == l) & (view_idx == v)).flatten()
             for c0 in range(0, idx.numel(), chunk):
                 sel = idx[c0:c0 + chunk]
-                b = rois[v, sel]
+                b = rois[sel]
                 x1 = b[:, 0] * sc - 0.5
                 y1 = b[:, 1] * sc - 0.5
                 bw = (b[:, 2] - b[:, 0]) * sc
                 bh = (b[:, 3] - b[:, 1]) * sc
                 sx = max(int(torch.ceil(bw / O).max()), 1)
                 sy = max(int(torch.ceil(bh / O).max()), 1)
-                Wx = _axis_weights(x1, bw, W, O, sx)
-                Wy = _axis_weights(y1, bh, H, O, sy)
+                Wx = _axis_weights(x1, bw, W, O, sx, sampling_ratio)
+                Wy = _axis_weights(y1, bh, H, O, sy, sampling_ratio)
                 t = torch.einsum('pjx,yxc->pjyc', Wx, f[v].float())
-                out[v, sel] = torch.einsum('piy,pjyc->pijc', Wy, t)
+                out[sel] = torch.einsum('piy,pjyc->pijc', Wy, t)
     return out.to(feats[0].dtype)
+
+
+def multilevel_roi_align_plain(feats: Sequence[torch.Tensor],
+                               rois: torch.Tensor, strides: Sequence[int],
+                               output_size: int = 7,
+                               finest_scale: float = 56.0,
+                               chunk: int = 256) -> torch.Tensor:
+    """feats: L maps [V, H_l, W_l, C]; rois [V, P, 4] image pixels ->
+    [V, P, O, O, C] with adaptive sampling (no cap on S): the flat form on
+    the views' RoIs, in float32."""
+    V, P = rois.shape[:2]
+    view_idx = torch.arange(V, device=rois.device).repeat_interleave(P)
+    out = multilevel_roi_align_flat_plain(
+        feats, rois.reshape(V * P, 4), view_idx, strides, 0, output_size,
+        finest_scale, chunk)
+    return out.reshape(V, P, *out.shape[1:])
+
+
+def _levels(feats: Sequence[torch.Tensor], strides: Sequence[int], V: int):
+    """The four levels, contiguous and checked, and their kernel arguments
+    (H_l, W_l pairs, 1 / stride_l)."""
+    if len(feats) != 4 or len(strides) != 4:
+        raise ValueError('roi_align kernel takes exactly four levels')
+    C = feats[0].shape[-1]
+    dt = feats[0].dtype
+    if any(f.dtype != dt or f.shape[0] != V or f.shape[-1] != C
+           for f in feats) or C % 8:
+        raise ValueError('levels must share dtype, views and channels '
+                         '(a multiple of 8)')
+    feats = [f.contiguous() for f in feats]
+    dims = [d for f in feats for d in (f.shape[1], f.shape[2])]
+    return feats, dims, [1.0 / s for s in strides]
 
 
 def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -124,20 +176,13 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     `multilevel_roi_align_plain`."""
     if rois.device.type == 'cpu':
         return multilevel_roi_align_plain(feats, rois, strides)
-    if len(feats) != 4 or len(strides) != 4:
-        raise ValueError('roi_align kernel takes exactly four levels')
     V, P = rois.shape[:2]
+    feats, dims, scales = _levels(feats, strides, V)
     C = feats[0].shape[-1]
-    dt = feats[0].dtype
-    if any(f.dtype != dt or f.shape[0] != V or f.shape[-1] != C
-           for f in feats) or C % 8:
-        raise ValueError('levels must share dtype, views and channels '
-                         '(a multiple of 8)')
-    feats = [f.contiguous() for f in feats]
     rois = rois.float().contiguous()
     kernels.check_cuda(*feats, rois)
-    out = torch.empty((V, P, 7, 7, C), dtype=dt, device=rois.device)
-    dims, scales = _levels_args([f.shape for f in feats], strides)
+    out = torch.empty((V, P, 7, 7, C), dtype=feats[0].dtype,
+                      device=rois.device)
     kernels.launch('mv2d_roi_align', *(f.data_ptr() for f in feats), *dims,
                    *scales, rois.data_ptr(),
                    out.data_ptr(), V, P, C, kernels.dtype_code(feats[0]))
@@ -147,10 +192,84 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 roi_align_multilevel.launches = 0
 
+# the separable kernels (B11, B12) hold a level's profiles in shared memory
+MAX_LEVEL_SIDE = 512
+# B11's work list: RoIs a bucket, size classes
+SLAB_BUCKET, SLAB_CLASSES = 8, 4
 
-def _levels_args(shapes, strides):
-    dims = [d for (_, H, W, _) in shapes for d in (H, W)]
-    return dims, [1.0 / s for s in strides]
+
+def _check_side(dims):
+    if max(dims) > MAX_LEVEL_SIDE:
+        raise ValueError(f'roi_align kernel takes levels of at most '
+                         f'{MAX_LEVEL_SIDE} cells a side')
+
+
+def roi_align_flat(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                   view_idx: torch.Tensor, strides: Sequence[int],
+                   sampling_ratio: int = 0) -> torch.Tensor:
+    """Kernel B12: 7x7 RoIAlign over four FPN levels for flat RoIs.
+    feats: 4 maps [V, H_l, W_l, C] (float32 or bfloat16, C a multiple of
+    8, sides <= 512); rois [R, 4] float32 image pixels; view_idx [R] ints
+    in [0, V) -> [R, 7, 7, C].  sampling_ratio > 0 takes that many samples
+    a bin and axis, 0 mmcv's adaptive ceil(bin).  Computes no gradient.
+    CPU tensors take `multilevel_roi_align_flat_plain`."""
+    if rois.device.type == 'cpu':
+        return multilevel_roi_align_flat_plain(feats, rois, view_idx,
+                                               strides, sampling_ratio)
+    R = rois.shape[0]
+    if rois.shape != (R, 4) or view_idx.shape != (R,):
+        raise ValueError('rois must be [R, 4] and view_idx [R]')
+    feats, dims, scales = _levels(feats, strides, feats[0].shape[0])
+    _check_side(dims)
+    C = feats[0].shape[-1]
+    rois = rois.detach().float().contiguous()
+    view_idx = view_idx.to(torch.int32).contiguous()
+    kernels.check_cuda(*feats, rois, view_idx)
+    out = torch.empty((R, 7, 7, C), dtype=feats[0].dtype, device=rois.device)
+    kernels.launch('mv2d_roi_align_flat', *(f.data_ptr() for f in feats),
+                   *dims, *scales, rois.data_ptr(), view_idx.data_ptr(),
+                   out.data_ptr(), R, C, max(int(sampling_ratio), 0),
+                   kernels.dtype_code(feats[0]))
+    roi_align_flat.launches += 1
+    return out
+
+
+roi_align_flat.launches = 0
+
+
+def slab_slots(P: int) -> int:
+    """Slots of a view's work list in B11: P RoIs, each size class's run
+    padded to whole buckets."""
+    nb = SLAB_BUCKET
+    return -(-(P + SLAB_CLASSES * (nb - 1)) // nb) * nb
+
+
+def roi_align_slab(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                   strides: Sequence[int]) -> torch.Tensor:
+    """Kernel B11: K3's function (rois [V, P, 4] -> [V, P, 7, 7, C],
+    adaptive sampling) through a per-view work list of size-class buckets,
+    the blocks view-major.  Levels as `roi_align_flat`.  CPU tensors take
+    `multilevel_roi_align_plain`."""
+    if rois.device.type == 'cpu':
+        return multilevel_roi_align_plain(feats, rois, strides)
+    V, P = rois.shape[:2]
+    feats, dims, scales = _levels(feats, strides, V)
+    _check_side(dims)
+    C = feats[0].shape[-1]
+    rois = rois.detach().float().contiguous()
+    kernels.check_cuda(*feats, rois)
+    Pp = slab_slots(P)
+    order = torch.empty((V, Pp), dtype=torch.int32, device=rois.device)
+    out = torch.empty((V, P, 7, 7, C), dtype=feats[0].dtype,
+                      device=rois.device)
+    kernels.launch('mv2d_roi_align_slab', *(f.data_ptr() for f in feats),
+                   *dims, *scales, rois.data_ptr(), order.data_ptr(),
+                   out.data_ptr(), V, P, Pp, C, kernels.dtype_code(feats[0]))
+    roi_align_slab.launches += 1
+    return out
+
+
+roi_align_slab.launches = 0
 
 
 def roi_align_multilevel_backward(feats: Sequence[torch.Tensor],
@@ -158,24 +277,20 @@ def roi_align_multilevel_backward(feats: Sequence[torch.Tensor],
                                   strides: Sequence[int]):
     """Kernel B9 on CUDA tensors: dOut [V, P, 7, 7, C] (feats' dtype) ->
     the four levels' float32 gradients [V, H_l, W_l, C] (K3's routing and
-    sampling transposed, in separable form)."""
-    if len(feats) != 4 or len(strides) != 4:
-        raise ValueError('roi_align kernel takes exactly four levels')
+    sampling transposed, in separable form).  It is the backward of K3 and
+    of B11, which compute the same function."""
     V, P = rois.shape[:2]
+    feats, dims, scales = _levels(feats, strides, V)
     C = feats[0].shape[-1]
-    if dout.shape != (V, P, 7, 7, C) or dout.dtype != feats[0].dtype \
-            or C % 8:
+    if dout.shape != (V, P, 7, 7, C) or dout.dtype != feats[0].dtype:
         raise ValueError('dout must be [V, P, 7, 7, C] in the levels\' '
-                         'dtype, C a multiple of 8')
-    if any(max(f.shape[1], f.shape[2]) > 512 for f in feats):
-        raise ValueError('roi_align backward kernel takes levels of at '
-                         'most 512 cells a side')
+                         'dtype')
+    _check_side(dims)
     rois = rois.float().contiguous()
     dout = dout.contiguous()
     kernels.check_cuda(rois, dout)
     grads = [torch.zeros(f.shape, dtype=torch.float32, device=rois.device)
              for f in feats]
-    dims, scales = _levels_args([f.shape for f in feats], strides)
     kernels.launch('mv2d_roi_align_bwd', *(g.data_ptr() for g in grads),
                    *dims, *scales, rois.data_ptr(), dout.data_ptr(), V, P,
                    C, kernels.dtype_code(dout))
@@ -187,30 +302,34 @@ roi_align_multilevel_backward.launches = 0
 
 
 class RoIAlignMultilevelFn(torch.autograd.Function):
-    """K3 forward, B9 backward; the RoIs get no gradient."""
+    """K3 forward, or B11 with `slab` (JAX's v2 route: the v2 forward and
+    the slab backward's pallas_call); B9 backward.  The RoIs get no
+    gradient."""
 
     @staticmethod
-    def forward(ctx, rois, strides, *feats):
+    def forward(ctx, rois, strides, slab, *feats):
         ctx.strides = strides
         ctx.save_for_backward(rois, *feats)
-        return roi_align_multilevel(list(feats), rois, strides)
+        fwd = roi_align_slab if slab else roi_align_multilevel
+        return fwd(list(feats), rois, strides)
 
     @staticmethod
     def backward(ctx, dout):
         rois, *feats = ctx.saved_tensors
         grads = roi_align_multilevel_backward(
             feats, rois, dout.to(feats[0].dtype), ctx.strides)
-        return (None, None, *(g.to(f.dtype) for g, f in zip(grads, feats)))
+        return (None, None, None,
+                *(g.to(f.dtype) for g, f in zip(grads, feats)))
 
 
 def roi_align_multilevel_train(feats: Sequence[torch.Tensor],
-                               rois: torch.Tensor, strides: Sequence[int]
-                               ) -> torch.Tensor:
+                               rois: torch.Tensor, strides: Sequence[int],
+                               slab: bool = False) -> torch.Tensor:
     """Differentiable 7x7 multi-level RoIAlign [V, P, 7, 7, C] with the
     gradient to the features.  CPU tensors take
     `multilevel_roi_align_plain` (autograd); CUDA tensors run
-    `RoIAlignMultilevelFn` (kernels K3 / B9)."""
+    `RoIAlignMultilevelFn`: kernels K3 / B9, or with `slab` B11 / B9."""
     rois = rois.detach()
     if rois.device.type == 'cpu':
         return multilevel_roi_align_plain(feats, rois, strides)
-    return RoIAlignMultilevelFn.apply(rois, tuple(strides), *feats)
+    return RoIAlignMultilevelFn.apply(rois, tuple(strides), slab, *feats)

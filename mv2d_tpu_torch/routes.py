@@ -1,6 +1,6 @@
 """The JAX package's kernel-routing switches, read once per model.
 
-Three environment variables of `mv2d_tpu` choose a kernel that no default
+Four environment variables of `mv2d_tpu` choose a kernel that no default
 path runs.  `from_env` reads them, with the JAX package's names and
 defaults, into a `Routes` tuple when a model is built (`models.mv2d.MV2D`
 with no `routes` argument); the modules below it take the tuple's fields
@@ -19,14 +19,17 @@ as constructor arguments and read no environment:
     `mv2d_tpu/ops/pallas_attention.py`): '1' trains the masked attention
     through K4 and the block-sparse backward B14; unset, '0' and 'mixed'
     keep B8.  Another value raises, as the JAX dict lookup does.
+  * `MV2D_ALIGN_V2` ('0' default, '1'; `mv2d_tpu/ops/pallas_roi_align.py`):
+    '1' runs the R-CNN RoIAlign (the detect pass and the training RoIs)
+    through the slab kernel B11 (`ops.roi_align.roi_align_slab`, with B9
+    as its backward) instead of K3.  The function is K3's.
 
-These routes exist to hold B10, B13 and B14 against the JAX package's
-kernels; on the H100 each is slower than the default route it replaces
-(PERF.md), and no workload selects them.
+These routes exist to hold B10, B11, B13 and B14 against the JAX
+package's kernels; on the H100 B10, B13 and B14 are slower than the
+default route they replace (PERF.md), and no workload selects them.
 
-The package's other `MV2D_*` variables are not read.  `MV2D_ALIGN_V2`
-routes the R-CNN RoIAlign through a TPU kernel the port has not ported
-yet (its function is K3's).  The rest compute no function of their own:
+The package's other `MV2D_*` variables are not read.  They compute no
+function of their own:
 they set TPU tiles or layouts (`MV2D_FLASH_BK`, `MV2D_DCN_RB`,
 `MV2D_DCN_SW`, `MV2D_ALIGN_FIXED_S`, `MV2D_ALIGN_BANDS`,
 `MV2D_ALIGN_OVERFLOW_K`, `MV2D_ALIGN_V3`, `MV2D_NMS_BLOCK`), fall back to
@@ -46,6 +49,7 @@ class Routes(NamedTuple):
     fused_stages: str = '1'           # '1' or 'all'
     dcn_train_fused: bool = False
     flash_sparse: bool = False
+    align_v2: bool = False
 
 
 def _read(var: str, allowed, default: str) -> str:
@@ -56,11 +60,12 @@ def _read(var: str, allowed, default: str) -> str:
 
 
 def from_env() -> Routes:
-    """The three switches from the environment; a value the port does not
+    """The four switches from the environment; a value the port does not
     take raises ValueError."""
     return Routes(
         fused_stages=_read('MV2D_FUSED_STAGES', ('1', 'all'), '1'),
         dcn_train_fused=_read('MV2D_DCN_TRAIN_FUSED', ('0', '1'),
                               '0') == '1',
         flash_sparse=_read('MV2D_FLASH_SPARSE', ('0', '1', 'mixed'),
-                           '0') == '1')
+                           '0') == '1',
+        align_v2=_read('MV2D_ALIGN_V2', ('0', '1'), '0') == '1')

@@ -247,3 +247,74 @@ def test_routed_kernels_refuse_what_they_do_not_take(dev):
     args = smoke.dcn_inputs(dev, torch.float32, 1, 8, 8, 32, 64, 1)
     with pytest.raises(ValueError):           # C % 64 != 0
         dcn.dcn_conv_backward(*args, torch.zeros(1, 8, 8, 64, device=dev))
+
+
+# ------------------------------------- the serving paths' RoIAlign kernels
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('sampling_ratio', [0, 2])
+def test_roi_align_flat_kernel(dev, dtype, tol, sampling_ratio):
+    """B12 on random views with the edge RoIs (outside, empty, whole
+    image, slivers), C 40: a ragged channel chunk."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois, views = smoke.flat_roi_inputs(
+        dev, getattr(torch, dtype), R=300, V=3, img=(256, 512), C=40,
+        edge=True)
+    strides = (4, 8, 16, 32)
+    want = roi_align.multilevel_roi_align_flat_plain(feats, rois, views,
+                                                     strides, sampling_ratio)
+    n12 = roi_align.roi_align_flat.launches
+    got = roi_align.roi_align_flat(feats, rois, views, strides,
+                                   sampling_ratio)
+    assert roi_align.roi_align_flat.launches == n12 + 1
+    check(got, want, tol)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+def test_roi_align_slab_kernels(dev, dtype, tol):
+    """B11 against the plain version, and B11 forward with B9 backward
+    (roi_align_multilevel_train with slab) against the plain version's
+    autograd; K3 not launched."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois = smoke.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
+                                   img=(256, 512), C=40, edge=True)
+    strides = (4, 8, 16, 32)
+    n3, n11 = roi_align.roi_align_multilevel.launches, \
+        roi_align.roi_align_slab.launches
+    check(roi_align.roi_align_slab(feats, rois, strides),
+          roi_align.multilevel_roi_align_plain(feats, rois, strides), tol)
+
+    def plain(*fs):
+        return roi_align.multilevel_roi_align_plain(fs, rois, strides)
+
+    def train(*fs):
+        return roi_align.roi_align_multilevel_train(fs, rois, strides, True)
+
+    out, grads = smoke.plain_grads(plain, feats, range(4),
+                                   smoke.cotangent(plain(*feats)))
+    n9 = roi_align.roi_align_multilevel_backward.launches
+    got, ggot = smoke.plain_grads(train, feats, range(4),
+                                  smoke.cotangent(out))
+    assert roi_align.roi_align_slab.launches == n11 + 2
+    assert roi_align.roi_align_multilevel_backward.launches == n9 + 1
+    assert roi_align.roi_align_multilevel.launches == n3
+    check_all([got, *ggot], [out, *grads], tol)
+
+
+def test_separable_roi_kernels_refuse_what_they_do_not_take(dev):
+    """B11 and B12 launch or raise: a level over 512 cells a side, a view
+    index of another length, channels not a multiple of 8."""
+    from mv2d_tpu_torch.ops import roi_align
+    strides = (4, 8, 16, 32)
+    rois = torch.tensor([[0.0, 0.0, 64.0, 64.0]], device=dev)
+    wide = [torch.zeros(1, 8, 520, 8, device=dev)] * 4
+    with pytest.raises(ValueError):
+        roi_align.roi_align_flat(wide, rois, torch.zeros(1, device=dev),
+                                 strides)
+    ok = [torch.zeros(1, 8, 8, 8, device=dev)] * 4
+    with pytest.raises(ValueError):
+        roi_align.roi_align_flat(ok, rois, torch.zeros(2, device=dev),
+                                 strides)
+    with pytest.raises(ValueError):
+        roi_align.roi_align_slab([torch.zeros(1, 8, 8, 12, device=dev)] * 4,
+                                 rois[None], strides)

@@ -251,6 +251,14 @@ def test_wrappers_take_plain_path_only_on_cpu():
             torch.empty(5, 7, dtype=torch.bool, **meta),
             torch.empty(5, 32, **meta), torch.empty(5, 4, **meta),
             torch.empty(5, 32, **meta), 4),
+        # the RoIAlign kernels of the serving paths (B11, B12)
+        lambda: roi_align.roi_align_slab(
+            [x] * 4, torch.empty(1, 3, 4, **meta), (4, 8, 16, 32)),
+        lambda: roi_align.roi_align_multilevel_train(
+            [x] * 4, torch.empty(1, 3, 4, **meta), (4, 8, 16, 32), True),
+        lambda: roi_align.roi_align_flat(
+            [x] * 4, torch.empty(3, 4, **meta),
+            torch.empty(3, dtype=torch.int32, **meta), (4, 8, 16, 32)),
     ]
     for call in calls:
         with pytest.raises((ValueError, KeyError)):

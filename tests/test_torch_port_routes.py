@@ -55,7 +55,8 @@ from mv2d_tpu_torch.train.train_step import (draw_train,  # noqa: E402
                                              forward_backward)
 
 REL = 1e-4
-SWITCHES = ('MV2D_FUSED_STAGES', 'MV2D_DCN_TRAIN_FUSED', 'MV2D_FLASH_SPARSE')
+SWITCHES = ('MV2D_FUSED_STAGES', 'MV2D_DCN_TRAIN_FUSED', 'MV2D_FLASH_SPARSE',
+            'MV2D_ALIGN_V2')
 
 
 @pytest.fixture(autouse=True)
@@ -111,17 +112,18 @@ def test_bad_flash_sparse_value_raises(monkeypatch):
 
 def test_model_reads_switches_once_when_built(monkeypatch):
     """MV2D(cfg) takes its routes from the switches when it is built and
-    hands them to the backbone, the DCN convs and the decoder layers; a
-    switch set later changes nothing in it."""
+    hands them to the backbone, the DCN convs, the decoder layers and the
+    2D detector; a switch set later changes nothing in it."""
     cfg = configs.tiny(stage_with_dcn=(False, False, True, True),
                        use_flash_attention=True)
     monkeypatch.setenv('MV2D_FUSED_STAGES', 'all')
     monkeypatch.setenv('MV2D_DCN_TRAIN_FUSED', '1')
     monkeypatch.setenv('MV2D_FLASH_SPARSE', '1')
+    monkeypatch.setenv('MV2D_ALIGN_V2', '1')
     m = MV2D(cfg)
     for k in SWITCHES:
         monkeypatch.delenv(k)
-    want = Routes('all', True, True)
+    want = Routes('all', True, True, True)
     assert m.routes == want and MV2D(cfg, want).routes == want
     assert MV2D(cfg).routes == Routes()
     assert m.base_detector.backbone.fused_stages == 'all'
@@ -130,6 +132,7 @@ def test_model_reads_switches_once_when_built(monkeypatch):
     layers = m.roi_head.bbox_head.transformer.decoder.layers
     assert len(convs) == 2 and all(c.fused_train for c in convs)
     assert all(layer.flash_sparse for layer in layers)
+    assert m.base_detector.align_v2
 
 
 # ---------------------------------------------------- routing predicate

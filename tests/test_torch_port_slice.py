@@ -100,7 +100,7 @@ def built():
 
 
 def test_configs_mirror_jax():
-    for name in ('mv2d_t_r50', 'tiny'):
+    for name in ('mv2d_t_r50', 'mv2d_t_r101', 'mv2d_s_r50', 'tiny'):
         j = getattr(jcfgs, name)()._asdict()
         t = getattr(tcfgs, name)()._asdict()
         assert list(j) == list(t)
@@ -177,5 +177,6 @@ def test_port_imports_without_jax():
     assert len(names) >= 15
     for m in ('train.train_step', 'train.optim', 'train.losses',
               'train.detector2d_loss', 'core.matching', 'ops.grid_mask',
-              'ops.focal_loss'):
+              'ops.focal_loss', 'tools.common', 'tools.serve',
+              'utils.config'):
         assert f'mv2d_tpu_torch.{m}' in names, m
