@@ -15,7 +15,11 @@ Phases, in order; any failure exits non-zero without the final line:
      timed (kernel, plain version, and for attention the masked
      F.scaled_dot_product_attention, timed only) beside their bound: the
      larger of the bytes the function moves over 3.35 TB/s and its
-     operations over 989 TFLOP/s (H100 SXM bf16 peaks);
+     operations over 989 TFLOP/s (H100 SXM bf16 peaks), and the bound's
+     share of the kernel's time.  The attention kernels read the mask as
+     the decoder hands it to them, packed once a pass (`mask_tiles`); the
+     packing kernel has cases of its own, equal bit for bit, timed beside
+     the whole per-pass build (the bits and both tile lists);
   4. tiny: the tiny config with DCN, eval forward, GPU (kernels) against
      CPU (plain versions), same seeded weights;
   5. tiny_train: one tiny+DCN training step (float32, TF32 off, dropout
@@ -116,6 +120,11 @@ KERNELS = {
     'roi_align_flat': dict(
         source='mv2d_tpu_torch/csrc/roi_align_patch.cu',
         replaces='mv2d_tpu/ops/pallas_roi_align.py:456'),
+    'mask_bits': dict(
+        source='mv2d_tpu_torch/csrc/attention.cu',
+        replaces='none: packs the mask that K4 and B8 read (the TPU kernels '
+                 'take a bf16 mask and per-tile lists, '
+                 'mv2d_tpu/ops/pallas_attention.py:192 _sparse_blocks)'),
 }
 # kernels that only the routing switches and other entry points reach:
 # none on the default paths
@@ -123,13 +132,16 @@ ROUTED_KERNELS = ('fused_identity_chain', 'dcn_conv_backward',
                   'masked_attention_sparse_backward', 'roi_align_slab',
                   'roi_align_flat')
 SERVE_KERNELS = ('fused_stage1', 'dcn_conv', 'roi_align_multilevel',
-                 'masked_attention')
+                 'masked_attention', 'mask_bits')
+# the decoder packs its self- and cross-attention masks once a pass
+MASKS_PER_PASS = 2
 # launches per training step (K1: 3 bottlenecks; K3: at least the no-grad
 # detect pass and the R-CNN RoIs)
 TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_samples': 9,
                   'dcn_samples_backward': 9, 'masked_attention': 12,
                   'masked_attention_backward': 12,
                   'roi_align_multilevel_backward': 1,
+                  'mask_bits': MASKS_PER_PASS,
                   **{n: 0 for n in ROUTED_KERNELS}}
 # launches per training step with the dcn_train_fused, flash_sparse and
 # align_v2 routes (K2: the nine DCN convs' forwards; B11: the detect pass
@@ -141,7 +153,8 @@ ROUTED_TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_conv': 9,
                          'masked_attention_sparse_backward': 12,
                          'roi_align_multilevel': 0, 'roi_align_slab': 2,
                          'roi_align_multilevel_backward': 1,
-                         'fused_identity_chain': 0, 'roi_align_flat': 0}
+                         'fused_identity_chain': 0, 'roi_align_flat': 0,
+                         'mask_bits': MASKS_PER_PASS}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_OPS_PER_S = 989e12
 
@@ -163,7 +176,8 @@ def counters():
             'masked_attention_sparse_backward':
                 attention.masked_attention_sparse_backward,
             'roi_align_slab': roi_align.roi_align_slab,
-            'roi_align_flat': roi_align.roi_align_flat}
+            'roi_align_flat': roi_align.roi_align_flat,
+            'mask_bits': attention.mask_bits}
 
 
 def log(*a):
@@ -416,12 +430,18 @@ class Case:
     compare (a tensor or a sequence of tensors), `work` = (bytes, ops) of
     the function for its bound, `library()` one PyTorch call computing the
     same function (timed only), or None; `extra` names further calls timed
-    beside them (the default route's kernels for the same work)."""
+    beside them (the default route's kernels for the same work, or the
+    per-pass build around a kernel); an
+    `exact` case must equal its plain version bit for bit; `note` is
+    printed on its line."""
 
-    def __init__(self, kernel, plain, work, library=None, extra=None):
+    def __init__(self, kernel, plain, work, library=None, extra=None,
+                 exact=False, note=''):
         self.kernel, self.plain = kernel, plain
         self.work, self.library = work, library
         self.extra = extra or {}
+        self.exact = exact
+        self.note = note
 
 
 def nbytes(*tensors):
@@ -635,9 +655,13 @@ def kernel_cases():
     def attn(inputs, train=False):
         def build(dev, dt):
             q, k, v, a = inputs(dev, dt)
+            # the decoder packs each mask once a pass (mask_bits' own cases)
+            # and every layer's K4 reads the packed form
+            tl = attention.mask_tiles(a)
             nnz = float(a.sum())
+            note = f'  {int(tl.key_starts[-1])} active 64x64 tile pairs'
             C = q.shape[1]
-            work = (nbytes(q, k, v, a) * 1.0 + nbytes(q)
+            work = (nbytes(q, k, v, *tl) + nbytes(q)
                     + q.shape[0] * 8 * 4, 4.0 * C * nnz)
             sq, sk, sv, sm = sdpa_args(q, k, v, a, 8)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -645,20 +669,22 @@ def kernel_cases():
             if train:        # K4 with its log-sum-exp, the training forward
                 return Case(
                     lambda: attention.masked_attention_forward(q, k, v, a,
-                                                               8),
+                                                               8, tl),
                     lambda: (attention.masked_attention_plain(q, k, v, a, 8),
                              attention.attention_lse_plain(q, k, a, 8)),
-                    work, lib)
-            return Case(lambda: attention.masked_attention(q, k, v, a, 8),
+                    work, lib, note=note)
+            return Case(lambda: attention.masked_attention(q, k, v, a, 8,
+                                                           tl),
                         lambda: attention.masked_attention_plain(q, k, v, a,
                                                                  8),
-                        work, lib)
+                        work, lib, note=note)
         return build
 
     def attn_bwd(inputs, sparse=False):
         def build(dev, dt):
             q, k, v, a = inputs(dev, dt)
-            out, lse = attention.masked_attention_forward(q, k, v, a, 8)
+            tl = attention.mask_tiles(a)
+            out, lse = attention.masked_attention_forward(q, k, v, a, 8, tl)
             g = cotangent(out)
             leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
             sl = [t.requires_grad_(True) for t in
@@ -670,22 +696,22 @@ def kernel_cases():
             lg = sdpa_args(g, g, g, a, 8)[0]
             nnz = float(a.sum())
             b8 = (lambda: attention.masked_attention_backward(  # noqa: E731
-                q, k, v, a, out, lse, g, 8))
-            # the routed forward lists the key tiles once; B14 reads them
-            kt = attention.sparse_key_tiles(a)
+                q, k, v, a, out, lse, g, 8, tl))
+            # the routed forward keeps its MaskTiles; B14 reads the key-tile
+            # list and the bool mask, B8 the bits and both lists
+            kt = (tl.key_starts, tl.key_tiles)
+            mask_bytes = nbytes(a) + nbytes(*kt) if sparse else nbytes(*tl)
             return Case(
                 (lambda: attention.masked_attention_sparse_backward(
                     q, k, v, a, out, lse, g, 8, kt)) if sparse else b8,
                 lambda: torch.autograd.grad(pout, leaves, g,
                                             retain_graph=True),
-                (nbytes(q, k, v, a, out, g, lse) + 4.0 * (q.numel()
-                                                          + 2 * k.numel()),
+                (nbytes(q, k, v, out, g, lse) + mask_bytes
+                 + 4.0 * (q.numel() + 2 * k.numel()),
                  10.0 * q.shape[1] * nnz),
                 lambda: torch.autograd.grad(lout, sl, lg,
                                             retain_graph=True),
-                extra={'default_b8_ms': b8, 'key_tiles_ms':
-                       lambda: attention.sparse_key_tiles(a)}
-                if sparse else None)
+                extra={'default_b8_ms': b8} if sparse else None)
         return build
 
     def eval_attn(self_attn):
@@ -697,6 +723,28 @@ def kernel_cases():
     def full_attn(dev, dt):             # every pair allowed
         q, k, v, a = attention_inputs(dev, dt, Q=300, K=2048)
         return q, k, v, torch.ones_like(a)
+
+    def no_attn(dev, dt):               # no pair allowed
+        q, k, v, a = attention_inputs(dev, dt, Q=300, K=2048)
+        return q, k, v, torch.zeros_like(a)
+
+    def ragged_attn(dev, dt):           # ragged tiles, K < 64 in the last
+        return attention_inputs(dev, dt, Q=101, K=1000, C=256)
+
+    def bits(inputs):
+        def build(dev, dt):
+            a = inputs(dev, dt)[3]
+            Q, K = a.shape
+            # mask_tiles_ms: the whole per-pass build, the bits and both
+            # tile lists, that K4 and B8's times leave out
+            return Case(lambda: attention.mask_bits(a).view(torch.uint8),
+                        lambda: attention.mask_bits_plain(a).view(
+                            torch.uint8),
+                        (nbytes(a) + Q * -(-K // 64) * 8.0, 0.0),
+                        exact=True,
+                        extra={'mask_tiles_ms':
+                               lambda: attention.mask_tiles(a)})
+        return build
 
     return [
         ('fused_stage1', 'layer1 [12,128,352,64]', True, stage1),
@@ -723,6 +771,12 @@ def kernel_cases():
          attn(train_attn(False), train=True)),
         ('masked_attention', 'train self q2628 DN mask +lse', False,
          attn(train_attn(True), train=True)),
+        ('masked_attention', 'edge: every pair allowed +lse', False,
+         attn(full_attn, train=True)),
+        ('masked_attention', 'edge: no pair allowed +lse', False,
+         attn(no_attn, train=True)),
+        ('masked_attention', 'edge: ragged q101 k1000', False,
+         attn(ragged_attn)),
         ('dcn_samples', 'stage3 s2 [12,64,176,256]', True,
          dcn_fwd(12, 64, 176, 256, 2)),
         ('dcn_samples', 'stage3 s1 [12,32,88,256]', False,
@@ -751,6 +805,12 @@ def kernel_cases():
          attn_bwd(train_attn(False))),
         ('masked_attention_backward', 'train self q2628 DN mask', False,
          attn_bwd(train_attn(True))),
+        ('masked_attention_backward', 'edge: every pair allowed', False,
+         attn_bwd(full_attn)),
+        ('masked_attention_backward', 'edge: no pair allowed', False,
+         attn_bwd(no_attn)),
+        ('masked_attention_backward', 'edge: ragged q101 k1000', False,
+         attn_bwd(ragged_attn)),
         ('roi_align_multilevel_backward', 'train rois [6,512,4]', True,
          roi_bwd(False)),
         ('roi_align_multilevel_backward',
@@ -789,6 +849,15 @@ def kernel_cases():
          False, flat(0, edge=True)),
         ('roi_align_flat', 'edge: outside/empty/whole/slivers, S=2', False,
          flat(2, edge=True)),
+        ('mask_bits', 'train cross [2628,16384]', True,
+         bits(train_attn(False))),
+        ('mask_bits', 'eval cross [900,16384]', True,
+         bits(eval_attn(False))),
+        ('mask_bits', 'train self [2628,2628]', True,
+         bits(train_attn(True))),
+        ('mask_bits', 'edge: ragged [101,1000]', False, bits(ragged_attn)),
+        ('mask_bits', 'edge: every pair allowed [300,2048]', False,
+         bits(full_attn)),
     ]
 
 
@@ -801,11 +870,11 @@ def phase_kernels(dev, results):
             out_k, out_p = as_list(case.kernel()), as_list(case.plain())
             torch.cuda.synchronize()
             err, rel, finite, same = compare_all(out_k, out_p)
-            good = finite and same and rel <= tol
+            good = finite and same and rel <= (0.0 if case.exact else tol)
             ok &= good
             line = (f'  {name:<30} {label:<38} {str(dt)[6:]:<9} '
                     f'max_abs_err={err:.3e} rel={rel:.2e} tol={tol:.0e} '
-                    f'{"ok" if good else "FAIL"}')
+                    f'{"ok" if good else "FAIL"}{case.note}')
             if main and dt == torch.bfloat16:
                 p1 = time_ms(case.plain)
                 k1 = time_ms(case.kernel)
@@ -826,7 +895,7 @@ def phase_kernels(dev, results):
                     r.setdefault('other_shapes', []).append(timing)
                 line += (f'  kernel {timing["ms"]:.3f} ms  plain '
                          f'{timing["plain_ms"]:.3f} ms  bound {b_ms:.3f} ms '
-                         f'({b_by})')
+                         f'({b_by}, {b_ms / timing["ms"]:.1%} of it)')
                 if lib is not None:
                     line += f'  library {lib:.3f} ms'
             log(line)
@@ -890,7 +959,8 @@ def to_device(obj, dev):
 
 DEFAULT_TRAIN_NEED = ('dcn_samples', 'dcn_samples_backward',
                       'masked_attention', 'masked_attention_backward',
-                      'roi_align_multilevel', 'roi_align_multilevel_backward')
+                      'roi_align_multilevel', 'roi_align_multilevel_backward',
+                      'mask_bits')
 
 
 def phase_tiny_train(dev, need=DEFAULT_TRAIN_NEED, absent=ROUTED_KERNELS,
@@ -949,6 +1019,8 @@ def _clone(a):
     import torch
     if torch.is_tensor(a):
         return a.detach().clone()
+    if isinstance(a, tuple) and hasattr(a, '_fields'):
+        return type(a)(*(_clone(x) for x in a))
     if isinstance(a, (list, tuple)):
         return type(a)(_clone(x) for x in a)
     if isinstance(a, dict):
@@ -1080,7 +1152,8 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
                  and tuple(scores.shape) == (cfg.max_per_scene,))
     ok = finite and shapes_ok and all(
         launches[n] > 0 for n in SERVE_KERNELS) and all(
-        launches[n] == 0 for n in ROUTED_KERNELS)
+        launches[n] == 0 for n in ROUTED_KERNELS) and \
+        launches['mask_bits'] == MASKS_PER_PASS * n_requests
     log(f'  forward ms (bf16, {H}x{W} x {V} views): '
         + ', '.join(f'{t:.1f}' for t in ms))
     log(f'  valid detections={int(valid.sum())} '
@@ -1092,10 +1165,13 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
     results['_forward_ms'] = ms
     results['_serve_peak_gb'] = torch.cuda.max_memory_allocated() / 2 ** 30
 
+    def attn_plain(q, k, v, a, H, tiles=None):
+        return attention.masked_attention_plain(q, k, v, a, H)
+
     plain = {'fused_stage1': stage.fused_stage1_plain,
              'dcn_conv': dcn.dcn_conv_plain,
              'roi_align_multilevel': roi_align.multilevel_roi_align_plain,
-             'masked_attention': attention.masked_attention_plain}
+             'masked_attention': attn_plain}
     return _replay(seen, plain, {n: fns[n] for n in plain}, 'serve') and ok
 
 
@@ -1211,6 +1287,7 @@ def phase_http(dev, results, options=(), options_r101=()):
     shapes_ok = codes == [200] * 4 and all(_response_ok(a[1], mc)
                                            for a in answers)
     launch_ok = (launches['roi_align_slab'] == 4
+                 and launches['mask_bits'] == MASKS_PER_PASS * 4
                  and launches['roi_align_multilevel'] == 0
                  and launches['roi_align_flat'] == 0
                  and all(launches[n] > 0 for n in SERVE_KERNELS
@@ -1301,7 +1378,8 @@ def phase_http(dev, results, options=(), options_r101=()):
         results[name]['launches_by_path']['http_r101'] = n
     r101_ok = (code == 200 and _response_ok(out, mc101)
                and (mc101.depth, mc101.k_max) == (101, 24576)
-               and all(l101[n] > 0 for n in SERVE_KERNELS))
+               and all(l101[n] > 0 for n in SERVE_KERNELS)
+               and l101['mask_bits'] == MASKS_PER_PASS)
     log(f'  R101 {mc101.image_size[1]}x{mc101.image_size[0]} k_max '
         f'{mc101.k_max}: status {code}, client ms '
         f'{ms:.1f}, valid {int(out["valid"].sum()) if code == 200 else 0}, '
@@ -1405,7 +1483,9 @@ def phase_train(dev, results, n_steps=4, cfg=None):
     results['_train_ms'] = ms
     results['_train_peak_gb'] = peak_gb
 
-    def attn_bwd_plain(q, k, v, a, out, lse, dout, H):
+    def attn_bwd_plain(q, k, v, a, out, lse, dout, H, tiles=None):
+        if a is None:         # the autograd Function keeps MaskTiles only
+            a = attention.mask_from_bits(tiles.bits, k.shape[0])
         return plain_grads(attention.masked_attention_plain, (q, k, v, a, H),
                            range(3), dout)[1]
 
@@ -1418,7 +1498,7 @@ def phase_train(dev, results, n_steps=4, cfg=None):
             return roi_align.multilevel_roi_align_plain(fs, rois, strides)
         return plain_grads(fwd, feats, range(len(feats)), dout)[1]
 
-    def attn_fwd_plain(q, k, v, a, H):
+    def attn_fwd_plain(q, k, v, a, H, tiles=None):
         return (attention.masked_attention_plain(q, k, v, a, H),
                 attention.attention_lse_plain(q, k, a, H))
 
@@ -1486,7 +1566,7 @@ def phase_routes_tiny(dev):
         f'{"ok" if grad_ok else "FAIL"}')
     ok_train = phase_tiny_train(
         dev, need=('dcn_conv', 'dcn_conv_backward', 'masked_attention',
-                   'masked_attention_sparse_backward',
+                   'masked_attention_sparse_backward', 'mask_bits',
                    'roi_align_multilevel', 'roi_align_multilevel_backward'),
         absent=('dcn_samples', 'dcn_samples_backward',
                 'masked_attention_backward', 'fused_identity_chain',
@@ -1495,7 +1575,7 @@ def phase_routes_tiny(dev):
     ok_v2 = phase_tiny_train(
         dev, need=('dcn_samples', 'dcn_samples_backward', 'masked_attention',
                    'masked_attention_backward', 'roi_align_slab',
-                   'roi_align_multilevel_backward'),
+                   'roi_align_multilevel_backward', 'mask_bits'),
         absent=('roi_align_multilevel', 'roi_align_flat',
                 'fused_identity_chain', 'dcn_conv_backward',
                 'masked_attention_sparse_backward'),
@@ -1568,7 +1648,8 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (boxes, scores))
     serve_ok = finite and tuple(boxes.shape) == (cfg.max_per_scene, 9) \
-        and launches['fused_identity_chain'] == 3 * n_requests
+        and launches['fused_identity_chain'] == 3 * n_requests \
+        and launches['mask_bits'] == MASKS_PER_PASS * n_requests
     log(f'  fused_stages=all: forward ms (bf16) '
         + ', '.join(f'{t:.1f}' for t in ms) + ' (default route '
         + ', '.join(f'{t:.1f}' for t in results.get('_forward_ms', []))

@@ -40,8 +40,9 @@ SIGNATURES = {
                       + [_I] * 4 + [_P],
     'mv2d_roi_align_bwd': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2
                           + [_I] * 4 + [_P],
-    'mv2d_masked_attention': [_P] * 9 + [_I] * 6 + [_P],
-    'mv2d_masked_attention_bwd': [_P] * 11 + [_I] * 5 + [_P],
+    'mv2d_mask_bits': [_P] * 2 + [_I] * 2 + [_P],
+    'mv2d_masked_attention': [_P] * 11 + [_I] * 6 + [_P],
+    'mv2d_masked_attention_bwd': [_P] * 16 + [_I] * 6 + [_P],
     'mv2d_identity_block': [_P] * 8 + [_I] * 5 + [_P],
     'mv2d_dcn_conv_bwd': [_P] * 12 + [_I] * 9 + [_P],
     'mv2d_masked_attention_sparse_bwd': [_P] * 13 + [_I] * 5 + [_P],

@@ -10,7 +10,9 @@ eps 1e-6, the JAX package's value.
 
 With use_flash, both attentions go through `ops.attention.masked_attention`
 (kernel K4 on CUDA), or `masked_attention_train` (K4 and its backward B8,
-or B14 with flash_sparse) while gradients are recorded.  Training applies
+or B14 with flash_sparse) while gradients are recorded; on the GPU the
+decoder packs each of its two masks once per pass (`mask_tiles`, the
+tiles every layer's kernels read).  Training applies
 the reference's dropout (p = cfg.dropout) after each attention's output
 projection and inside the FFN; the masks come from the step's
 torch.Generator (`Dropout`).
@@ -24,8 +26,8 @@ import torch.nn as tnn
 import torch.nn.functional as F
 
 from ..core.geometry import inverse_sigmoid
-from ..ops.attention import (masked_attention, masked_attention_plain,
-                             masked_attention_train)
+from ..ops.attention import (MaskTiles, mask_tiles, masked_attention,
+                             masked_attention_plain, masked_attention_train)
 from .layers import linear
 from .pe import pos2posemb3d
 
@@ -66,8 +68,10 @@ class MultiheadAttention(tnn.Module):
         tnn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, q, k, v, allowed, use_kernel: bool = False,
-                drop: Dropout = NO_DROPOUT, flash_sparse: bool = False):
-        """q [Q, C], k/v [K, C], allowed [Q, K] bool -> [Q, C]."""
+                drop: Dropout = NO_DROPOUT, flash_sparse: bool = False,
+                tiles: Optional[MaskTiles] = None):
+        """q [Q, C], k/v [K, C], allowed [Q, K] bool -> [Q, C]; `tiles`:
+        `mask_tiles(allowed)` for the kernels (built by them if None)."""
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         dt = wq.dtype
@@ -78,9 +82,10 @@ class MultiheadAttention(tnn.Module):
             out = masked_attention_plain(qp, kp, vp, allowed, self.num_heads)
         elif torch.is_grad_enabled():
             out = masked_attention_train(qp, kp, vp, allowed, self.num_heads,
-                                         flash_sparse)
+                                         flash_sparse, tiles)
         else:
-            out = masked_attention(qp, kp, vp, allowed, self.num_heads)
+            out = masked_attention(qp, kp, vp, allowed, self.num_heads,
+                                   tiles)
         return drop(self.out_proj(out))
 
 
@@ -114,14 +119,17 @@ class PETRDecoderLayer(tnn.Module):
             [tnn.LayerNorm(embed_dims, eps=LN_EPS) for _ in range(3)])
 
     def forward(self, query, query_pos, keys, key_pos, self_allowed,
-                cross_allowed, drop: Dropout = NO_DROPOUT):
+                cross_allowed, drop: Dropout = NO_DROPOUT,
+                self_tiles: Optional[MaskTiles] = None,
+                cross_tiles: Optional[MaskTiles] = None):
         qs = query + query_pos
         sa = self.attentions[0].attn(qs, qs, query, self_allowed,
-                                     self.use_flash, drop, self.flash_sparse)
+                                     self.use_flash, drop, self.flash_sparse,
+                                     self_tiles)
         query = self.norms[0](query + sa)
         ca = self.attentions[1].attn(query + query_pos, keys + key_pos, keys,
                                      cross_allowed, self.use_flash, drop,
-                                     self.flash_sparse)
+                                     self.flash_sparse, cross_tiles)
         query = self.norms[1](query + ca)
         return self.norms[2](query + self.ffns[0](query, drop))
 
@@ -140,9 +148,13 @@ class PETRDecoder(tnn.Module):
     def forward(self, query, query_pos, keys, key_pos, self_allowed,
                 cross_allowed, drop: Dropout = NO_DROPOUT):
         outs = []
+        # the kernels read each mask as MaskTiles: packed once per pass
+        tiles = (None, None)
+        if self.layers[0].use_flash and query.device.type != 'cpu':
+            tiles = (mask_tiles(self_allowed), mask_tiles(cross_allowed))
         for layer in self.layers:
             query = layer(query, query_pos, keys, key_pos, self_allowed,
-                          cross_allowed, drop)
+                          cross_allowed, drop, *tiles)
             outs.append(self.post_norm(query))
         return torch.stack(outs)                            # [L, Q, C]
 

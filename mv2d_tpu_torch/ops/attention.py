@@ -12,8 +12,16 @@ under MV2D_FLASH_SPARSE=1, see `routes`), the JAX package's block-sparse
 training form is followed: `SparseMaskedAttentionFn`, K4 forward (the
 sparse forward `_sparse_fwd_call` computes the same function) and kernel
 B14 as the single-pass backward (`_flash_sparse_bwd`).
+
+K4 and B8 read the mask as `MaskTiles` (`mask_tiles`): its bits packed 64
+keys to a word (by a small CUDA kernel, `mask_bits`) and the CSR lists of
+the 64x64 tiles that hold any allowed pair.  The decoder builds one for
+each of its two masks per pass and hands it to every layer; a wrapper
+called without one builds its own.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -78,26 +86,133 @@ def _check(q, k, v, allowed, num_heads):
     if D not in (8, 16, 32) or D * num_heads != C:
         raise ValueError(f'attention kernel takes head dim 8/16/32, '
                          f'got C={C} heads={num_heads}')
-    if k.dtype != q.dtype or v.dtype != q.dtype or allowed.shape != (Q, K):
+    if k.dtype != q.dtype or v.dtype != q.dtype or (
+            allowed is not None and allowed.shape != (Q, K)):
         raise ValueError('q/k/v must share a dtype; allowed must be [Q, K]')
 
 
-def masked_attention_forward(q, k, v, allowed, num_heads: int):
-    """Kernel K4 on CUDA tensors -> (out [Q, C], lse [Q, H] float32)."""
+SPARSE_TILE = 64          # the query and key tiles of K4, B8 and B14
+
+
+class MaskTiles(NamedTuple):
+    """A mask [Q, K] as K4 and B8 read it: `bits` uint64 [Q, ceil(K/64)],
+    bit j of word t = allowed[q, 64t + j]; the CSR list of the key tiles
+    that hold any allowed pair, per 64-query tile (`key_starts` [nQ + 1],
+    `key_tiles` [nQ * nK + 1] int32: query tile i's tiles are
+    key_tiles[key_starts[i]:key_starts[i + 1]], ascending, JAX's
+    `_sparse_blocks` at 64-wide tiles); and the transposed list, the query
+    tiles of each 64-key tile (`query_starts` [nK + 1], `query_tiles`)."""
+    bits: torch.Tensor
+    key_starts: torch.Tensor
+    key_tiles: torch.Tensor
+    query_starts: torch.Tensor
+    query_tiles: torch.Tensor
+
+
+def mask_bits_plain(allowed: torch.Tensor) -> torch.Tensor:
+    """allowed [Q, K] bool -> uint64 [Q, ceil(K/64)], bit j of word t =
+    allowed[q, 64t + j] (0 past K)."""
+    Q, K = allowed.shape
+    nw = -(-K // SPARSE_TILE)
+    a = torch.zeros(Q, nw * SPARSE_TILE, dtype=torch.int64,
+                    device=allowed.device)
+    a[:, :K] = allowed
+    shifts = torch.arange(SPARSE_TILE, device=allowed.device)
+    # distinct powers of two: the int64 sum wraps bit 63 exactly
+    words = (a.view(Q, nw, SPARSE_TILE) << shifts).sum(-1)
+    return words.view(torch.uint64)
+
+
+def mask_bits(allowed: torch.Tensor) -> torch.Tensor:
+    """`mask_bits_plain` by a CUDA kernel (one warp ballot per 32 keys);
+    CPU tensors take the plain version."""
+    if allowed.device.type == 'cpu':
+        return mask_bits_plain(allowed)
+    Q, K = allowed.shape
+    mask = allowed.to(torch.bool).contiguous()
+    kernels.check_cuda(mask)
+    bits = torch.empty((Q, -(-K // SPARSE_TILE)), dtype=torch.int64,
+                       device=mask.device)
+    kernels.launch('mv2d_mask_bits', mask.data_ptr(), bits.data_ptr(), Q, K)
+    mask_bits.launches += 1
+    return bits.view(torch.uint64)
+
+
+mask_bits.launches = 0
+
+
+def mask_from_bits(bits: torch.Tensor, K: int) -> torch.Tensor:
+    """The bool mask [Q, K] that `bits` packs."""
+    Q, nw = bits.shape
+    shifts = torch.arange(SPARSE_TILE, device=bits.device)
+    a = (bits.view(torch.int64)[:, :, None] >> shifts) & 1
+    return a.reshape(Q, nw * SPARSE_TILE)[:, :K].to(torch.bool)
+
+
+def _csr(blk: torch.Tensor):
+    """blk [n, m] bool -> (starts [n + 1], idx [n * m + 1]) int32: row i's
+    true columns, ascending, are idx[starts[i]:starts[i + 1]]; the rest of
+    idx is not read.  No host sync."""
+    n, m = blk.shape
+    flat = blk.reshape(-1)
+    dev = blk.device
+    starts = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    starts[1:] = blk.sum(1).cumsum(0)
+    # an active pair's place in the list is its rank among active pairs in
+    # row-major order; inactive pairs all land in the unread last slot
+    slot = torch.where(flat, flat.cumsum(0) - 1, n * m)
+    idx = torch.zeros(n * m + 1, dtype=torch.int32, device=dev)
+    idx.scatter_(0, slot, torch.arange(m, dtype=torch.int32,
+                                       device=dev).repeat(n))
+    return starts, idx
+
+
+def mask_tiles(allowed: torch.Tensor) -> MaskTiles:
+    """allowed [Q, K] bool -> its `MaskTiles`, on the mask's device, with
+    no host sync: the bits by `mask_bits` (a kernel on CUDA), the lists
+    from the bits by torch ops."""
+    Q, _ = allowed.shape
+    bits = mask_bits(allowed)
+    nq, nk = -(-Q // SPARSE_TILE), bits.shape[1]
+    w = bits.view(torch.int64)
+    w = torch.cat([w, w.new_zeros(nq * SPARSE_TILE - Q, nk)])
+    blk = (w.view(nq, SPARSE_TILE, nk) != 0).any(1)           # [nQ, nK]
+    return MaskTiles(bits, *_csr(blk), *_csr(blk.t()))
+
+
+def _tiles_for(q, k, allowed, tiles):
+    """`tiles`, checked against q / k, or `mask_tiles(allowed)`."""
+    Q, K = q.shape[0], k.shape[0]
+    if tiles is None:
+        return mask_tiles(allowed.to(torch.bool))
+    if tiles.bits.shape != (Q, -(-K // SPARSE_TILE)) \
+            or tiles.key_starts.shape != (-(-Q // SPARSE_TILE) + 1,) \
+            or tiles.query_starts.shape != (-(-K // SPARSE_TILE) + 1,):
+        raise ValueError('tiles must be mask_tiles of a [Q, K] mask')
+    return tiles
+
+
+def _splits(q, K, num_heads):
+    """How many parts K4 and B8's dQ kernel cut each query tile's list of
+    key tiles into, so that (query tile, head, split) blocks fill the card
+    about eight times over; the parts meet in a second kernel."""
+    blocks = -(-q.shape[0] // SPARSE_TILE) * num_heads
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return max(1, min(-(-K // SPARSE_TILE), -(-8 * sms // blocks)))
+
+
+def masked_attention_forward(q, k, v, allowed, num_heads: int, tiles=None):
+    """Kernel K4 on CUDA tensors -> (out [Q, C], lse [Q, H] float32).
+    `tiles` is `mask_tiles(allowed)`, built here when not given."""
     _check(q, k, v, allowed, num_heads)
     Q, C = q.shape
     K = k.shape[0]
     D = C // num_heads
     q, k, v = (t.contiguous() for t in (q, k, v))
-    mask = allowed.to(torch.bool).contiguous()
-    kernels.check_cuda(q, k, v, mask)
-    # split the keys so that (query tile, head, split) blocks fill the card
-    # about four times over; the splits merge in a second kernel
-    tiles = -(-K // 64)
-    blocks = -(-Q // 64) * num_heads
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    per_split = -(-tiles // max(1, min(tiles, -(-4 * sms // blocks))))
-    splits = -(-tiles // per_split)
+    kernels.check_cuda(q, k, v)
+    tiles = _tiles_for(q, k, allowed, tiles)
+    kernels.check_cuda(*tiles)
+    splits = _splits(q, K, num_heads)
     f32 = dict(dtype=torch.float32, device=q.device)
     po = torch.empty((splits, Q, C), **f32)
     pm = torch.empty((splits, Q, num_heads), **f32)
@@ -105,30 +220,35 @@ def masked_attention_forward(q, k, v, allowed, num_heads: int):
     lse = torch.empty((Q, num_heads), **f32)
     out = torch.empty_like(q)
     kernels.launch('mv2d_masked_attention', q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                   lse.data_ptr(), po.data_ptr(), pm.data_ptr(),
-                   pl.data_ptr(), Q, K, num_heads, D, splits,
+                   v.data_ptr(), tiles.bits.data_ptr(),
+                   tiles.key_starts.data_ptr(), tiles.key_tiles.data_ptr(),
+                   out.data_ptr(), lse.data_ptr(), po.data_ptr(),
+                   pm.data_ptr(), pl.data_ptr(), Q, K, num_heads, D, splits,
                    kernels.dtype_code(q))
     masked_attention.launches += 1
     return out, lse
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     allowed: torch.Tensor, num_heads: int) -> torch.Tensor:
+                     allowed: torch.Tensor, num_heads: int,
+                     tiles: MaskTiles | None = None) -> torch.Tensor:
     """Kernel K4: q [Q, C], k/v [K, C] (float32 or bfloat16, one dtype),
-    allowed [Q, K] bool -> [Q, C].  CPU tensors take
-    `masked_attention_plain`."""
+    allowed [Q, K] bool -> [Q, C].  `tiles`: `mask_tiles(allowed)`, built
+    here when not given.  CPU tensors take `masked_attention_plain` (and
+    `tiles` is not read)."""
     if q.device.type == 'cpu':
         return masked_attention_plain(q, k, v, allowed, num_heads)
-    return masked_attention_forward(q, k, v, allowed, num_heads)[0]
+    return masked_attention_forward(q, k, v, allowed, num_heads, tiles)[0]
 
 
 masked_attention.launches = 0
 
 
 def masked_attention_backward(q, k, v, allowed, out, lse, dout,
-                              num_heads: int):
-    """Kernel B8 on CUDA tensors: -> (dq, dk, dv) float32."""
+                              num_heads: int, tiles=None):
+    """Kernel B8 on CUDA tensors: -> (dq, dk, dv) float32.  The mask is
+    read from `tiles` (`mask_tiles(allowed)`, built here when not given;
+    with tiles, `allowed` may be None)."""
     _check(q, k, v, allowed, num_heads)
     Q, C = q.shape
     K = k.shape[0]
@@ -137,18 +257,24 @@ def masked_attention_backward(q, k, v, allowed, out, lse, dout,
         raise ValueError('out / dout must be [Q, C] in q.dtype, lse [Q, H]')
     q, k, v, out, dout, lse = (t.contiguous() for t in
                                (q, k, v, out, dout, lse))
-    mask = allowed.to(torch.bool).contiguous()
-    kernels.check_cuda(q, k, v, mask, out, dout, lse)
+    kernels.check_cuda(q, k, v, out, dout, lse)
+    tiles = _tiles_for(q, k, allowed, tiles)
+    kernels.check_cuda(*tiles)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((Q, num_heads), **f32)
-    dq = torch.zeros((Q, C), **f32)
-    dk = torch.zeros((K, C), **f32)
-    dv = torch.zeros((K, C), **f32)
+    dq = torch.empty((Q, C), **f32)
+    dk = torch.empty((K, C), **f32)
+    dv = torch.empty((K, C), **f32)
+    # the bfloat16 dQ kernel splits the key-tile lists as K4 does; the
+    # float32 body takes no split
+    splits = _splits(q, K, num_heads) if q.dtype == torch.bfloat16 else 1
+    part = torch.empty((splits, Q, C) if splits > 1 else (0,), **f32)
     kernels.launch('mv2d_masked_attention_bwd', q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-                   dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), Q, K,
-                   num_heads, C // num_heads, kernels.dtype_code(q))
+                   v.data_ptr(), *(t.data_ptr() for t in tiles),
+                   out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), dq.data_ptr(), part.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), Q, K, num_heads,
+                   C // num_heads, splits, kernels.dtype_code(q))
     masked_attention_backward.launches += 1
     return dq, dk, dv
 
@@ -157,59 +283,34 @@ masked_attention_backward.launches = 0
 
 
 class MaskedAttentionFn(torch.autograd.Function):
-    """K4 (with its log-sum-exp) forward, B8 backward; no gradient to the
-    mask."""
+    """K4 (with its log-sum-exp) forward, B8 backward, both reading the
+    mask's `MaskTiles` (kept for the backward in place of the mask); no
+    gradient to the mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, allowed, num_heads):
-        out, lse = masked_attention_forward(q, k, v, allowed, num_heads)
+    def forward(ctx, q, k, v, allowed, num_heads, tiles=None):
+        tiles = _tiles_for(q, k, allowed, tiles)
+        out, lse = masked_attention_forward(q, k, v, allowed, num_heads,
+                                            tiles)
         ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v, allowed, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse, *tiles)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, allowed, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, *tiles = ctx.saved_tensors
         dq, dk, dv = masked_attention_backward(
-            q, k, v, allowed, out, lse, dout.to(q.dtype), ctx.num_heads)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
-
-
-SPARSE_TILE = 64          # B14's query and key tiles
-
-
-def sparse_key_tiles(allowed: torch.Tensor, tile: int = SPARSE_TILE):
-    """JAX's `_sparse_blocks` in CSR form: the key tiles holding any
-    allowed pair, per query tile, ascending.  allowed [Q, K] bool ->
-    (starts [nQ + 1], tiles [nQ * nK + 1]), int32: query tile i's key
-    tiles are tiles[starts[i]:starts[i + 1]], and the rest of `tiles` is
-    not read.  Built on the mask's device with no host sync."""
-    Q, K = allowed.shape
-    nq, nk = -(-Q // tile), -(-K // tile)
-    full = K // tile * tile
-    cols = [allowed[:, :full].reshape(Q, K // tile, tile).any(2)]
-    if full < K:
-        cols.append(allowed[:, full:].any(1, keepdim=True))
-    rows = torch.cat(cols, 1)                                    # [Q, nK]
-    rows = torch.cat([rows, rows.new_zeros(nq * tile - Q, nk)])
-    blk = rows.view(nq, tile, nk).any(1).reshape(-1)             # [nQ * nK]
-    dev = allowed.device
-    starts = torch.zeros(nq + 1, dtype=torch.int32, device=dev)
-    starts[1:] = blk.view(nq, nk).sum(1).cumsum(0)
-    # an active pair's place in the list is its rank among active pairs in
-    # row-major order; inactive pairs all land in the unread last slot
-    slot = torch.where(blk, blk.cumsum(0) - 1, nq * nk)
-    tiles = torch.zeros(nq * nk + 1, dtype=torch.int32, device=dev)
-    tiles.scatter_(0, slot, torch.arange(nk, dtype=torch.int32,
-                                         device=dev).repeat(nq))
-    return starts, tiles
+            q, k, v, None, out, lse, dout.to(q.dtype), ctx.num_heads,
+            MaskTiles(*tiles))
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
 
 
 def masked_attention_sparse_backward(q, k, v, allowed, out, lse, dout,
                                      num_heads: int, key_tiles=None):
     """Kernel B14 on CUDA tensors: -> (dq, dk, dv) float32, one pass per
     (query tile, head) over its active key tiles.  `key_tiles` is
-    `sparse_key_tiles(allowed)`, built here when not given."""
+    `mask_tiles(allowed)`'s key-tile list, built here when not given."""
     _check(q, k, v, allowed, num_heads)
     Q, C = q.shape
     K = k.shape[0]
@@ -221,7 +322,7 @@ def masked_attention_sparse_backward(q, k, v, allowed, out, lse, dout,
     mask = allowed.to(torch.bool).contiguous()
     kernels.check_cuda(q, k, v, mask, out, dout, lse)
     starts, tiles = key_tiles if key_tiles is not None \
-        else sparse_key_tiles(mask)
+        else mask_tiles(mask)[1:3]
     kernels.check_cuda(starts, tiles)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((Q, num_heads), **f32)
@@ -243,15 +344,16 @@ masked_attention_sparse_backward.launches = 0
 
 class SparseMaskedAttentionFn(torch.autograd.Function):
     """K4 (with its log-sum-exp) forward, B14 backward; no gradient to the
-    mask.  The forward lists the mask's active key tiles for the
-    backward."""
+    mask.  B14 reads the key-tile list of the forward's `MaskTiles`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, allowed, num_heads):
-        out, lse = masked_attention_forward(q, k, v, allowed, num_heads)
-        starts, tiles = sparse_key_tiles(allowed.to(torch.bool))
+    def forward(ctx, q, k, v, allowed, num_heads, tiles=None):
+        tiles = _tiles_for(q, k, allowed, tiles)
+        out, lse = masked_attention_forward(q, k, v, allowed, num_heads,
+                                            tiles)
         ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v, allowed, out, lse, starts, tiles)
+        ctx.save_for_backward(q, k, v, allowed, out, lse, tiles.key_starts,
+                              tiles.key_tiles)
         return out
 
     @staticmethod
@@ -260,17 +362,19 @@ class SparseMaskedAttentionFn(torch.autograd.Function):
         dq, dk, dv = masked_attention_sparse_backward(
             q, k, v, allowed, out, lse, dout.to(q.dtype), ctx.num_heads,
             (starts, tiles))
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None)
 
 
 def masked_attention_train(q, k, v, allowed, num_heads: int,
-                           sparse: bool = False):
+                           sparse: bool = False,
+                           tiles: MaskTiles | None = None):
     """Differentiable masked attention.  CPU tensors take
-    `masked_attention_plain` (autograd); CUDA tensors run
+    `masked_attention_plain` (autograd; `tiles` not read); CUDA tensors run
     `SparseMaskedAttentionFn` (kernels K4 / B14) with `sparse`, else
-    `MaskedAttentionFn` (kernels K4 / B8)."""
+    `MaskedAttentionFn` (kernels K4 / B8), on `tiles` (`mask_tiles(allowed)`,
+    built here when not given)."""
     if q.device.type == 'cpu':
         return masked_attention_plain(q, k, v, allowed, num_heads)
-    if sparse:
-        return SparseMaskedAttentionFn.apply(q, k, v, allowed, num_heads)
-    return MaskedAttentionFn.apply(q, k, v, allowed, num_heads)
+    fn = SparseMaskedAttentionFn if sparse else MaskedAttentionFn
+    return fn.apply(q, k, v, allowed, num_heads, tiles)

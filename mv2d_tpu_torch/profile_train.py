@@ -1,6 +1,7 @@
 """Where the time of one full-width training step goes, on one GPU.
 
-    python -m mv2d_tpu_torch.profile_train [--steps 3] [--warmup 2]
+    python -m mv2d_tpu_torch.profile_train [--steps 3] [--warmup 2] [--eval]
+                                           [--top 30]
 
 Builds the MV2D-T R50 model (seeded bench-rule weights), the seeded
 synthetic scene and the optimizer on the card, runs `warmup` steps, then:
@@ -8,8 +9,12 @@ synthetic scene and the optimizer on the card, runs `warmup` steps, then:
      split into forward + losses (matching included), backward, and
      clip + AdamW, each ended by a synchronisation;
   2. `steps` steps under torch.profiler: the device's busy time per step
-     (the union of kernel intervals), and kernel time by name;
+     (the union of kernel intervals), and kernel time by name (the `top`
+     names that take the most);
   3. the card's name and power limit.
+With `--eval`, the same for the bfloat16 eval forward that `chip_smoke.py`
+serves (12 views of N(0, 1) images from seed 0): `steps` forwards timed on
+the host clock, then `steps` under the profiler.
 Numbers are printed; nothing is written.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -18,6 +23,7 @@ import argparse
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 
@@ -43,6 +49,23 @@ def _step_parts(model, opt, batch, gen):
     sync()
     t3 = time.perf_counter()
     return (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3
+
+
+def _eval_forward(model, dev='cuda'):
+    """A no-argument call of one eval forward of `model` (in its dtype) on
+    the scene `chip_smoke.py` serves."""
+    from .core.geometry import prepare_camera_params
+    from .synthetic import camera_rig
+    cfg = model.cfg
+    V, (H, W) = cfg.total_views, cfg.image_size
+    K, E = camera_rig(V, cfg.image_size)
+    ts = [0.0] * cfg.num_views + [0.5] * (V - cfg.num_views)
+    cam = prepare_camera_params(K, E, ts, device=dev)
+    dt = next(model.parameters()).dtype
+    imgs = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(V, H, W, 3)).astype(np.float32)).to(dev, dt)
+    shapes = torch.tensor([[H, W]] * V, device=dev)
+    return lambda: model(imgs, cam, shapes)
 
 
 def _busy_ms(events):
@@ -78,20 +101,37 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--steps', type=int, default=3)
     ap.add_argument('--warmup', type=int, default=2)
+    ap.add_argument('--eval', action='store_true',
+                    help='profile the bfloat16 eval forward instead')
+    ap.add_argument('--top', type=int, default=30)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: needs a CUDA device')
     dev = 'cuda'
     cfg = configs.mv2d_t_r50()
     model = init_random_weights(MV2D(cfg), seed=0).to(dev)
-    opt = make_optimizer(model)
-    batch = synthetic_train_batch(cfg, seed=0, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    for _ in range(args.warmup):
-        train_step(model, opt, batch, gen)
+    unit = 'scene' if args.eval else 'step'
+    if args.eval:
+        step = _eval_forward(model.eval().to(torch.bfloat16))
+    else:
+        opt = make_optimizer(model)
+        batch = synthetic_train_batch(cfg, seed=0, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
 
-    parts = [_step_parts(model, opt, batch, gen) for _ in range(args.steps)]
-    for i, (f, b, u) in enumerate(parts):
+        def step():
+            train_step(model, opt, batch, gen)
+    for _ in range(args.warmup):
+        step()
+
+    for i in range(args.steps):
+        if args.eval:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            print(f'forward {i}: {(time.perf_counter() - t0) * 1e3:.1f} ms')
+            continue
+        f, b, u = _step_parts(model, opt, batch, gen)
         print(f'step {i}: forward+losses {f:.1f} ms  backward {b:.1f} ms  '
               f'update {u:.1f} ms  total {f + b + u:.1f} ms')
 
@@ -101,7 +141,7 @@ def main(argv=None):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
-            train_step(model, opt, batch, gen)
+            step()
         torch.cuda.synchronize()
     span = (time.perf_counter() - t0) * 1e3 / args.steps
     kern = [e for e in prof.events()
@@ -109,18 +149,18 @@ def main(argv=None):
             and not getattr(e, 'is_user_annotation', False)
             and '#' not in e.name]
     busy = _busy_ms(kern) / args.steps
-    print(f'profiled: {span:.1f} ms/step, device busy {busy:.1f} ms/step '
-          f'({100 * busy / span:.0f}%)')
+    print(f'profiled: {span:.1f} ms/{unit}, device busy {busy:.1f} '
+          f'ms/{unit} ({100 * busy / span:.0f}%)')
     by_name = {}
     for e in kern:
         t, n = by_name.get(_short(e.name), (0.0, 0))
         by_name[_short(e.name)] = (t + e.time_range.elapsed_us() / 1e3,
                                    n + 1)
     total_k = sum(t for t, _ in by_name.values()) / args.steps
-    print(f'kernel time {total_k:.1f} ms/step; by name (ms/step, '
-          f'launches/step):')
+    print(f'kernel time {total_k:.1f} ms/{unit}; by name (ms/{unit}, '
+          f'launches/{unit}):')
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
-                               )[:30]:
+                               )[:args.top]:
         print(f'  {t / args.steps:8.2f} {n / args.steps:6.0f}  {name}')
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,

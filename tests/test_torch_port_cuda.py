@@ -318,3 +318,116 @@ def test_separable_roi_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         roi_align.roi_align_slab([torch.zeros(1, 8, 8, 12, device=dev)] * 4,
                                  rois[None], strides)
+
+
+# --------------------- K4 and B8 on the packed mask, and the packing kernel
+
+def attention_case(dev, dt, D, mask, Q=101, K=1000, H=4):
+    """Ragged query and key tiles (Q 101, K 1000); `mask` 'runs' (the
+    correlation-like runs, 10% of the rows empty, the first 64 keys
+    attended by no row), 'full' (every pair) or 'none' (no pair)."""
+    q, k, v, a = smoke.attention_inputs(dev, dt, Q=Q, K=K, C=H * D)
+    if mask == 'full':
+        a = torch.ones_like(a)
+    elif mask == 'none':
+        a = torch.zeros_like(a)
+    else:
+        a[:, :64] = False
+    return q, k, v, a
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('D', [8, 16, 32])
+@pytest.mark.parametrize('mask', ['runs', 'full', 'none'])
+def test_attention_kernels_on_packed_mask(dev, dtype, tol, D, mask):
+    """K4 (out, lse) and B8 (dq, dk, dv) against the plain version and its
+    autograd at head dims 8, 16 and 32 (8 and 16 padded to the mma depth
+    in bf16); rows with no key: zero out and dq, lse EMPTY_LSE; keys no row
+    may attend: zero dk and dv; two B8 runs bit-equal (no atomics)."""
+    from mv2d_tpu_torch.ops import attention
+    q, k, v, a = attention_case(dev, getattr(torch, dtype), D, mask)
+    H = 4
+    tiles = attention.mask_tiles(a)
+    n4 = attention.masked_attention.launches
+    out, lse = attention.masked_attention_forward(q, k, v, a, H, tiles)
+    assert attention.masked_attention.launches == n4 + 1
+    torch.cuda.synchronize()
+    full = a.any(-1)
+    check(out, attention.masked_attention_plain(q, k, v, a, H), tol)
+    plse = attention.attention_lse_plain(q, k, a, H)
+    if full.any():
+        check(lse[full], plse[full], tol)
+    assert bool((lse[~full] == attention.EMPTY_LSE).all())
+    assert bool((out[~full] == 0).all())
+
+    g = smoke.cotangent(q)
+    _, grads = smoke.plain_grads(attention.masked_attention_plain,
+                                 (q, k, v, a, H), range(3), g)
+    n8 = attention.masked_attention_backward.launches
+    got = attention.masked_attention_backward(q, k, v, a, out, lse, g, H,
+                                              tiles)
+    again = attention.masked_attention_backward(q, k, v, None, out, lse, g,
+                                                H, tiles)
+    assert attention.masked_attention_backward.launches == n8 + 2
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    for x, y in zip(got, grads):
+        check(x, y, tol)
+    assert bool((got[0][~full] == 0).all())
+    keyless = ~a.any(0)
+    assert bool((got[1][keyless] == 0).all() and (got[2][keyless] == 0).all())
+
+
+@pytest.mark.parametrize('Q,K,mask', [(101, 1000, 'runs'), (37, 37, 'full'),
+                                      (300, 2048, 'none'),
+                                      (2628, 2628, 'runs')])
+def test_mask_bits_kernel(dev, Q, K, mask):
+    """The packing kernel equals its plain version bit for bit, and the
+    tile lists built from its bits equal those built on the CPU."""
+    from mv2d_tpu_torch.ops import attention
+    a = attention_case(dev, torch.float32, 8, mask, Q=Q, K=max(K, 700))[3]
+    a = a[:, :K].contiguous()
+    n = attention.mask_bits.launches
+    tiles = attention.mask_tiles(a)
+    assert attention.mask_bits.launches == n + 1
+    want = attention.mask_tiles(a.cpu())
+    torch.cuda.synchronize()
+    assert tiles.bits.shape == want.bits.shape
+    assert torch.equal(tiles.bits.view(torch.int64).cpu(),
+                       want.bits.view(torch.int64))
+    for st, lst, wst, wlst in ((tiles.key_starts, tiles.key_tiles,
+                                want.key_starts, want.key_tiles),
+                               (tiles.query_starts, tiles.query_tiles,
+                                want.query_starts, want.query_tiles)):
+        n = int(wst[-1])                  # the rest of a list is not read
+        assert torch.equal(st.cpu(), wst)
+        assert torch.equal(lst[:n].cpu(), wlst[:n])
+
+
+def test_decoder_packs_each_mask_once_a_pass(dev):
+    """A 3-layer decoder on the GPU packs its self- and cross-attention
+    masks once a pass (2 launches of the packing kernel), for 6 K4
+    launches, and with gradients 6 B8 launches in the backward."""
+    from mv2d_tpu_torch.nn.decoder import PETRDecoder
+    from mv2d_tpu_torch.ops import attention
+    torch.manual_seed(0)
+    dec = PETRDecoder(3, 32, 4, 64, use_flash=True).to(dev)
+    Q, K = 70, 300
+    query, qpos = torch.randn(Q, 32, device=dev), torch.randn(Q, 32,
+                                                              device=dev)
+    keys, kpos = torch.randn(K, 32, device=dev), torch.randn(K, 32,
+                                                             device=dev)
+    self_a = torch.rand(Q, Q, device=dev) < 0.5
+    cross_a = torch.rand(Q, K, device=dev) < 0.1
+    fns = (attention.mask_bits, attention.masked_attention,
+           attention.masked_attention_backward)
+    for fn in fns:
+        fn.launches = 0
+    with torch.no_grad():
+        dec(query, qpos, keys, kpos, self_a, cross_a)
+    assert [fn.launches for fn in fns] == [2, 6, 0]
+    for fn in fns:
+        fn.launches = 0
+    dec(query, qpos, keys, kpos, self_a, cross_a).sum().backward()
+    assert [fn.launches for fn in fns] == [2, 6, 6]

@@ -335,9 +335,10 @@ def test_attention_train_plain_matches_jax_sparse():
 
 @pytest.mark.parametrize('Q,K', [(100, 300), (128, 256), (40, 50)])
 def test_sparse_key_tiles_match_jax_blocks(Q, K):
-    """B14's CSR list of active key tiles (built with no host sync) holds
-    the tiles of JAX's `_sparse_blocks`, in its order, per query tile;
-    ragged tiles, an empty row, an empty query tile and a full row."""
+    """B14's CSR list of active key tiles (`mask_tiles`' key-tile list,
+    built with no host sync) holds the tiles of JAX's `_sparse_blocks`,
+    in its order, per query tile; ragged tiles, an empty row, an empty
+    query tile and a full row."""
     rng = np.random.default_rng(Q + K)
     allowed = rng.uniform(size=(Q, K)) > 0.97
     allowed[0] = False
@@ -351,7 +352,7 @@ def test_sparse_key_tiles_match_jax_blocks(Q, K):
                                  (Q, K, 1, 8, T, Qp, Kp), T)
     counts, idx = np.asarray(counts), np.asarray(idx).reshape(Qp // T, -1)
     starts, tiles = (t.numpy() for t in
-                     attention.sparse_key_tiles(torch.from_numpy(allowed)))
+                     attention.mask_tiles(torch.from_numpy(allowed))[1:3])
     assert starts[0] == 0 and np.array_equal(np.diff(starts), counts)
     for i, n in enumerate(counts):
         assert np.array_equal(tiles[starts[i]:starts[i + 1]], idx[i, :n])
