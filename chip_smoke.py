@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero without the final line:
      F.scaled_dot_product_attention, timed only) beside their bound: the
      larger of the bytes the function moves over 3.35 TB/s and its
      operations over 989 TFLOP/s (H100 SXM bf16 peaks), and the bound's
-     share of the kernel's time.  The attention kernels read the mask as
+     share of the kernel's time.  K2's cases also time B5 plus one
+     torch.matmul on the same inputs (`b5_matmul_ms`, a yardstick the port
+     never runs) and name their shape's launches per eval forward.  The
+     attention kernels read the mask as
      the decoder hands it to them, packed once a pass (`mask_tiles`); the
      packing kernel has cases of its own, equal bit for bit, timed beside
      the whole per-pass build (the bits and both tile lists);
@@ -52,12 +55,12 @@ Phases, in order; any failure exits non-zero without the final line:
      256x704 with fused_stages='all' (MV2D_FUSED_STAGES=all; B10 on
      layer2's tail, and not while gradients are recorded), one tiny+DCN
      training step with dcn_train_fused and flash_sparse
-     (MV2D_DCN_TRAIN_FUSED=1, MV2D_FLASH_SPARSE=1; B13, B14; B5, B6 and B8
-     not launched), and one with align_v2 (MV2D_ALIGN_V2=1; B11 and B9,
+     (MV2D_DCN_TRAIN_FUSED=1, MV2D_FLASH_SPARSE=1; K2, B13 and B8, which
+     answers the sparse route; B5 and B6 not launched), and one with align_v2 (MV2D_ALIGN_V2=1; B11 and B9,
      K3 not launched), every loss and gradient;
   10. routes: at full width, two bf16 eval forwards with fused_stages='all'
-     and three training steps with the three training routes (B13, B14,
-     and B11 with B9 for the R-CNN RoIAlign): finite outputs,
+     and three training steps with the three training routes (B13, B8
+     on the sparse attention route, and B11 with B9 for the R-CNN RoIAlign): finite outputs,
      launches, ms and peak memory beside the default route's from phases
      6 and 8, and the first inputs of each new kernel replayed through its
      plain version.
@@ -100,7 +103,7 @@ KERNELS = {
         replaces='mv2d_tpu/ops/pallas_dcn.py:378'),
     'masked_attention_backward': dict(
         source='mv2d_tpu_torch/csrc/attention.cu',
-        replaces='mv2d_tpu/ops/pallas_attention.py:328'),
+        replaces='mv2d_tpu/ops/pallas_attention.py:328 and :491'),
     'roi_align_multilevel_backward': dict(
         source='mv2d_tpu_torch/csrc/roi_align.cu',
         replaces='mv2d_tpu/ops/pallas_roi_align.py:1524'),
@@ -111,9 +114,6 @@ KERNELS = {
     'dcn_conv_backward': dict(
         source='mv2d_tpu_torch/csrc/dcn.cu',
         replaces='mv2d_tpu/ops/pallas_dcn.py:306'),
-    'masked_attention_sparse_backward': dict(
-        source='mv2d_tpu_torch/csrc/attention.cu',
-        replaces='mv2d_tpu/ops/pallas_attention.py:491'),
     'roi_align_slab': dict(
         source='mv2d_tpu_torch/csrc/roi_align_slab.cu',
         replaces='mv2d_tpu/ops/pallas_roi_align.py:1219'),
@@ -129,8 +129,7 @@ KERNELS = {
 # kernels that only the routing switches and other entry points reach:
 # none on the default paths
 ROUTED_KERNELS = ('fused_identity_chain', 'dcn_conv_backward',
-                  'masked_attention_sparse_backward', 'roi_align_slab',
-                  'roi_align_flat')
+                  'roi_align_slab', 'roi_align_flat')
 SERVE_KERNELS = ('fused_stage1', 'dcn_conv', 'roi_align_multilevel',
                  'masked_attention', 'mask_bits')
 # the decoder packs its self- and cross-attention masks once a pass
@@ -144,13 +143,12 @@ TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_samples': 9,
                   'mask_bits': MASKS_PER_PASS,
                   **{n: 0 for n in ROUTED_KERNELS}}
 # launches per training step with the dcn_train_fused, flash_sparse and
-# align_v2 routes (K2: the nine DCN convs' forwards; B11: the detect pass
-# and the R-CNN RoIs)
+# align_v2 routes (K2: the nine DCN convs' forwards; B8 answers the sparse
+# attention's backward; B11: the detect pass and the R-CNN RoIs)
 ROUTED_TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_conv': 9,
                          'dcn_conv_backward': 9, 'dcn_samples': 0,
                          'dcn_samples_backward': 0, 'masked_attention': 12,
-                         'masked_attention_backward': 0,
-                         'masked_attention_sparse_backward': 12,
+                         'masked_attention_backward': 12,
                          'roi_align_multilevel': 0, 'roi_align_slab': 2,
                          'roi_align_multilevel_backward': 1,
                          'fused_identity_chain': 0, 'roi_align_flat': 0,
@@ -173,8 +171,6 @@ def counters():
                 roi_align.roi_align_multilevel_backward,
             'fused_identity_chain': stage.fused_identity_chain,
             'dcn_conv_backward': dcn.dcn_conv_backward,
-            'masked_attention_sparse_backward':
-                attention.masked_attention_sparse_backward,
             'roi_align_slab': roi_align.roi_align_slab,
             'roi_align_flat': roi_align.roi_align_flat,
             'mask_bits': attention.mask_bits}
@@ -430,9 +426,9 @@ class Case:
     compare (a tensor or a sequence of tensors), `work` = (bytes, ops) of
     the function for its bound, `library()` one PyTorch call computing the
     same function (timed only), or None; `extra` names further calls timed
-    beside them (the default route's kernels for the same work, or the
-    per-pass build around a kernel); an
-    `exact` case must equal its plain version bit for bit; `note` is
+    beside them (the default route's kernels for the same work, the
+    per-pass build around a kernel, or a yardstick the port never runs);
+    an `exact` case must equal its plain version bit for bit; `note` is
     printed on its line."""
 
     def __init__(self, kernel, plain, work, library=None, extra=None,
@@ -502,15 +498,25 @@ def kernel_cases():
                          2.0 * N * macs))
         return build
 
-    def dcn_conv(V, H, W, C, F_, s, far=0.0):
+    def dcn_conv(V, H, W, C, F_, s, far=0.0, integer=False, per_forward=0):
         def build(dev, dt):
-            args = dcn_inputs(dev, dt, V, H, W, C, F_, s, far=far)
-            x, sy, sx, m, w = args
+            x, sy, sx, m, w = dcn_inputs(dev, dt, V, H, W, C, F_, s, far=far)
+            if integer:                 # zero offsets: integer coordinates
+                sy, sx = sy.round(), sx.round()
+            args = (x, sy, sx, m, w)
             N = sy.numel() // 9
+
+            def b5_matmul():            # a yardstick the port never runs
+                smp = dcn.dcn_samples_forward(x, sy, sx, m)
+                return smp.reshape(N, -1) @ w.reshape(-1, F_)
             return Case(lambda: dcn.dcn_conv(*args),
                         lambda: dcn.dcn_conv_plain(*args),
                         (nbytes(x, sy, sx, m, w) + N * F_ * x.element_size(),
-                         2.0 * N * 9 * C * F_))
+                         2.0 * N * 9 * C * F_),
+                        extra={'b5_matmul_ms': b5_matmul} if per_forward
+                        else None,
+                        note=f'  {per_forward} a forward' if per_forward
+                        else '')
         return build
 
     def samples_args(dev, dt, V, H, W, C, s, far, integer):
@@ -697,21 +703,22 @@ def kernel_cases():
             nnz = float(a.sum())
             b8 = (lambda: attention.masked_attention_backward(  # noqa: E731
                 q, k, v, a, out, lse, g, 8, tl))
-            # the routed forward keeps its MaskTiles; B14 reads the key-tile
-            # list and the bool mask, B8 the bits and both lists
-            kt = (tl.key_starts, tl.key_tiles)
-            mask_bytes = nbytes(a) + nbytes(*kt) if sparse else nbytes(*tl)
+            if sparse:       # the MV2D_FLASH_SPARSE route's backward: B8
+                rl = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                with torch.enable_grad():
+                    rout = attention.masked_attention_train(
+                        *rl, a, 8, sparse=True, tiles=tl)
+                kernel = (lambda: torch.autograd.grad(  # noqa: E731
+                    rout, rl, g, retain_graph=True))
             return Case(
-                (lambda: attention.masked_attention_sparse_backward(
-                    q, k, v, a, out, lse, g, 8, kt)) if sparse else b8,
+                kernel if sparse else b8,
                 lambda: torch.autograd.grad(pout, leaves, g,
                                             retain_graph=True),
-                (nbytes(q, k, v, out, g, lse) + mask_bytes
+                (nbytes(q, k, v, out, g, lse, *tl)
                  + 4.0 * (q.numel() + 2 * k.numel()),
                  10.0 * q.shape[1] * nnz),
                 lambda: torch.autograd.grad(lout, sl, lg,
-                                            retain_graph=True),
-                extra={'default_b8_ms': b8} if sparse else None)
+                                            retain_graph=True))
         return build
 
     def eval_attn(self_attn):
@@ -749,15 +756,19 @@ def kernel_cases():
     return [
         ('fused_stage1', 'layer1 [12,128,352,64]', True, stage1),
         ('dcn_conv', 'stage3 s2 [12,64,176,256]', True,
-         dcn_conv(12, 64, 176, 256, 256, 2)),
-        ('dcn_conv', 'stage3 s1 [12,32,88,256]', False,
-         dcn_conv(12, 32, 88, 256, 256, 1)),
-        ('dcn_conv', 'stage4 s2 [12,32,88,512]', False,
-         dcn_conv(12, 32, 88, 512, 512, 2)),
-        ('dcn_conv', 'stage4 s1 [12,16,44,512]', False,
-         dcn_conv(12, 16, 44, 512, 512, 1)),
+         dcn_conv(12, 64, 176, 256, 256, 2, per_forward=1)),
+        ('dcn_conv', 'stage3 s1 [12,32,88,256]', True,
+         dcn_conv(12, 32, 88, 256, 256, 1, per_forward=5)),
+        ('dcn_conv', 'stage4 s2 [12,32,88,512]', True,
+         dcn_conv(12, 32, 88, 512, 512, 2, per_forward=1)),
+        ('dcn_conv', 'stage4 s1 [12,16,44,512]', True,
+         dcn_conv(12, 16, 44, 512, 512, 1, per_forward=2)),
         ('dcn_conv', 'edge: 20% offsets far outside', False,
          dcn_conv(12, 16, 44, 512, 512, 1, far=0.2)),
+        ('dcn_conv', 'edge: integer coordinates', False,
+         dcn_conv(12, 16, 44, 512, 512, 1, integer=True)),
+        ('dcn_conv', 'edge: ragged N, C 96, F 192 [1,13,21,96]', False,
+         dcn_conv(1, 13, 21, 96, 192, 1)),
         ('roi_align_multilevel', 'p2-p5, rois [12,1000,4]', True,
          roi(False)),
         ('roi_align_multilevel', 'train rois [6,512,4]', True,
@@ -831,11 +842,11 @@ def kernel_cases():
          dcn_conv_bwd(12, 16, 44, 512, 512, 1, far=0.2)),
         ('dcn_conv_backward', 'edge: integer coordinates', False,
          dcn_conv_bwd(12, 16, 44, 512, 512, 1, integer=True)),
-        ('masked_attention_sparse_backward', 'train cross q2628 k16384',
+        ('masked_attention_backward', 'sparse route: cross q2628 k16384',
          True, attn_bwd(train_attn(False), sparse=True)),
-        ('masked_attention_sparse_backward', 'train self q2628 DN mask',
+        ('masked_attention_backward', 'sparse route: self q2628 DN mask',
          True, attn_bwd(train_attn(True), sparse=True)),
-        ('masked_attention_sparse_backward', 'edge: every pair allowed',
+        ('masked_attention_backward', 'sparse route: every pair allowed',
          False, attn_bwd(full_attn, sparse=True)),
         ('roi_align_slab', 'p2-p5, rois [12,1000,4]', True, slab(False)),
         ('roi_align_slab', 'train rois [6,512,4]', True,
@@ -1526,7 +1537,7 @@ def phase_routes_tiny(dev):
     stage output within 1e-4 of its max magnitude; with gradients on, no
     B10 and a gradient in layer2's tail), then one tiny+DCN training step
     with dcn_train_fused and flash_sparse (phase_tiny_train's checks, with
-    B13 and B14 launched and B5, B6 and B8 not), and one with align_v2
+    K2, B13 and B8 launched and B5 and B6 not), and one with align_v2
     (B11 and B9 launched, K3 not)."""
     import torch
     from mv2d_tpu_torch.nn.resnet import ResNet
@@ -1566,19 +1577,17 @@ def phase_routes_tiny(dev):
         f'{"ok" if grad_ok else "FAIL"}')
     ok_train = phase_tiny_train(
         dev, need=('dcn_conv', 'dcn_conv_backward', 'masked_attention',
-                   'masked_attention_sparse_backward', 'mask_bits',
+                   'masked_attention_backward', 'mask_bits',
                    'roi_align_multilevel', 'roi_align_multilevel_backward'),
         absent=('dcn_samples', 'dcn_samples_backward',
-                'masked_attention_backward', 'fused_identity_chain',
-                'roi_align_slab', 'roi_align_flat'),
+                'fused_identity_chain', 'roi_align_slab', 'roi_align_flat'),
         routes=Routes(dcn_train_fused=True, flash_sparse=True))
     ok_v2 = phase_tiny_train(
         dev, need=('dcn_samples', 'dcn_samples_backward', 'masked_attention',
                    'masked_attention_backward', 'roi_align_slab',
                    'roi_align_multilevel_backward', 'mask_bits'),
         absent=('roi_align_multilevel', 'roi_align_flat',
-                'fused_identity_chain', 'dcn_conv_backward',
-                'masked_attention_sparse_backward'),
+                'fused_identity_chain', 'dcn_conv_backward'),
         routes=Routes(align_v2=True))
     return ok and grad_ok and ok_train and ok_v2
 
@@ -1586,7 +1595,7 @@ def phase_routes_tiny(dev):
 def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     """Full width on the optional routes: bf16 eval forwards with
     fused_stages='all' (B10 on layer2's tail), then training steps with
-    dcn_train_fused, flash_sparse and align_v2 (B13, B14, B11 / B9), each
+    dcn_train_fused, flash_sparse and align_v2 (B13, B8, B11 / B9), each
     beside the default route's ms and peak memory from this run."""
     import torch
     import mv2d_tpu_torch.nn.resnet as resnet
@@ -1680,8 +1689,8 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
         return args[1].shape[0] != args[0].shape[0]
     ms, launches, peak, _ = run(
         [(dcn, 'dcn_conv_backward', 'dcn_conv_backward', lambda a: True),
-         (attention, 'masked_attention_sparse_backward',
-          'masked_attention_sparse_backward', cross),
+         (attention, 'masked_attention_backward',
+          'masked_attention_backward', cross),
          (roi_align, 'roi_align_slab', 'roi_align_slab', lambda a: True)],
         n_steps, step, 'routes_train')
     finite = all(np.isfinite(v) for s in steps for v in s.values())
@@ -1709,18 +1718,19 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
         return plain_grads(dcn.dcn_conv_plain, (x, sy, sx, m, w), range(5),
                            dy)[1]
 
-    def attn_bwd_plain(q, k, v, a, out, lse, dout, H, key_tiles=None):
+    def attn_bwd_plain(q, k, v, a, out, lse, dout, H, tiles=None):
+        if a is None:         # the autograd Function keeps MaskTiles only
+            a = attention.mask_from_bits(tiles.bits, k.shape[0])
         return plain_grads(attention.masked_attention_plain, (q, k, v, a, H),
                            range(3), dout)[1]
 
     plain = {'fused_identity_chain': stage.fused_identity_chain_plain,
              'dcn_conv_backward': dcn_bwd_plain,
-             'masked_attention_sparse_backward': attn_bwd_plain,
+             'masked_attention_backward': attn_bwd_plain,
              'roi_align_slab': roi_align.multilevel_roi_align_plain}
     kern = {'fused_identity_chain': stage.fused_identity_chain,
             'dcn_conv_backward': dcn.dcn_conv_backward,
-            'masked_attention_sparse_backward':
-                attention.masked_attention_sparse_backward,
+            'masked_attention_backward': attention.masked_attention_backward,
             'roi_align_slab': roi_align.roi_align_slab}
     return _replay(seen, plain, kern, 'routes') and serve_ok and train_ok
 

@@ -1,6 +1,5 @@
 // Masked multi-head attention: the packed mask (a helper), kernel K4 (the
-// forward), kernel B8 (its backward) and kernel B14 (the block-sparse
-// backward of the MV2D_FLASH_SPARSE route).
+// forward) and kernel B8 (its backward).
 //
 //   out[q, h] = sum_k softmax_k(q_h . k_h / sqrt(D) | allowed[q, k]) v_h[k]
 // Rows with no allowed key give zeros (mv2d_tpu/ops/attention.py
@@ -11,7 +10,9 @@
 // (sparse=True -> _sparse_fwd_call -> _sparse_kernel) and, with the
 // log-sum-exp, the training forward (sparse=False -> _fwd_call -> _kernel):
 // the same function, and skipping an empty tile is exact.  B8 replaces
-// _flash_bwd (_bwd_kernel).
+// _flash_bwd (_bwd_kernel) and, on the MV2D_FLASH_SPARSE route, the
+// block-sparse single-pass backward _flash_sparse_bwd (_sparse_bwd_kernel):
+// both compute dQ, dK and dV, and B8 visits only the active tiles too.
 //
 // The mask.  The decoder's two masks are the same for all its layers, so
 // they are packed once per decoder pass (ops/attention.py mask_tiles):
@@ -75,6 +76,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -103,44 +105,7 @@ __global__ void mask_bits_kernel(const uint8_t* __restrict__ mask,
 }
 
 // ---- tensor-core helpers (bf16 kernels)
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// async copy of `n` (4, 8 or 16) bytes global -> shared; with ok false the
-// destination is filled with zeros and nothing is read
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool ok) {
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(ok ? 16 : 0));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "n"(N), "r"(ok ? N : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace mv2d::tc;
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -1086,184 +1051,6 @@ int launch_bwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- B14: the block-sparse single-pass backward.
-// Replaces mv2d_tpu/ops/pallas_attention.py: _flash_sparse_bwd
-// (_sparse_bwd_kernel), the backward of the MV2D_FLASH_SPARSE=1 attention:
-// per (query tile, head) one pass over the compacted list of key tiles that
-// hold any allowed pair (JAX's _sparse_blocks; here in CSR form, built by
-// the wrapper), P recomputed once per active tile from the forward's
-// log-sum-exp, delta = rowsum(dO * O) from B8's delta kernel:
-//   dS = P * (dO V^T - delta);  dQ = dS K s;  dK = dS^T Q s;  dV = P^T dO
-// (s = 1 / sqrt(D)).  A row with no allowed key has P = 0.
-//
-// What bounds it on the H100: the same products as B8 (float32 FMAs on the
-// CUDA cores), here in one kernel instead of two, so P and dP are
-// recomputed once per active (query tile, key tile, head) instead of
-// twice.  A block owns (64 queries, one head); four threads share a query
-// row (16 keys of each tile) and keep its q, dO and dQ in registers, so dQ
-// is accumulated on the chip and written once.  Per tile, P and dS go to
-// shared memory, then each thread owns (key, D/4 columns) of the tile's dK
-// and dV, sums them over the 64 queries and adds them to the float32
-// outputs with vector atomics: the key tiles of the 960 dense DN rows and
-// of the near-dense self-attention take atomics from every query tile.
-template <int N>
-__device__ __forceinline__ void atomic_add_n(float* p, const float* v) {
-  if constexpr (N % 4 == 0) {
-    mv2d::atomic_add<N>(p, v);
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) atomicAdd(p + i, v[i]);
-  }
-}
-
-template <int D>
-constexpr int sparse_bwd_smem_bytes() {
-  return (2 * BQ * D + 2 * BK * (D + 1) + 2 * BQ * (BK + 1)) * 4 + BQ * BK;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) attention_sparse_bwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const uint8_t* __restrict__ mask,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ starts,
-    const int* __restrict__ tiles, float* __restrict__ dq,
-    float* __restrict__ dk, float* __restrict__ dv, int Q, int K, int H) {
-  using mv2d::to_f32;
-  constexpr int DS = D / 4;            // columns per thread
-  constexpr int JS = BK / 4;           // keys per thread per tile
-  constexpr int KS = D + 1, PS = BK + 1;
-  extern __shared__ float sm[];
-  float* qs = sm;                      // [BQ][D] q * scale
-  float* gs = qs + BQ * D;             // [BQ][D] dO
-  float* ks = gs + BQ * D;             // [BK][KS]
-  float* vs = ks + BK * KS;            // [BK][KS]
-  float* ps = vs + BK * KS;            // [BQ][PS] P
-  float* dss = ps + BQ * PS;           // [BQ][PS] dS
-  uint8_t* ms = reinterpret_cast<uint8_t*>(dss + BQ * PS);   // [BQ][BK]
-  const int tid = threadIdx.x, row = tid / 4, sub = tid % 4;
-  const int h = blockIdx.y, qt = blockIdx.x, q0 = qt * BQ, qi = q0 + row;
-  const int C = H * D;
-  const float scale = 1.f / sqrtf((float)D);
-
-  float qr[D], gr[D], dqr[DS];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const size_t off = (size_t)qi * C + h * D + d;
-    qr[d] = qi < Q ? to_f32(q[off]) * scale : 0.f;
-    gr[d] = qi < Q ? to_f32(dout[off]) : 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < DS; ++d) dqr[d] = 0.f;
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, d = e % D, i = q0 + r;
-    const size_t off = (size_t)i * C + h * D + d;
-    qs[e] = i < Q ? to_f32(q[off]) * scale : 0.f;
-    gs[e] = i < Q ? to_f32(dout[off]) : 0.f;
-  }
-  const float li = qi < Q ? lse[(size_t)qi * H + h] : 0.f;
-  const float di = qi < Q ? delta[(size_t)qi * H + h] : 0.f;
-  const int jk = tid / 4;              // key of this thread's dK / dV share
-  for (int s = starts[qt]; s < starts[qt + 1]; ++s) {
-    const int k0 = tiles[s] * BK;
-    for (int e = tid; e < BQ * BK; e += NT) {
-      const int r = e / BK, c = e % BK;
-      ms[e] = (q0 + r < Q && k0 + c < K) ? mask[(size_t)(q0 + r) * K + k0 + c]
-                                         : 0;
-    }
-    for (int e = tid; e < BK * D; e += NT) {
-      const int j = e / D, d = e % D, kj = k0 + j;
-      const size_t off = (size_t)kj * C + h * D + d;
-      ks[j * KS + d] = kj < K ? to_f32(k[off]) : 0.f;
-      vs[j * KS + d] = kj < K ? to_f32(v[off]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < JS; ++jj) {
-      const int j = sub + 4 * jj;
-      float sc = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        sc = fmaf(qr[d], ks[j * KS + d], sc);
-        dp = fmaf(gr[d], vs[j * KS + d], dp);
-      }
-      const float p = ms[row * BK + j] ? expf(sc - li) : 0.f;
-      ps[row * PS + j] = p;
-      dss[row * PS + j] = p * (dp - di);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float w = dss[row * PS + j];
-#pragma unroll
-      for (int d = 0; d < DS; ++d)
-        dqr[d] = fmaf(w, ks[j * KS + sub * DS + d], dqr[d]);
-    }
-    float dkr[DS], dvr[DS];
-#pragma unroll
-    for (int d = 0; d < DS; ++d) dkr[d] = dvr[d] = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < BQ; ++i) {
-      const float a = dss[i * PS + jk], b = ps[i * PS + jk];
-#pragma unroll
-      for (int d = 0; d < DS; ++d) {
-        dkr[d] = fmaf(a, qs[i * D + sub * DS + d], dkr[d]);
-        dvr[d] = fmaf(b, gs[i * D + sub * DS + d], dvr[d]);
-      }
-    }
-    bool any = false;
-#pragma unroll
-    for (int d = 0; d < DS; ++d) any |= dkr[d] != 0.f || dvr[d] != 0.f;
-    if (k0 + jk < K && any) {        // a key no row of the tile attends: 0
-      const size_t off = (size_t)(k0 + jk) * C + h * D + sub * DS;
-      atomic_add_n<DS>(dk + off, dkr);
-      atomic_add_n<DS>(dv + off, dvr);
-    }
-    __syncthreads();
-  }
-  if (qi < Q) {
-#pragma unroll
-    for (int d = 0; d < DS; ++d)
-      dq[(size_t)qi * C + h * D + sub * DS + d] = dqr[d] * scale;
-  }
-}
-
-template <typename T>
-int launch_sparse_bwd(const void* q, const void* k, const void* v,
-                      const void* mask, const void* o, const void* dout,
-                      const float* lse, float* delta, const int* starts,
-                      const int* tiles, float* dq, float* dk, float* dv,
-                      int Q, int K, int H, int D, cudaStream_t s) {
-  const auto* qq = static_cast<const T*>(q);
-  const auto* kk = static_cast<const T*>(k);
-  const auto* vv = static_cast<const T*>(v);
-  const auto* mm = static_cast<const uint8_t*>(mask);
-  const auto* gg = static_cast<const T*>(dout);
-  const long long rows = (long long)Q * H;
-  attention_delta_kernel<T><<<(unsigned)((rows + 255) / 256), 256, 0, s>>>(
-      static_cast<const T*>(o), gg, delta, rows, D);
-  const dim3 grid((Q + BQ - 1) / BQ, H);
-  switch (D) {
-#define MV2D_SPARSE_BWD(DD)                                                \
-    case DD: {                                                             \
-      constexpr int smem = sparse_bwd_smem_bytes<DD>();                    \
-      cudaFuncSetAttribute(attention_sparse_bwd_kernel<T, DD>,             \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-                           smem);                                          \
-      attention_sparse_bwd_kernel<T, DD><<<grid, NT, smem, s>>>(           \
-          qq, kk, vv, mm, gg, lse, delta, starts, tiles, dq, dk, dv, Q, K, \
-          H);                                                              \
-      break;                                                               \
-    }
-    MV2D_SPARSE_BWD(8)
-    MV2D_SPARSE_BWD(16)
-    MV2D_SPARSE_BWD(32)
-#undef MV2D_SPARSE_BWD
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // bits [Q, ceil(K/64)] uint64 (written as uint32 halves) from mask [Q, K]
@@ -1332,29 +1119,6 @@ extern "C" int mv2d_masked_attention_bwd(
   MV2D_DISPATCH(dtype, T, {
     return launch_bwd<T>(q, k, v, bits, st, tl, qst, qtl, o, dout, fs, fd,
                          fq, fp, fk, fv, Q, K, H, D, splits, s);
-  });
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// B14: starts [nQ + 1] / tiles int32, the CSR list of active key tiles
-// (64 x 64) per query tile; dq [Q, H*D] float32 written, dk / dv [K, H*D]
-// float32 zeroed by the caller and accumulated; delta [Q, H] scratch
-extern "C" int mv2d_masked_attention_sparse_bwd(
-    const void* q, const void* k, const void* v, const void* mask,
-    const void* o, const void* dout, const void* lse, void* delta,
-    const void* starts, const void* tiles, void* dq, void* dk, void* dv,
-    int Q, int K, int H, int D, int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* fs = static_cast<const float*>(lse);
-  auto* fd = static_cast<float*>(delta);
-  const auto* st = static_cast<const int*>(starts);
-  const auto* tl = static_cast<const int*>(tiles);
-  auto* fq = static_cast<float*>(dq);
-  auto* fk = static_cast<float*>(dk);
-  auto* fv = static_cast<float*>(dv);
-  MV2D_DISPATCH(dtype, T, {
-    return launch_sparse_bwd<T>(q, k, v, mask, o, dout, fs, fd, st, tl, fq,
-                                fk, fv, Q, K, H, D, s);
   });
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,32 +2,64 @@
 // from precomputed sample coordinates and masks:
 //   out[p, f] = sum_t sum_c m[p,t] * bilinear(x, sy[p,t], sx[p,t])[c] * w[t,c,f]
 // Bilinear sampling clamps the coordinate into the map and gives zero
-// outside (-1, extent), as mv2d_tpu/ops/dcn.py:_dense_bilinear.
+// outside (-1, extent), as mv2d_tpu/ops/dcn.py:_dense_bilinear; bfloat16
+// samples are rounded to bfloat16 before the product.
 //
 // Replaces mv2d_tpu/ops/pallas_dcn.py: pallas_dcn_conv (_conv_impl ->
 // _run_conv -> _kernel_conv), whose band/overflow split existed to keep
 // samples inside VMEM; this kernel reads any offset directly, so it is
 // exact for every sample position.
 //
-// What bounds it on the H100: the gather-then-GEMM form writes the
-// [V, Ho, Wo, 9C] modulated samples to device memory and reads them back
-// (~150 MB per stage-3 layer in float32), i.e. it is memory bound.  Here a
-// block owns 64 output pixels x 64 output channels; per tap it gathers the
-// masked bilinear samples of a 32-channel chunk into shared memory and
-// accumulates them against the matching [32, 64] slice of w[t] in
-// registers, so the samples never leave the chip.  bfloat16 gathers eight
-// channels per 16-byte load and runs the products on the tensor cores
-// (WMMA 16x16x16, float32 accumulation, samples rounded to bfloat16);
-// float32 runs exact float32 FMAs (4x4 per thread).  The gathers are
-// repeated once per 64-wide output slice (F / 64 times), which the L2
-// cache absorbs.
-#include <mma.h>
+// What bounds it on the H100.  The products are 2 N 9C F operations (39.9
+// GFLOP at each main-path layer: 0.040 ms at the bf16 peak) on a few tens
+// of MB.  But each product's sample costs four 16-byte corner loads, their
+// float32 weighting and a rounding, and at the main-path shapes these
+// gathers set the pace: the instructions they issue and the SM's shared /
+// L1 bandwidth, which they share with the weight tiles and the products.
+// So the design gathers as little as it can and hides the products
+// behind the gathers:
+//  * a block owns 128 output pixels x all of F up to 256, or 64 pixels x
+//    all 512 at F = 512: every sample is gathered once and feeds every
+//    output channel;
+//  * every tap's corners (element offsets into x) and bilinear weights *
+//    mask for the block's pixels are computed once, by all threads, into
+//    shared memory; a corner load is then one address add;
+//  * the (64-channel chunk, tap) loop, taps inner, runs on two rings of
+//    128-byte-swizzled shared tiles: the samples A [pixels][64], two
+//    stages, written by the block's threads (all corner loads of a thread
+//    in flight together, weighted in float32, rounded, one 16-byte store
+//    a vector), and the weights W [64][channels], two or three stages,
+//    64-column boxes of w by TMA, completed on an mbarrier and refilled
+//    right after the chunk's barrier;
+//  * the products are wgmma m64n256k16 (bf16 in, float32 accumulate in
+//    registers; A K-major, W MN-major as w stores it): two warpgroups, 64
+//    pixels x 256 channels each, issued asynchronously, so the threads
+//    gather chunk i + 1 while the tensor cores multiply chunk i; one block
+//    barrier a chunk;
+//  * the output is bf16 straight from the accumulators, 16-byte stores
+//    after quad shuffles, no staging tile; nothing is atomic, so two runs
+//    give equal bits.
+// F a multiple of 128 or 64 takes a 128- or 64-column accumulator; C a
+// multiple of 32 but not 64 a 32-channel chunk; ragged N masks the last
+// pixel tile.  Tried and dropped on the way (chip_smoke.py shapes):
+// mma.sync with ldmatrix (its products alone too slow), a producer
+// warpgroup feeding two consumers (one warpgroup cannot gather fast
+// enough), cp.async weights (their issue stalls the gathers) and weight
+// multicast across a 2-block cluster (its per-chunk cluster barrier costs
+// more than the halved L2 traffic saves).
+//
+// float32 inputs (the tests' and chip_smoke.py's parity phases, held to
+// 1e-4 with TF32 off) take an FMA body: 64 pixels x 64 output channels a
+// block, samples and products in float32, 4x4 outputs per thread.
+#include <cuda.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int TP = 64, TF = 64, KC = 32, NT = 256, TAPS = 9;
+using bf16 = __nv_bfloat16;
 
 // Bilinear corners of pixel p's tap t: pixel indices and weights * mask,
 // all weights 0 when the sample lies outside (-1, extent).
@@ -118,84 +150,202 @@ __global__ void __launch_bounds__(NT) dcn_conv_kernel(
   }
 }
 
-// ---- bfloat16: tensor cores; warp w owns output columns 16 * (w % 4)
-// and pixel row tiles w / 4 and w / 4 + 2 of the 64 x 64 block tile
-namespace wm = nvcuda::wmma;
-using bf16 = __nv_bfloat16;
-constexpr int XS = 40, WS = 72;
+// ---- bfloat16 K2 (the design is in the note at the top of this file)
+template <int FT, int KC, int WGF>
+struct ConvWg {
+  static constexpr int BP = 128 / WGF, NT = 256;   // pixels, threads
+  static constexpr int FB = FT * WGF;          // the block's channels
+  static constexpr int NB = FB / 64;           // TMA boxes of a w tile
+  static constexpr int NF = FT / 8;            // n8 tiles of an accumulator
+  static constexpr int KS = KC / 16;           // k16 steps a chunk
+  static constexpr int CV = KC / 8;            // 16-byte vectors a row
+  static constexpr int VPT = BP * CV / NT;     // sample vectors a thread
+  static constexpr int VSTEP = NT / CV;        // pixels between them
+  static constexpr int A_TILE = BP * 128;      // bytes
+  static constexpr int W_TILE = KC * FB * 2;   // bytes
+  static constexpr int W_LBO = KC * 128;       // between 64-column boxes
+  static constexpr int REST = 1024 + 2 * A_TILE + BP * TAPS * 32 + 64;
+  static constexpr int S = REST + 3 * W_TILE <= 232448 ? 3 : 2;  // w ring
+  static constexpr int SMEM = REST + S * W_TILE;
+  static_assert(NF % 4 == 0, "the epilogue stores four n8 tiles a quad");
+  static_assert(VSTEP % 8 == 0,
+                "a thread's pixels keep their place in the swizzle atom");
+};
 
-__global__ void __launch_bounds__(NT) dcn_conv_tc_kernel(
+// a (pixel, tap)'s four corners as element offsets into x (pixel index *
+// C) and their bilinear weight * mask; a sample that is 0 (outside the
+// map, or a pixel past N) reads element 0 with weight 0, as tap_corners
+struct Corner {
+  int4 off;
+  float4 wt;
+};
+
+template <int FT, int KC, int WGF>
+__global__ void __launch_bounds__(256, 1) dcn_conv_tc_kernel(
     const bf16* __restrict__ x, const float* __restrict__ sy,
     const float* __restrict__ sx, const float* __restrict__ m,
-    const bf16* __restrict__ w, bf16* __restrict__ out, int H, int W, int C,
-    int HWo, long long N, int F) {
-  __shared__ __align__(128) bf16 ss[TP * XS];   // masked samples
-  __shared__ __align__(128) bf16 ws[KC * WS];   // w[t][c0:c0+KC][f0:f0+TF]
-  __shared__ __align__(128) float stg[NT / 32][256];
-  __shared__ int cidx[TP][4];
-  __shared__ float cwt[TP][4];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int ct = warp % 4, r0 = warp / 4;
-  const long long p0 = (long long)blockIdx.x * TP;
-  const int f0 = blockIdx.y * TF;
-  wm::fragment<wm::accumulator, 16, 16, 16, float> acc[2];
-  wm::fill_fragment(acc[0], 0.f);
-  wm::fill_fragment(acc[1], 0.f);
+    const __grid_constant__ CUtensorMap wmap, bf16* __restrict__ out, int H,
+    int W, int C, int HWo, long long N, int F) {
+  using G = ConvWg<FT, KC, WGF>;
+  constexpr int BP = G::BP, S = G::S;
+  using namespace mv2d::tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* as =                   // the swizzle needs 1024-byte atoms
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ws = as + 2 * G::A_TILE;
+  Corner* ctab = reinterpret_cast<Corner*>(ws + S * G::W_TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ctab + BP * TAPS);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nF = F / G::FB;              // the slices of a pixel tile are
+  const long long p0 = (long long)(blockIdx.x / nF) * BP;   // neighbours
+  const int f0 = (blockIdx.x % nF) * G::FB;
+  const int n = TAPS * (C / KC);         // chunks: taps inner
 
-  for (int t = 0; t < TAPS; ++t) {
-    if (tid < TP)
-      tap_corners(p0 + tid, t, sy, sx, m, H, W, HWo, N, cidx[tid], cwt[tid]);
-    __syncthreads();
-    for (int c0 = 0; c0 < C; c0 += KC) {
-      {   // one thread: 8 channels of one pixel, 16-byte corner loads
-        const int pp = tid / (KC / 8), q = tid % (KC / 8);
-        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int cq = 0; cq < 4; ++cq) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              x + (size_t)cidx[pp][cq] * C + c0 + q * 8);
-          const bf16* e = reinterpret_cast<const bf16*>(&raw);
-          const float wq = cwt[pp][cq];
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            v[j] = fmaf(wq, __bfloat162float(e[j]), v[j]);
-        }
-        uint4 packed;
-        bf16* o = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) o[j] = __float2bfloat16(v[j]);
-        *reinterpret_cast<uint4*>(ss + pp * XS + q * 8) = packed;
-      }
-      for (int e = tid; e < KC * (TF / 8); e += NT) {
-        const int k = e / (TF / 8), q = e % (TF / 8);
-        *reinterpret_cast<uint4*>(ws + k * WS + q * 8) =
-            *reinterpret_cast<const uint4*>(
-                w + ((size_t)t * C + c0 + k) * F + f0 + q * 8);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        wm::fragment<wm::matrix_b, 16, 16, 16, bf16, wm::row_major> b;
-        wm::load_matrix_sync(b, ws + kk * WS + ct * 16, WS);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          wm::fragment<wm::matrix_a, 16, 16, 16, bf16, wm::row_major> a;
-          wm::load_matrix_sync(a, ss + (r0 + 2 * i) * 16 * XS + kk, XS);
-          wm::mma_sync(acc[i], a, b, acc[i]);
-        }
-      }
-      __syncthreads();
-    }
+  // every tap's corners of the block's pixels, once
+  for (int e = tid; e < BP * TAPS; e += G::NT) {
+    const int pp = e / TAPS, t = e % TAPS;
+    int idx[4];
+    float wt[4];
+    tap_corners(p0 + pp, t, sy, sx, m, H, W, HWo, N, idx, wt);
+    ctab[t * BP + pp] = {make_int4(idx[0] * C, idx[1] * C, idx[2] * C,
+                                   idx[3] * C),
+                         make_float4(wt[0], wt[1], wt[2], wt[3])};
   }
-  for (int i = 0; i < 2; ++i) {
-    wm::store_matrix_sync(stg[warp], acc[i], 16, wm::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const long long p = p0 + (r0 + 2 * i) * 16 + e / 16;
-      if (p < N) out[p * F + f0 + ct * 16 + e % 16] =
-          __float2bfloat16(stg[warp][e]);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(full + s, 1);
+    fence_mbar_init();
+  }
+
+  // chunk i's weights w[t][c0 .. c0 + KC][f0 .. f0 + FB] into stage i % S,
+  // 64-column boxes by TMA (one thread)
+  auto load_w = [&](int i) {
+    const int s = i % S;
+    mbar_expect_tx(full + s, G::W_TILE);
+    const int row = (i % TAPS) * C + i / TAPS * KC;
+    for (int b = 0; b < G::NB; ++b)
+      tma_load_2d(ws + s * G::W_TILE + b * G::W_LBO, &wmap, f0 + b * 64,
+                  row, full + s);
+  };
+  // what a thread gathers, fixed for the whole loop: sample vectors v at
+  // pixels pp + v * VSTEP, channels 8 q..
+  const int pp = tid / G::CV, q = tid % G::CV;
+  const uint32_t adst = (pp >> 3) * 1024 + (pp & 7) * 128 +
+                        ((q ^ (pp & 7)) << 4);
+  const bf16* xq = x + q * 8;
+
+  auto fill = [&](int i, int buf) {      // chunk i's samples into stage buf
+    const Corner* ct = ctab + (i % TAPS) * BP + pp;
+    const bf16* xc = xq + i / TAPS * KC;
+    uint4 raw[G::VPT][4];
+#pragma unroll
+    for (int v = 0; v < G::VPT; ++v) {   // every corner load in flight
+      const int4 o = ct[v * G::VSTEP].off;
+      raw[v][0] = ldg_nc_v4(xc + o.x);
+      raw[v][1] = ldg_nc_v4(xc + o.y);
+      raw[v][2] = ldg_nc_v4(xc + o.z);
+      raw[v][3] = ldg_nc_v4(xc + o.w);
     }
-    __syncwarp();
+#pragma unroll
+    for (int v = 0; v < G::VPT; ++v) {   // weigh, round to bf16, store
+      const float4 cw = ct[v * G::VSTEP].wt;
+      const float wq4[4] = {cw.x, cw.y, cw.z, cw.w};
+      float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t* r = reinterpret_cast<const uint32_t*>(&raw[v][k]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {    // bf16 pair -> two float32
+          s[2 * j] = fmaf(wq4[k], __uint_as_float(r[j] << 16), s[2 * j]);
+          s[2 * j + 1] =
+              fmaf(wq4[k], __uint_as_float(r[j] & 0xffff0000u), s[2 * j + 1]);
+        }
+      }
+      uint4 packed;
+      uint32_t* o = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        __nv_bfloat162 h = __floats2bfloat162_rn(s[2 * j], s[2 * j + 1]);
+        o[j] = *reinterpret_cast<uint32_t*>(&h);
+      }
+      *reinterpret_cast<uint4*>(as + buf * G::A_TILE + adst +
+                                v * (G::VSTEP / 8) * 1024) = packed;
+    }
+  };
+
+  float acc[G::NF * 4];
+#pragma unroll
+  for (int r = 0; r < G::NF * 4; ++r) acc[r] = 0.f;
+
+  __syncthreads();                       // corners and barriers are set
+  if (tid == 0)
+    for (int i = 0; i < S && i < n; ++i) load_w(i);
+  fill(0, 0);
+  fence_proxy_async();
+  __syncthreads();
+  // chunk i's products run on the tensor cores while the threads gather
+  // chunk i + 1's samples into the other A stage; the weights arrive S - 1
+  // chunks ahead.  One block barrier ends the chunk, after which its
+  // weight stage is refilled.  Warpgroup g owns pixels 64 g.. of the block
+  // (WGF 1) or its channels FT g.. (WGF 2).
+  const int wg_row = WGF == 1 ? (warp >> 2) * 64 : 0;
+  const int wg_col = WGF == 1 ? 0 : (warp >> 2) * FT;
+  for (int i = 0; i < n; ++i) {
+    const int buf = i & 1, s = i % S;
+    mbar_wait(full + s, (i / S) & 1);
+#pragma unroll
+    for (int r = 0; r < G::NF * 4; ++r) fence_operand(acc[r]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < G::KS; ++ks)
+      wgmma_tb<FT>(acc,
+                   desc_sw128(as + buf * G::A_TILE + wg_row * 128 + ks * 32,
+                              16, 1024),
+                   desc_sw128(ws + s * G::W_TILE + ks * 2048 +
+                                  wg_col / 64 * G::W_LBO,
+                              G::W_LBO, 1024));
+    wgmma_commit();
+    if (i + 1 < n) fill(i + 1, buf ^ 1);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < G::NF * 4; ++r) fence_operand(acc[r]);
+    fence_proxy_async();                 // A visible to wgmma's reads
+    __syncthreads();                     // stage s read by every warp:
+    if (tid == 0 && i + S < n) load_w(i + S);   // refill it
+  }
+
+  // epilogue: bf16 straight from the accumulators.  A quad holds 2 columns
+  // of each n8 tile; four shuffles give lane t of the quad the 8 columns
+  // of tile j0 + t of its row, written as one 16-byte store.
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long p = p0 + wg_row + (warp & 3) * 16 + h * 8 + g;
+#pragma unroll
+    for (int j0 = 0; j0 < G::NF; j0 += 4) {
+      uint32_t v[4], res[4];
+#pragma unroll
+      for (int s2 = 0; s2 < 4; ++s2) {
+        __nv_bfloat162 b2 = __floats2bfloat162_rn(
+            acc[(j0 + s2) * 4 + 2 * h], acc[(j0 + s2) * 4 + 2 * h + 1]);
+        v[s2] = *reinterpret_cast<uint32_t*>(&b2);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        // lane tq sends its pair of tile (tq + r) % 4 and receives, from
+        // lane (tq - r) % 4, that lane's pair of tile tq
+        const int snd = (tq + r) & 3, from = (tq - r) & 3;
+        const uint32_t send = snd == 0 ? v[0] : snd == 1 ? v[1]
+                              : snd == 2 ? v[2] : v[3];
+        const uint32_t got =
+            __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u == from) res[u] = got;
+      }
+      if (p < N)
+        *reinterpret_cast<uint4*>(out + p * F + f0 + wg_col + (j0 + tq) * 8) =
+            make_uint4(res[0], res[1], res[2], res[3]);
+    }
   }
 }
 
@@ -597,6 +747,75 @@ __global__ void dcn_reduce_splits_kernel(const float* __restrict__ part,
   dw[e] = s;
 }
 
+// the bfloat16 body at one tiling: FT = F's widest of 256 / 128 / 64 that
+// divides it, KC = 64 channels a chunk where C allows, else 32
+// cuTensorMapEncodeTiled, a libcuda function, found through the runtime's
+// entry-point query (no link against libcuda)
+typedef CUresult (*TmapEncode)(CUtensorMap*, CUtensorMapDataType,
+                               cuuint32_t, void*, const cuuint64_t*,
+                               const cuuint64_t*, const cuuint32_t*,
+                               const cuuint32_t*, CUtensorMapInterleave,
+                               CUtensorMapSwizzle, CUtensorMapL2promotion,
+                               CUtensorMapFloatOOBfill);
+
+TmapEncode tmap_encode() {
+  static TmapEncode fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TmapEncode>(p);
+  }
+  return fn;
+}
+
+template <int FT, int KC, int WGF>
+int launch_conv_tc(const bf16* x, const float* sy, const float* sx,
+                   const float* m, const bf16* w, bf16* out, int H, int W,
+                   int C, int HWo, long long N, int F, cudaStream_t s) {
+  using G = ConvWg<FT, KC, WGF>;
+  auto* kernel = dcn_conv_tc_kernel<FT, KC, WGF>;
+  // w as a [9 C, F] matrix, read in 64-column x KC-row boxes, 128-byte
+  // swizzled as wgmma reads them
+  TmapEncode encode = tmap_encode();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap wmap;
+  const cuuint64_t dims[2] = {(cuuint64_t)F, (cuuint64_t)TAPS * C};
+  const cuuint64_t strides[1] = {(cuuint64_t)F * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)KC}, unit[2] = {1, 1};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<bf16*>(w), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       G::SMEM);
+  const long long tiles = (N + G::BP - 1) / G::BP;
+  kernel<<<(unsigned)(tiles * (F / G::FB)), G::NT, G::SMEM, s>>>(
+      x, sy, sx, m, wmap, out, H, W, C, HWo, N, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KC>
+int launch_conv_tc_f(const bf16* x, const float* sy, const float* sx,
+                     const float* m, const bf16* w, bf16* out, int H, int W,
+                     int C, int HWo, long long N, int F, cudaStream_t s) {
+  if (F % 512 == 0)
+    return launch_conv_tc<256, KC, 2>(x, sy, sx, m, w, out, H, W, C, HWo, N,
+                                      F, s);
+  if (F % 256 == 0)
+    return launch_conv_tc<256, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N,
+                                      F, s);
+  if (F % 128 == 0)
+    return launch_conv_tc<128, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N,
+                                      F, s);
+  return launch_conv_tc<64, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N, F,
+                                   s);
+}
+
 }  // namespace
 
 // B13: dy [V, Ho, Wo, F] (dtype) -> dx [V, H, W, C] float32 (zeroed by the
@@ -681,27 +900,35 @@ extern "C" int mv2d_dcn_samples_bwd(const void* x, const void* sy,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x [V, H, W, C], w [9, C, F] (dtype), sy / sx / m [V, Ho, Wo, 9] float32
+// -> out [V, Ho, Wo, F] (dtype); C % 32 == 0, F % 64 == 0
 extern "C" int mv2d_dcn_conv(const void* x, const void* sy, const void* sx,
                              const void* m, const void* w, void* out, int V,
                              int H, int W, int C, int Ho, int Wo, int F,
                              int dtype, void* stream) {
   const long long N = (long long)V * Ho * Wo;
-  const dim3 grid((unsigned)((N + TP - 1) / TP), F / TF);
   auto s = static_cast<cudaStream_t>(stream);
   const auto* fy = static_cast<const float*>(sy);
   const auto* fx = static_cast<const float*>(sx);
   const auto* fm = static_cast<const float*>(m);
+  if (C % 32 || F % 64 || N == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
+    const dim3 grid((unsigned)((N + TP - 1) / TP), F / TF);
     dcn_conv_kernel<float><<<grid, NT, 0, s>>>(
         static_cast<const float*>(x), fy, fx, fm,
         static_cast<const float*>(w), static_cast<float*>(out), H, W, C,
         Ho * Wo, N, F);
-  } else if (dtype == 1) {
-    dcn_conv_tc_kernel<<<grid, NT, 0, s>>>(
-        static_cast<const bf16*>(x), fy, fx, fm, static_cast<const bf16*>(w),
-        static_cast<bf16*>(out), H, W, C, Ho * Wo, N, F);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  // the bfloat16 body keeps element offsets into x in 32 bits
+  if (dtype != 1 || (long long)V * H * W * C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* bx = static_cast<const bf16*>(x);
+  const auto* bw = static_cast<const bf16*>(w);
+  auto* bo = static_cast<bf16*>(out);
+  if (C % 64 == 0)
+    return launch_conv_tc_f<64>(bx, fy, fx, fm, bw, bo, H, W, C, Ho * Wo, N,
+                                F, s);
+  return launch_conv_tc_f<32>(bx, fy, fx, fm, bw, bo, H, W, C, Ho * Wo, N, F,
+                              s);
 }

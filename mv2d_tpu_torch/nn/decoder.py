@@ -10,7 +10,7 @@ eps 1e-6, the JAX package's value.
 
 With use_flash, both attentions go through `ops.attention.masked_attention`
 (kernel K4 on CUDA), or `masked_attention_train` (K4 and its backward B8,
-or B14 with flash_sparse) while gradients are recorded; on the GPU the
+with or without flash_sparse) while gradients are recorded; on the GPU the
 decoder packs each of its two masks once per pass (`mask_tiles`, the
 tiles every layer's kernels read).  Training applies
 the reference's dropout (p = cfg.dropout) after each attention's output

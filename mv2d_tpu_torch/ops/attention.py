@@ -8,10 +8,12 @@ With gradients on, `masked_attention_train` runs `MaskedAttentionFn`: K4
 with its per-(query, head) log-sum-exp output as the forward (the TPU's
 dense training forward `_fwd_call` computes the same function) and
 kernel B8 as the backward (`_flash_bwd`).  With `sparse` (a model built
-under MV2D_FLASH_SPARSE=1, see `routes`), the JAX package's block-sparse
-training form is followed: `SparseMaskedAttentionFn`, K4 forward (the
-sparse forward `_sparse_fwd_call` computes the same function) and kernel
-B14 as the single-pass backward (`_flash_sparse_bwd`).
+under MV2D_FLASH_SPARSE=1, see `routes`), the JAX package takes its
+block-sparse training form: the sparse forward `_sparse_fwd_call` and the
+single-pass backward `_flash_sparse_bwd`.  Both compute the functions of
+K4 and B8 over the same active tiles, and B8 already walks only the
+active tiles, so the port answers that route with `MaskedAttentionFn`
+too.
 
 K4 and B8 read the mask as `MaskTiles` (`mask_tiles`): its bits packed 64
 keys to a word (by a small CUDA kernel, `mask_bits`) and the CSR lists of
@@ -91,7 +93,7 @@ def _check(q, k, v, allowed, num_heads):
         raise ValueError('q/k/v must share a dtype; allowed must be [Q, K]')
 
 
-SPARSE_TILE = 64          # the query and key tiles of K4, B8 and B14
+SPARSE_TILE = 64          # the query and key tiles of K4 and B8
 
 
 class MaskTiles(NamedTuple):
@@ -306,75 +308,16 @@ class MaskedAttentionFn(torch.autograd.Function):
                 None)
 
 
-def masked_attention_sparse_backward(q, k, v, allowed, out, lse, dout,
-                                     num_heads: int, key_tiles=None):
-    """Kernel B14 on CUDA tensors: -> (dq, dk, dv) float32, one pass per
-    (query tile, head) over its active key tiles.  `key_tiles` is
-    `mask_tiles(allowed)`'s key-tile list, built here when not given."""
-    _check(q, k, v, allowed, num_heads)
-    Q, C = q.shape
-    K = k.shape[0]
-    if out.shape != q.shape or dout.shape != q.shape \
-            or lse.shape != (Q, num_heads) or dout.dtype != q.dtype:
-        raise ValueError('out / dout must be [Q, C] in q.dtype, lse [Q, H]')
-    q, k, v, out, dout, lse = (t.contiguous() for t in
-                               (q, k, v, out, dout, lse))
-    mask = allowed.to(torch.bool).contiguous()
-    kernels.check_cuda(q, k, v, mask, out, dout, lse)
-    starts, tiles = key_tiles if key_tiles is not None \
-        else mask_tiles(mask)[1:3]
-    kernels.check_cuda(starts, tiles)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((Q, num_heads), **f32)
-    dq = torch.empty((Q, C), **f32)
-    dk = torch.zeros((K, C), **f32)
-    dv = torch.zeros((K, C), **f32)
-    kernels.launch('mv2d_masked_attention_sparse_bwd', q.data_ptr(),
-                   k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                   out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                   delta.data_ptr(), starts.data_ptr(), tiles.data_ptr(),
-                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), Q, K,
-                   num_heads, C // num_heads, kernels.dtype_code(q))
-    masked_attention_sparse_backward.launches += 1
-    return dq, dk, dv
-
-
-masked_attention_sparse_backward.launches = 0
-
-
-class SparseMaskedAttentionFn(torch.autograd.Function):
-    """K4 (with its log-sum-exp) forward, B14 backward; no gradient to the
-    mask.  B14 reads the key-tile list of the forward's `MaskTiles`."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, allowed, num_heads, tiles=None):
-        tiles = _tiles_for(q, k, allowed, tiles)
-        out, lse = masked_attention_forward(q, k, v, allowed, num_heads,
-                                            tiles)
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v, allowed, out, lse, tiles.key_starts,
-                              tiles.key_tiles)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, allowed, out, lse, starts, tiles = ctx.saved_tensors
-        dq, dk, dv = masked_attention_sparse_backward(
-            q, k, v, allowed, out, lse, dout.to(q.dtype), ctx.num_heads,
-            (starts, tiles))
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None)
-
-
 def masked_attention_train(q, k, v, allowed, num_heads: int,
                            sparse: bool = False,
                            tiles: MaskTiles | None = None):
     """Differentiable masked attention.  CPU tensors take
     `masked_attention_plain` (autograd; `tiles` not read); CUDA tensors run
-    `SparseMaskedAttentionFn` (kernels K4 / B14) with `sparse`, else
-    `MaskedAttentionFn` (kernels K4 / B8), on `tiles` (`mask_tiles(allowed)`,
-    built here when not given)."""
+    `MaskedAttentionFn` (kernels K4 / B8) on `tiles` (`mask_tiles(allowed)`,
+    built here when not given).  `sparse` (the MV2D_FLASH_SPARSE route)
+    selects the JAX package's block-sparse training form, whose forward
+    and backward compute the same functions as K4 and B8 over the same
+    active tiles: it takes the same kernels."""
     if q.device.type == 'cpu':
         return masked_attention_plain(q, k, v, allowed, num_heads)
-    fn = SparseMaskedAttentionFn if sparse else MaskedAttentionFn
-    return fn.apply(q, k, v, allowed, num_heads, tiles)
+    return MaskedAttentionFn.apply(q, k, v, allowed, num_heads, tiles)

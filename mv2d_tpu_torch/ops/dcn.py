@@ -6,8 +6,11 @@ the input bilinearly at its offset position (border-clamped inside, zero
 outside the map) and the masked samples are contracted with the [9, C, F]
 tap weights.  `dcn_conv` is kernel K2 (`csrc/dcn.cu`), replacing
 `mv2d_tpu/ops/pallas_dcn.py: pallas_dcn_conv`; it runs when no gradient
-is recorded.  With gradients on, the training path of the JAX package
-(`dcn_modulated_conv_train`) is followed: `dcn_samples` (kernel B5, its
+is recorded.  In bfloat16 K2 gathers each sample once into shared memory
+and multiplies it on the tensor cores (wgmma) against every output
+channel while the next chunk is gathered, so the [V, Ho, Wo, 9C] samples
+never reach device memory.  With gradients on, the training path of the
+JAX package (`dcn_modulated_conv_train`) is followed: `dcn_samples` (kernel B5, its
 gradient kernel B6 in `DCNSamplesFn`) writes the modulated samples
 [V, Ho, Wo, 9, C] and one matmul against the [9C, F] tap weights
 contracts them, so dw and dsamples come from the matmul's autograd.
@@ -67,7 +70,8 @@ def dcn_conv_plain(x, sy, sx, mask, w):
 
 def dcn_conv(x, sy, sx, mask, w):
     """Kernel K2.  CPU tensors take `dcn_conv_plain`; CUDA tensors launch
-    the kernel (x, w float32 or bfloat16; sy, sx, mask float32)."""
+    the kernel (x, w float32 or bfloat16; sy, sx, mask float32; 3x3 taps,
+    C % 32 == 0, F % 64 == 0, any other shape raises)."""
     if x.device.type == 'cpu':
         return dcn_conv_plain(x, sy, sx, mask, w)
     V, H, W, C = x.shape
@@ -79,6 +83,9 @@ def dcn_conv(x, sy, sx, mask, w):
     if sy.dtype != torch.float32 or sx.dtype != torch.float32 \
             or mask.dtype != torch.float32 or w.dtype != x.dtype:
         raise TypeError('dcn kernel takes float32 sy/sx/mask, w in x.dtype')
+    if x.dtype == torch.bfloat16 and x.numel() >= 2 ** 31:
+        raise ValueError('dcn kernel addresses x with 32-bit offsets in '
+                         f'bfloat16; got {x.numel()} elements')
     x, sy, sx, mask, w = (t.contiguous() for t in (x, sy, sx, mask, w))
     kernels.check_cuda(x, sy, sx, mask, w)
     out = torch.empty((V, Ho, Wo, F_), dtype=x.dtype, device=x.device)

@@ -16,17 +16,21 @@ as constructor arguments and read no environment:
     '1' trains DCN through K2 forward and the combined backward B13
     (`ops.dcn.dcn_conv_train`) instead of B5 / B6 and two matmuls.
   * `MV2D_FLASH_SPARSE` (unset, '1', '0', 'mixed';
-    `mv2d_tpu/ops/pallas_attention.py`): '1' trains the masked attention
-    through K4 and the block-sparse backward B14; unset, '0' and 'mixed'
-    keep B8.  Another value raises, as the JAX dict lookup does.
+    `mv2d_tpu/ops/pallas_attention.py`): '1' selects the JAX package's
+    block-sparse training attention (`_sparse_fwd_call`,
+    `_flash_sparse_bwd`); it computes the functions of K4 and B8 over the
+    same active tiles, so the port runs K4 and B8 on it as on the
+    default.  Unset, '0' and 'mixed' keep the dense form.  Another value
+    raises, as the JAX dict lookup does.
   * `MV2D_ALIGN_V2` ('0' default, '1'; `mv2d_tpu/ops/pallas_roi_align.py`):
     '1' runs the R-CNN RoIAlign (the detect pass and the training RoIs)
     through the slab kernel B11 (`ops.roi_align.roi_align_slab`, with B9
     as its backward) instead of K3.  The function is K3's.
 
-These routes exist to hold B10, B11, B13 and B14 against the JAX
-package's kernels; on the H100 B10, B13 and B14 are slower than the
-default route they replace (PERF.md), and no workload selects them.
+These routes exist to hold B10, B11 and B13 (and the sparse attention's
+function) against the JAX package's kernels; on the H100 B10 and B13 are
+slower than the default route they replace (PERF.md), and no workload
+selects them.
 
 The package's other `MV2D_*` variables are not read.  They compute no
 function of their own:

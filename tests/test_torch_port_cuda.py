@@ -59,6 +59,33 @@ def test_dcn_kernel(dev, dtype, tol, stride, far):
 
 
 @pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('V,H,W,C,F,stride,far,integer', [
+    (1, 13, 21, 64, 256, 1, 0.0, False),     # ragged N (273 pixels)
+    (2, 9, 14, 32, 64, 1, 0.0, False),       # C 32, F 64
+    (1, 12, 17, 96, 512, 2, 0.0, False),     # F 512 (two slices), C 96
+    (2, 11, 19, 64, 128, 1, 0.2, False),     # 20% far outside the map
+    (2, 11, 19, 64, 192, 1, 0.0, True),      # integer coordinates, F 192
+])
+def test_dcn_kernel_shapes(dev, dtype, tol, V, H, W, C, F, stride, far,
+                           integer):
+    """K2 at the edges of its tiling: a last pixel tile partly empty,
+    the narrow instantiations (C 32, F 64 / 128 / 192), F 512 in two
+    slices, far offsets and integer coordinates; one launch each, and a
+    second run bit-equal to the first (no atomics)."""
+    from mv2d_tpu_torch.ops import dcn
+    x, sy, sx, m, w = smoke.dcn_inputs(dev, getattr(torch, dtype), V, H, W,
+                                       C, F, stride, far=far)
+    if integer:
+        sy, sx = sy.round(), sx.round()
+    args = (x, sy, sx, m, w)
+    before = dcn.dcn_conv.launches
+    got = dcn.dcn_conv(*args)
+    assert dcn.dcn_conv.launches == before + 1
+    check(got, dcn.dcn_conv_plain(*args), tol)
+    assert torch.equal(dcn.dcn_conv(*args), got)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
 def test_roi_align_kernel(dev, dtype, tol):
     from mv2d_tpu_torch.ops import roi_align
     feats, rois = smoke.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
@@ -161,11 +188,15 @@ def test_roi_align_backward_kernel(dev, dtype, tol):
 
 def test_kernels_refuse_cpu_fallback(dev):
     """On CUDA tensors a wrapper launches or raises; bad input raises."""
-    from mv2d_tpu_torch.ops import attention
+    from mv2d_tpu_torch.ops import attention, dcn
     q = torch.zeros(4, 48, device=dev)
     with pytest.raises(ValueError):
         attention.masked_attention(q, q, q, torch.ones(4, 4, dtype=torch.bool,
                                                        device=dev), 1)
+    for C, F in ((48, 64), (64, 96)):         # K2: C % 32, F % 64
+        args = smoke.dcn_inputs(dev, torch.bfloat16, 1, 8, 8, C, F, 1)
+        with pytest.raises(ValueError):
+            dcn.dcn_conv(*args)
 
 
 # ------------------------------------------------ kernels of the routes
@@ -209,9 +240,10 @@ def test_dcn_conv_backward_kernel(dev, dtype, tol, stride, far, integer):
 @pytest.mark.parametrize('dtype,tol', DTYPES)
 @pytest.mark.parametrize('mask', ['cross', 'self', 'full'])
 def test_attention_sparse_backward_kernel(dev, dtype, tol, mask):
-    """B14 (masked_attention_train with sparse) against the plain
-    version's autograd: rows with no allowed key, keys no row may attend,
-    every pair allowed."""
+    """The flash_sparse route (masked_attention_train with sparse), whose
+    backward is B8, against the plain version's autograd: rows with no
+    allowed key, keys no row may attend, every pair allowed; one B8
+    launch a backward and no other backward kernel."""
     from mv2d_tpu_torch.ops import attention
     q, k, v, a = smoke.attention_inputs(dev, getattr(torch, dtype), Q=100,
                                         K=1000, C=64,
@@ -223,13 +255,15 @@ def test_attention_sparse_backward_kernel(dev, dtype, tol, mask):
     args = (q, k, v, a, 2)
     out, grads = smoke.plain_grads(attention.masked_attention_plain, args,
                                    range(3), smoke.cotangent(q))
-    n8 = attention.masked_attention_backward.launches
-    n14 = attention.masked_attention_sparse_backward.launches
+    fns = smoke.counters()
+    before = {n: fn.launches for n, fn in fns.items()}
     got, ggot = smoke.plain_grads(attention.masked_attention_train,
                                   args + (True,), range(3),
                                   smoke.cotangent(q))
-    assert attention.masked_attention_sparse_backward.launches == n14 + 1
-    assert attention.masked_attention_backward.launches == n8
+    launched = {n: fn.launches - before[n] for n, fn in fns.items()}
+    assert launched['masked_attention_backward'] == 1
+    assert all(launched[n] == 0 for n in launched if 'backward' in n
+               and n != 'masked_attention_backward')
     check_all([got, *ggot], [out, *grads], tol)
     empty = ~a.any(-1)
     assert bool((ggot[0][empty] == 0).all())

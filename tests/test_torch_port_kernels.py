@@ -242,15 +242,10 @@ def test_wrappers_take_plain_path_only_on_cpu():
                  b3=torch.empty(512, **meta))]),
         lambda: dcn.dcn_conv_train(x64, c, c, c, w64),
         lambda: dcn.dcn_conv_backward(x64, c, c, c, w64, x64),
-        lambda: attention.SparseMaskedAttentionFn.apply(
+        lambda: attention.masked_attention_train(
             torch.empty(5, 32, **meta), torch.empty(7, 32, **meta),
             torch.empty(7, 32, **meta),
-            torch.empty(5, 7, dtype=torch.bool, **meta), 4),
-        lambda: attention.masked_attention_sparse_backward(
-            *(torch.empty(n, 32, **meta) for n in (5, 7, 7)),
-            torch.empty(5, 7, dtype=torch.bool, **meta),
-            torch.empty(5, 32, **meta), torch.empty(5, 4, **meta),
-            torch.empty(5, 32, **meta), 4),
+            torch.empty(5, 7, dtype=torch.bool, **meta), 4, sparse=True),
         # the RoIAlign kernels of the serving paths (B11, B12)
         lambda: roi_align.roi_align_slab(
             [x] * 4, torch.empty(1, 3, 4, **meta), (4, 8, 16, 32)),

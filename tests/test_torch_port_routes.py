@@ -18,11 +18,12 @@ route to are held against the Pallas kernels in interpret mode, as
     MV2D_DCN_TRAIN_FUSED=1 (values and all five gradients at that test's
     3e-2) and against the dense XLA reference (1e-4, no coordinate on a
     border);
-  * B14's plain version, autograd of `masked_attention_plain` (what
+  * the flash_sparse route's function (on the card: K4 and B8), whose
+    plain version is autograd of `masked_attention_plain` (what
     `masked_attention_train` runs on the CPU), against
     `pallas_attention._flash_sparse(interpret=True)` (5e-3) and the XLA
-    attention (1e-4), with an empty and a full row; B14's list of active
-    key tiles against JAX's `_sparse_blocks`;
+    attention (1e-4), with an empty and a full row; the list of active
+    key tiles that K4 and B8 walk against JAX's `_sparse_blocks`;
   * one tiny+DCN training step of the port with the dcn_train_fused and
     flash_sparse routes equal to the default route's step: every loss and
     gradient within 1e-5.
@@ -296,7 +297,7 @@ def test_dcn_conv_train_plain_matches_jax(stride, monkeypatch):
     assert not on_border.any()
 
 
-# ---------------------------------------------------------------- B14
+# ------------------------------------------- the flash_sparse route
 
 def test_attention_train_plain_matches_jax_sparse():
     rng = np.random.default_rng(4)
@@ -335,7 +336,7 @@ def test_attention_train_plain_matches_jax_sparse():
 
 @pytest.mark.parametrize('Q,K', [(100, 300), (128, 256), (40, 50)])
 def test_sparse_key_tiles_match_jax_blocks(Q, K):
-    """B14's CSR list of active key tiles (`mask_tiles`' key-tile list,
+    """The CSR list of active key tiles (`mask_tiles`' key-tile list,
     built with no host sync) holds the tiles of JAX's `_sparse_blocks`,
     in its order, per query tile; ragged tiles, an empty row, an empty
     query tile and a full row."""
