@@ -18,7 +18,11 @@ Phases, in order; any failure exits non-zero without the final line:
      operations over 989 TFLOP/s (H100 SXM bf16 peaks), and the bound's
      share of the kernel's time.  K2's cases also time B5 plus one
      torch.matmul on the same inputs (`b5_matmul_ms`, a yardstick the port
-     never runs) and name their shape's launches per eval forward.  The
+     never runs) and name their shape's launches per eval forward.  K1's
+     case also times block 0 and an identity block alone and gives the
+     chain's share of its three-launch floor (each launch reads its input
+     and writes its output once: 1.45 GB at [12,128,352,64]) beside its
+     share of the bound; K1 is also checked at R101's layer1 shape.  The
      attention kernels read the mask as
      the decoder hands it to them, packed once a pass (`mask_tiles`); the
      packing kernel has cases of its own, equal bit for bit, timed beside
@@ -427,9 +431,10 @@ class Case:
     the function for its bound, `library()` one PyTorch call computing the
     same function (timed only), or None; `extra` names further calls timed
     beside them (the default route's kernels for the same work, the
-    per-pass build around a kernel, or a yardstick the port never runs);
-    an `exact` case must equal its plain version bit for bit; `note` is
-    printed on its line."""
+    per-pass build around a kernel, single launches of a chain, or a
+    yardstick the port never runs); an `exact` case must equal its plain
+    version bit for bit; `note` ends its line: a string, or a function of
+    the kernel's measured ms (None where the case is not timed)."""
 
     def __init__(self, kernel, plain, work, library=None, extra=None,
                  exact=False, note=''):
@@ -477,14 +482,31 @@ def kernel_cases():
     import torch.nn.functional as F
     from mv2d_tpu_torch.ops import attention, dcn, roi_align, stage
 
-    def stage1(dev, dt):
-        x, blocks = stage1_inputs(dev, dt)
-        N = x.shape[0] * x.shape[1] * x.shape[2]
-        macs = sum(w.numel() for blk in blocks for k, w in blk.items()
-                   if k.startswith('w'))
-        return Case(lambda: stage.fused_stage1(x, blocks),
-                    lambda: stage.fused_stage1_plain(x, blocks),
-                    (nbytes(x) * 5 + macs * 2, 2.0 * N * macs))
+    def stage1(V=12, H=128, W=352):
+        def build(dev, dt):
+            x, blocks = stage1_inputs(dev, dt, V, H, W)
+            # packed as nn.resnet hands them to the kernel
+            blocks = [stage.pack_block(b, dt) for b in blocks]
+            N = x.shape[0] * x.shape[1] * x.shape[2]
+            macs = sum(w.numel() for blk in blocks for k, w in blk.items()
+                       if k.startswith('w'))
+            y = stage.bottleneck_plain(x, blocks[0])
+            # the chain's form, one launch per bottleneck, must read each
+            # launch's input and write its output: x + 5 x 256-channel maps
+            floor = bound((nbytes(x) * 21 + macs * 2, 2.0 * N * macs))[0]
+
+            def note(ms):
+                return f'  three-launch floor {floor:.3f} ms' + (
+                    f' ({floor / ms:.1%} of the kernel)' if ms else '')
+            return Case(lambda: stage.fused_stage1(x, blocks),
+                        lambda: stage.fused_stage1_plain(x, blocks),
+                        (nbytes(x) * 5 + macs * 2, 2.0 * N * macs),
+                        extra={'block0_ms': lambda: stage.bottleneck_cuda(
+                                   x, blocks[0]),
+                               'identity_ms': lambda: stage.bottleneck_cuda(
+                                   y, blocks[1])},
+                        note=note)
+        return build
 
     def identity_chain(V, H, W, stage_index):
         def build(dev, dt):
@@ -754,7 +776,13 @@ def kernel_cases():
         return build
 
     return [
-        ('fused_stage1', 'layer1 [12,128,352,64]', True, stage1),
+        ('fused_stage1', 'layer1 [12,128,352,64]', True, stage1()),
+        ('fused_stage1', 'R101 layer1 [12,160,400,64]', False,
+         stage1(12, 160, 400)),
+        ('fused_stage1', 'edge: ragged tiles [3,13,70,64]', False,
+         stage1(3, 13, 70)),
+        ('fused_stage1', 'edge: under one tile [1,5,7,64]', False,
+         stage1(1, 5, 7)),
         ('dcn_conv', 'stage3 s2 [12,64,176,256]', True,
          dcn_conv(12, 64, 176, 256, 256, 2, per_forward=1)),
         ('dcn_conv', 'stage3 s1 [12,32,88,256]', True,
@@ -885,7 +913,8 @@ def phase_kernels(dev, results):
             ok &= good
             line = (f'  {name:<30} {label:<38} {str(dt)[6:]:<9} '
                     f'max_abs_err={err:.3e} rel={rel:.2e} tol={tol:.0e} '
-                    f'{"ok" if good else "FAIL"}{case.note}')
+                    f'{"ok" if good else "FAIL"}')
+            ms = None
             if main and dt == torch.bfloat16:
                 p1 = time_ms(case.plain)
                 k1 = time_ms(case.kernel)
@@ -909,7 +938,9 @@ def phase_kernels(dev, results):
                          f'({b_by}, {b_ms / timing["ms"]:.1%} of it)')
                 if lib is not None:
                     line += f'  library {lib:.3f} ms'
-            log(line)
+                ms = timing['ms']
+            log(line + (case.note if isinstance(case.note, str)
+                        else case.note(ms)))
             del case, out_k, out_p
             torch.cuda.empty_cache()
     return ok

@@ -749,28 +749,6 @@ __global__ void dcn_reduce_splits_kernel(const float* __restrict__ part,
 
 // the bfloat16 body at one tiling: FT = F's widest of 256 / 128 / 64 that
 // divides it, KC = 64 channels a chunk where C allows, else 32
-// cuTensorMapEncodeTiled, a libcuda function, found through the runtime's
-// entry-point query (no link against libcuda)
-typedef CUresult (*TmapEncode)(CUtensorMap*, CUtensorMapDataType,
-                               cuuint32_t, void*, const cuuint64_t*,
-                               const cuuint64_t*, const cuuint32_t*,
-                               const cuuint32_t*, CUtensorMapInterleave,
-                               CUtensorMapSwizzle, CUtensorMapL2promotion,
-                               CUtensorMapFloatOOBfill);
-
-TmapEncode tmap_encode() {
-  static TmapEncode fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<TmapEncode>(p);
-  }
-  return fn;
-}
-
 template <int FT, int KC, int WGF>
 int launch_conv_tc(const bf16* x, const float* sy, const float* sx,
                    const float* m, const bf16* w, bf16* out, int H, int W,
@@ -779,7 +757,7 @@ int launch_conv_tc(const bf16* x, const float* sy, const float* sx,
   auto* kernel = dcn_conv_tc_kernel<FT, KC, WGF>;
   // w as a [9 C, F] matrix, read in 64-column x KC-row boxes, 128-byte
   // swizzled as wgmma reads them
-  TmapEncode encode = tmap_encode();
+  mv2d::tc::TmapEncode encode = mv2d::tc::tmap_encode();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap wmap;
   const cuuint64_t dims[2] = {(cuuint64_t)F, (cuuint64_t)TAPS * C};

@@ -1,10 +1,13 @@
-// Tensor-core and async-copy helpers of the bfloat16 kernels (K2, K4, B8):
-// cp.async into shared memory, non-coherent 16-byte loads,
-// mma.sync.m16n8k16, mbarriers, TMA tensor copies and the warpgroup
-// product wgmma (bf16 in, float32 accumulate).
+// Tensor-core and async-copy helpers of the bfloat16 kernels (K1, K2, K4,
+// B8): cp.async into shared memory, non-coherent 16-byte loads, ldmatrix,
+// mma.sync.m16n8k16, mbarriers, TMA tensor copies and the host's encoder
+// of their tensor maps, and the warpgroup product wgmma (bf16 in, float32
+// accumulate).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mv2d {
@@ -37,6 +40,25 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices from shared memory, lanes 8i..8i+7 giving the row
+// addresses of matrix i: with rows [m][k], the A fragment of mma_bf16
+// (lane l: row l % 16, 8-column group l / 16)
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// the same, transposed: with rows [k][n] (lane l: row k0 + l % 16,
+// 8-column group n / 8 + l / 16), the B fragments of two n8 tiles,
+// (r[0], r[1]) and (r[2], r[3])
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // c[16x8] += a[16x16] b[16x8], bf16 in, float32 accumulate
@@ -99,6 +121,66 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* tmap,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(tmap), "r"(x), "r"(y), "r"(smem_u32(bar))
       : "memory");
+}
+
+// a 4D box at (c0 innermost .. c3) into shared memory at dst; coordinates
+// may be negative or run past the tensor, whose missing elements arrive
+// as zeros
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(tmap), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a 4D box from shared memory at src to the tensor at (c0 .. c3); the
+// part of the box outside the tensor is not written.  The copy joins this
+// thread's open bulk group
+__device__ __forceinline__ void tma_store_4d(const void* tmap, int c0,
+                                             int c1, int c2, int c3,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(tmap),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's bulk groups have not yet read
+// their shared memory (READ) or not yet completed
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cuTensorMapEncodeTiled, a libcuda function, found through the runtime's
+// entry-point query (no link against libcuda); null where it is missing
+typedef CUresult (*TmapEncode)(CUtensorMap*, CUtensorMapDataType,
+                               cuuint32_t, void*, const cuuint64_t*,
+                               const cuuint64_t*, const cuuint32_t*,
+                               const cuuint32_t*, CUtensorMapInterleave,
+                               CUtensorMapSwizzle, CUtensorMapL2promotion,
+                               CUtensorMapFloatOOBfill);
+
+inline TmapEncode tmap_encode() {
+  static TmapEncode fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TmapEncode>(p);
+  }
+  return fn;
 }
 
 // ---- wgmma (sm_90a): a warpgroup's asynchronous m64nNk16 product,
@@ -199,6 +281,26 @@ __device__ __forceinline__ void wgmma_tb<256>(float* d, uint64_t da,
       : MV2D_D32(0), MV2D_D32(32), MV2D_D32(64), MV2D_D32(96)
       : "l"(da), "l"(db), "r"(1));
 }
+// D [64 x 64] += A B with A from registers (each warp of the warpgroup
+// its 16 rows, as mma_bf16's A fragment) and B MN-major (imm-trans-b 1)
+__device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : MV2D_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// keeps the compiler from reusing a register the asynchronous product
+// still reads
+__device__ __forceinline__ void fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
 #undef MV2D_D32
 #undef MV2D_D16
 #undef MV2D_D4

@@ -1,17 +1,18 @@
 """ResNet-50/101 backbone ('pytorch' style, frozen BN, optional DCNv2).
 
 Port of `mv2d_tpu/nn/resnet.py` with mmdet's state-dict keys (conv1, bn1,
-layer{s}.{b}.conv{1,2,3}/bn{1,2,3}/downsample.{0,1}).  Frozen BN folds
-into each conv; the DCN conv keeps its separate BN.  The stem is the plain
+layer{s}.{b}.conv{1,2,3}/bn{1,2,3}/downsample.{0,1}).  Frozen BN folds into
+each conv; the DCN conv keeps its separate BN.  The stem is the plain
 7x7/s2 conv.  A DCN-free layer1 runs through `ops.stage.fused_stage1`
-(kernel K1 on CUDA).  Stage routing follows the JAX package's
+(kernel K1 on CUDA) on folded blocks kept between forwards, folded again
+only when a layer1 tensor changed.  Stage routing follows the JAX package's
 MV2D_FUSED_STAGES (`routes.Routes.fused_stages`): with 'all', the identity
 tail of a later stage that `fuses_tail` admits runs through
-`ops.stage.fused_identity_chain` (kernel B10) while no gradient is
-recorded (JAX's fast_inference).  `Routes.dcn_train_fused` goes to each
-DCN conv.  The stem and layer1 are frozen (the reference's
-frozen_stages=1): their parameters, like every BN affine, do not train,
-and they run without recording gradients.
+`ops.stage.fused_identity_chain` (kernel B10) while no gradient is recorded
+(JAX's fast_inference).  `Routes.dcn_train_fused` goes to each DCN conv.
+The stem and layer1 are frozen (the reference's frozen_stages=1): their
+parameters, like every BN affine, do not train, and they run without
+recording gradients.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch.nn as tnn
 import torch.nn.functional as F
 
 from ..ops.dcn import ModulatedDeformConv
-from ..ops.stage import fused_identity_chain, fused_stage1
+from ..ops.stage import fused_identity_chain, fused_stage1, pack_block
 from ..routes import Routes
 from .layers import FrozenBatchNorm2d, conv2d_nhwc, max_pool_3x3_s2
 
@@ -125,6 +126,28 @@ class ResNet(tnn.Module):
             planes *= 2
         for m in (self.conv1, self.bn1, self.layer1):
             m.requires_grad_(False)
+        self._layer1_packed = None      # (dtype, tensors seen, blocks)
+
+    def layer1_blocks(self, dtype: torch.dtype):
+        """layer1's folded blocks in K1's layouts and dtypes (weights in
+        `dtype`), folded once and again only after a parameter or buffer of
+        layer1 changed: `load_state_dict` and in-place edits bump a tensor's
+        version, `.to()` and reassignment replace its storage.  The stored
+        views keep the old storages alive, so a new one cannot reuse their
+        addresses.  An in-place edit through `.data` (`p.data.mul_(a)`)
+        bumps no version PyTorch keeps and moves no storage, so it is not
+        seen: edit without `.data` (under `torch.no_grad()`), or load the
+        state again (`net.load_state_dict(net.state_dict())`)."""
+        now = [t.detach() for t in (*self.layer1.parameters(),
+                                    *self.layer1.buffers())]
+        seen = self._layer1_packed
+        if seen is None or seen[0] != dtype or len(seen[1]) != len(now) or any(
+                t.data_ptr() != s.data_ptr() or t._version != v
+                for t, (s, v) in zip(now, seen[1])):
+            blocks = [pack_block(blk.folded(), dtype) for blk in self.layer1]
+            seen = (dtype, [(t, t._version) for t in now], blocks)
+            self._layer1_packed = seen
+        return seen[2]
 
     def forward(self, x: torch.Tensor):
         outs = []
@@ -132,7 +155,7 @@ class ResNet(tnn.Module):
             x = F.relu(_folded_conv(x, self.conv1, self.bn1, stride=2))
             x = max_pool_3x3_s2(x)
             if not self.stage_with_dcn[0]:
-                x = fused_stage1(x, [blk.folded() for blk in self.layer1])
+                x = fused_stage1(x, self.layer1_blocks(x.dtype))
             else:
                 x = self.layer1(x)
         outs.append(x)

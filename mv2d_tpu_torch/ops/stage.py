@@ -7,13 +7,23 @@ K1 (`fused_stage1`, `csrc/stage1.cu`) runs layer1 (three bottlenecks, width
 1..n-1, width 128 or 256) of a later DCN-free stage and replaces
 `pallas_stage.py: fused_identity_chain`; `nn.resnet` routes to it under
 MV2D_FUSED_STAGES=all.  Both TPU kernels ran a whole chain as one
-VMEM-resident call; each CUDA kernel runs one launch per bottleneck (see
-the notes in the sources for what bounds them on the H100).
+VMEM-resident call; each CUDA kernel runs one launch per bottleneck.
 
-Block weights come folded (BN affine in the weights, float32; the kernel
-takes them in the activation dtype), in the layouts the kernels read:
-w1 [Cin, P], w2 [9, P, P] (tap-major, (dy, dx) row-major), w3 [P, 4P],
-wd [Cin, 4P]; biases [P] or [4P].
+K1 in bfloat16 is a persistent kernel: one block per SM holds all of a
+bottleneck's weights in shared memory and walks 8x16-pixel tiles whose
+input arrives by TMA in a two-stage ring, with mma.sync products and
+both intermediates on chip.  A launch must still read its input and write
+its 256-channel output through device memory, so the chain of three is
+bound by ~1.45 GB of traffic (0.43 ms on the H100) rather than by its
+products (0.23 ms); `csrc/stage1.cu` says more.  It takes block 0 at Cin
+64 (with the projection) and identity blocks at Cin 256; the float32
+kernel (the parity tests) takes any Cin % 32 == 0.
+
+Block weights come folded (BN affine in the weights, float32), in the
+layouts the kernels read: w1 [Cin, P], w2 [9, P, P] (tap-major, (dy, dx)
+row-major), w3 [P, 4P], wd [Cin, 4P]; biases [P] or [4P].  `pack_block`
+puts them in the kernel's dtypes (weights in the activation dtype, biases
+float32); `nn.resnet` keeps layer1's packed blocks between forwards.
 """
 from __future__ import annotations
 
@@ -44,6 +54,14 @@ def bottleneck_plain(x: torch.Tensor, blk: Block) -> torch.Tensor:
     return F.relu(out + idt)
 
 
+def pack_block(blk: Block, dtype: torch.dtype) -> Block:
+    """A folded block in the kernels' dtypes: weights in `dtype` (the
+    activations'), biases float32, contiguous.  A packed block packs to
+    itself, with no copy."""
+    return {k: v.to(dtype if k.startswith('w') else torch.float32)
+            .contiguous() for k, v in blk.items()}
+
+
 def bottleneck_cuda(x: torch.Tensor, blk: Block) -> torch.Tensor:
     V, H, W, cin = x.shape
     planes = blk['w1'].shape[1]
@@ -52,9 +70,10 @@ def bottleneck_cuda(x: torch.Tensor, blk: Block) -> torch.Tensor:
                          f'got planes={planes} Cin={cin}')
     if 'wd' not in blk and cin != 4 * planes:
         raise ValueError('identity bottleneck needs Cin == 4 * planes')
-    # biases float32; weights float32, or bfloat16 for the tensor-core path
-    ws = {k: v.to(x.dtype if k.startswith('w') else torch.float32)
-          .contiguous() for k, v in blk.items()}
+    if x.dtype == torch.bfloat16 and 'wd' in blk and cin != planes:
+        raise ValueError(f'the bfloat16 stage-1 kernel takes its projection '
+                         f'block at Cin == {planes}, got Cin={cin}')
+    ws = pack_block(blk, x.dtype)
     kernels.check_cuda(x, *ws.values())
     out = torch.empty((V, H, W, 4 * planes), dtype=x.dtype, device=x.device)
     ptr = {k: v.data_ptr() for k, v in ws.items()}
@@ -97,9 +116,7 @@ def identity_block_cuda(x: torch.Tensor, blk: Block) -> torch.Tensor:
         raise ValueError(f'identity-chain kernel takes planes 128 or 256, '
                          f'Cin == 4 * planes and no projection; got '
                          f'planes={planes} Cin={cin}')
-    # biases float32; weights in the activation dtype
-    ws = {k: v.to(x.dtype if k.startswith('w') else torch.float32)
-          .contiguous() for k, v in blk.items()}
+    ws = pack_block(blk, x.dtype)
     kernels.check_cuda(x, *ws.values())
     out = torch.empty_like(x)
     kernels.launch(

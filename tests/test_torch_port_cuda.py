@@ -50,6 +50,54 @@ def test_stage1_kernel(dev, dtype, tol):
 
 
 @pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('V,H,W', [(3, 13, 70), (1, 5, 7), (1, 8, 16),
+                                   (12, 20, 37)])
+def test_stage1_kernel_shapes(dev, dtype, tol, V, H, W):
+    """K1's chain with ragged tiles on every side (H % 8, W % 16), a map
+    under one tile, exactly one tile, and 12 views (persistent blocks
+    walking several tiles each)."""
+    from mv2d_tpu_torch.ops import stage
+    x, blocks = smoke.stage1_inputs(dev, getattr(torch, dtype), V, H, W)
+    check(stage.fused_stage1(x, blocks), stage.fused_stage1_plain(x, blocks),
+          tol)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+def test_stage1_identity_block_alone(dev, dtype, tol):
+    """One identity bottleneck at Cin 256 (no projection)."""
+    from mv2d_tpu_torch.ops import stage
+    x, blocks = smoke.stage1_inputs(dev, getattr(torch, dtype), 2, 11, 45)
+    y = stage.bottleneck_plain(x, blocks[0])
+    check(stage.bottleneck_cuda(y, blocks[1]),
+          stage.bottleneck_plain(y, blocks[1]), tol)
+
+
+def test_stage1_bf16_runs_are_bit_equal(dev):
+    from mv2d_tpu_torch.ops import stage
+    x, blocks = smoke.stage1_inputs(dev, torch.bfloat16, 12, 24, 40)
+    blocks = [stage.pack_block(b, torch.bfloat16) for b in blocks]
+    a = stage.fused_stage1(x, blocks)
+    b = stage.fused_stage1(x, blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_stage1_kernel_refuses_what_it_does_not_take(dev):
+    """bfloat16 takes the projection block at Cin 64 only; every dtype
+    needs Cin % 32 == 0 and an identity block Cin == 256."""
+    from mv2d_tpu_torch.ops import stage
+    x, blocks = smoke.stage1_inputs(dev, torch.bfloat16, 1, 8, 8)
+    y = stage.bottleneck_plain(x, blocks[0])
+    with pytest.raises(ValueError):           # projection at Cin 256
+        stage.bottleneck_cuda(y, {**blocks[1], 'wd': blocks[0]['wd'].repeat(
+            4, 1), 'bd': blocks[0]['bd']})
+    with pytest.raises(ValueError):           # identity at Cin 64
+        stage.bottleneck_cuda(x, blocks[1])
+    with pytest.raises(ValueError):           # Cin % 32
+        stage.bottleneck_cuda(x[..., :48].contiguous(), blocks[0])
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
 @pytest.mark.parametrize('stride,far', [(1, 0.0), (2, 0.0), (1, 0.3)])
 def test_dcn_kernel(dev, dtype, tol, stride, far):
     from mv2d_tpu_torch.ops import dcn
