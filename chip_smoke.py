@@ -26,7 +26,13 @@ Phases, in order; any failure exits non-zero without the final line:
      attention kernels read the mask as
      the decoder hands it to them, packed once a pass (`mask_tiles`); the
      packing kernel has cases of its own, equal bit for bit, timed beside
-     the whole per-pass build (the bits and both tile lists);
+     the whole per-pass build (the bits and both tile lists).  B6 is timed
+     at all four DCN stage shapes as the step calls it (every launch and
+     allocation; its bound counts dx in the input's dtype, and its log
+     line also gives the bound with a float32 dx, its first form's), and
+     checked on a pile-up of every sample on one cell and a ragged
+     [1,13,21,40]; K3 is also timed at R101's levels and on 64 of the
+     channels of its main case (`c64_ms`), and checked on slivers only;
   4. tiny: the tiny config with DCN, eval forward, GPU (kernels) against
      CPU (plain versions), same seeded weights;
   5. tiny_train: one tiny+DCN training step (float32, TF32 off, dropout
@@ -314,9 +320,11 @@ def dcn_inputs(dev, dtype, V, H, W, C, F, stride, seed=0, far=0.0):
 
 
 def roi_inputs(dev, dtype, V=12, P=1000, img=(512, 1408), C=256, seed=0,
-               edge=False):
+               edge=False, sliver=False):
     """p2..p5 maps and anchor-like RoIs over all levels; with `edge`,
-    extreme-aspect, zero-area and partly outside RoIs are mixed in."""
+    extreme-aspect, zero-area and partly outside RoIs are mixed in; with
+    `sliver`, every RoI is a sliver: across the image 8 pixels tall, or
+    6 pixels wide from top to bottom, at random places (level 0)."""
     import torch
     g = torch.Generator().manual_seed(seed)
     feats = [torch.randn(V, img[0] // s, img[1] // s, C, generator=g)
@@ -330,6 +338,13 @@ def roi_inputs(dev, dtype, V=12, P=1000, img=(512, 1408), C=256, seed=0,
     rois = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
     rois[..., 0::2] = rois[..., 0::2].clamp(0, img[1])
     rois[..., 1::2] = rois[..., 1::2].clamp(0, img[0])
+    if sliver:
+        across = torch.rand(V, P, generator=g) < 0.5
+        rois = torch.where(across[..., None], torch.stack(
+            [torch.zeros_like(cy), cy - 4, torch.full_like(cy, img[1]),
+             cy + 4], -1), torch.stack(
+            [cx - 3, torch.zeros_like(cx), cx + 3,
+             torch.full_like(cx, img[0])], -1))
     if edge:
         rois[:, 0] = torch.tensor([0.0, 200.0, img[1], 208.0])   # 1408 x 8
         rois[:, 1] = torch.tensor([700.0, 0.0, 706.0, img[0]])   # 6 x 512
@@ -541,11 +556,15 @@ def kernel_cases():
                         else '')
         return build
 
-    def samples_args(dev, dt, V, H, W, C, s, far, integer):
+    def samples_args(dev, dt, V, H, W, C, s, far, integer, pile=False):
         x, sy, sx, m, _ = dcn_inputs(dev, dt, V, H, W, C, 64, s, far=far)
         if integer:                     # zero offsets: integer coordinates
             sy, sx = sy.round(), sx.round()
-        return x, sy, sx, m
+        if pile:                        # every in-map sample on one cell
+            inside = (sy > -1) & (sy < H) & (sx > -1) & (sx < W)
+            sy = torch.where(inside, torch.full_like(sy, 5.25), sy)
+            sx = torch.where(inside, torch.full_like(sx, 7.5), sx)
+        return x, sy.contiguous(), sx.contiguous(), m
 
     def dcn_fwd(V, H, W, C, s, far=0.0, integer=False):
         def build(dev, dt):
@@ -557,19 +576,26 @@ def kernel_cases():
                          8.0 * sy.numel() * C))
         return build
 
-    def dcn_bwd(V, H, W, C, s, far=0.0, integer=False):
+    def dcn_bwd(V, H, W, C, s, far=0.0, integer=False, pile=False,
+                per_step=0):
         def build(dev, dt):
-            x, sy, sx, m = samples_args(dev, dt, V, H, W, C, s, far, integer)
+            x, sy, sx, m = samples_args(dev, dt, V, H, W, C, s, far, integer,
+                                        pile)
             leaves = [t.clone().requires_grad_(True) for t in (x, sy, sx, m)]
             with torch.enable_grad():
                 out = dcn.dcn_samples_plain(*leaves)
             g = cotangent(out)
+            # dx in x.dtype, as B6 writes it; B6's first form wrote a
+            # float32 dx, and its bound counted that
+            moved = nbytes(x, sy, sx, m, g) + 3 * nbytes(sy)
+            old = bound((moved + x.numel() * 4, 20.0 * sy.numel() * C))[0]
+            note = (f'  {per_step} a step;' if per_step else '') + \
+                f'  bound with a float32 dx (B6\'s first form) {old:.3f} ms'
             return Case(
                 lambda: dcn.dcn_samples_backward(x, sy, sx, m, g),
                 lambda: torch.autograd.grad(out, leaves, g,
                                             retain_graph=True),
-                (nbytes(x, sy, sx, m, g) + x.numel() * 4 + 3 * nbytes(sy),
-                 20.0 * sy.numel() * C))
+                (moved + nbytes(x), 20.0 * sy.numel() * C), note=note)
         return build
 
     def dcn_conv_bwd(V, H, W, C, F_, s, far=0.0, integer=False):
@@ -604,18 +630,24 @@ def kernel_cases():
                        lambda: fwd_bwd(default_route)})
         return build
 
-    def roi(edge, V=12, P=1000):
+    def roi(edge, V=12, P=1000, img=(512, 1408), sliver=False, c64=False):
         def build(dev, dt):
-            feats, rois = roi_inputs(dev, dt, V=V, P=P, edge=edge)
+            feats, rois = roi_inputs(dev, dt, V=V, P=P, img=img, edge=edge,
+                                     sliver=sliver)
             strides = (4, 8, 16, 32)
             C = feats[0].shape[-1]
             out_bytes = V * P * 49 * C * feats[0].element_size()
+            # the same RoIs on 64 of the channels: a time that barely
+            # moves with C says the bytes are not what paces the kernel
+            f64 = [f[..., :64].contiguous() for f in feats] if c64 else None
             return Case(
                 lambda: roi_align.roi_align_multilevel(feats, rois, strides),
                 lambda: roi_align.multilevel_roi_align_plain(feats, rois,
                                                              strides),
                 (nbytes(*feats, rois) + out_bytes,
-                 8.0 * C * roi_samples(rois, feats, strides)))
+                 8.0 * C * roi_samples(rois, feats, strides)),
+                extra={'c64_ms': lambda: roi_align.roi_align_multilevel(
+                    f64, rois, strides)} if c64 else None)
         return build
 
     def slab(edge, V=12, P=1000):
@@ -798,11 +830,15 @@ def kernel_cases():
         ('dcn_conv', 'edge: ragged N, C 96, F 192 [1,13,21,96]', False,
          dcn_conv(1, 13, 21, 96, 192, 1)),
         ('roi_align_multilevel', 'p2-p5, rois [12,1000,4]', True,
-         roi(False)),
+         roi(False, c64=True)),
         ('roi_align_multilevel', 'train rois [6,512,4]', True,
          roi(False, 6, 512)),
         ('roi_align_multilevel', 'edge: extreme aspect/empty/outside',
          False, roi(True)),
+        ('roi_align_multilevel', 'R101 p2-p5 1600x640, rois [12,1000,4]',
+         True, roi(False, img=(640, 1600))),
+        ('roi_align_multilevel', 'edge: slivers 1408x8 and 6x512 [12,200]',
+         False, roi(False, P=200, sliver=True)),
         ('masked_attention', 'cross q900 k16384 (10% rows empty)', True,
          attn(eval_attn(False))),
         ('masked_attention', 'self q900 k900', False, attn(eval_attn(True))),
@@ -829,17 +865,21 @@ def kernel_cases():
         ('dcn_samples', 'edge: integer coordinates', False,
          dcn_fwd(12, 16, 44, 512, 1, integer=True)),
         ('dcn_samples_backward', 'stage3 s2 [12,64,176,256]', True,
-         dcn_bwd(12, 64, 176, 256, 2)),
-        ('dcn_samples_backward', 'stage3 s1 [12,32,88,256]', False,
-         dcn_bwd(12, 32, 88, 256, 1)),
-        ('dcn_samples_backward', 'stage4 s2 [12,32,88,512]', False,
-         dcn_bwd(12, 32, 88, 512, 2)),
-        ('dcn_samples_backward', 'stage4 s1 [12,16,44,512]', False,
-         dcn_bwd(12, 16, 44, 512, 1)),
+         dcn_bwd(12, 64, 176, 256, 2, per_step=1)),
+        ('dcn_samples_backward', 'stage3 s1 [12,32,88,256]', True,
+         dcn_bwd(12, 32, 88, 256, 1, per_step=5)),
+        ('dcn_samples_backward', 'stage4 s2 [12,32,88,512]', True,
+         dcn_bwd(12, 32, 88, 512, 2, per_step=1)),
+        ('dcn_samples_backward', 'stage4 s1 [12,16,44,512]', True,
+         dcn_bwd(12, 16, 44, 512, 1, per_step=2)),
         ('dcn_samples_backward', 'edge: 20% offsets far outside', False,
          dcn_bwd(12, 16, 44, 512, 1, far=0.2)),
         ('dcn_samples_backward', 'edge: integer coordinates', False,
          dcn_bwd(12, 16, 44, 512, 1, integer=True)),
+        ('dcn_samples_backward', 'edge: pile-up, every sample on one cell',
+         False, dcn_bwd(12, 16, 44, 512, 1, far=0.2, pile=True)),
+        ('dcn_samples_backward', 'edge: ragged [1,13,21,40]', False,
+         dcn_bwd(1, 13, 21, 40, 1)),
         ('masked_attention_backward', 'train cross q2628 k16384', True,
          attn_bwd(train_attn(False))),
         ('masked_attention_backward', 'train self q2628 DN mask', False,

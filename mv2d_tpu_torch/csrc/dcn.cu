@@ -53,6 +53,8 @@
 // block, samples and products in float32, 4x4 outputs per thread.
 #include <cuda.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -60,6 +62,32 @@ namespace {
 
 constexpr int TP = 64, TF = 64, KC = 32, NT = 256, TAPS = 9;
 using bf16 = __nv_bfloat16;
+
+// A sample inside the map: -1 < y < H and -1 < x < W.
+__device__ __forceinline__ bool in_map(float yr, float xr, int H, int W) {
+  return yr > -1.f && yr < H && xr > -1.f && xr < W;
+}
+
+// the clamped corners (y0, x0), (y0, x1), (y1, x0), (y1, x1) of a sample
+// inside the map and its fractions
+struct Bilinear {
+  int y0, y1, x0, x1;
+  float ly, lx;
+};
+
+__device__ __forceinline__ Bilinear bilinear_at(float yr, float xr, int H,
+                                                int W) {
+  Bilinear b;
+  const float yy = fminf(fmaxf(yr, 0.f), (float)(H - 1));
+  const float xx = fminf(fmaxf(xr, 0.f), (float)(W - 1));
+  b.y0 = (int)floorf(yy);
+  b.x0 = (int)floorf(xx);
+  b.ly = yy - b.y0;
+  b.lx = xx - b.x0;
+  b.y1 = min(b.y0 + 1, H - 1);
+  b.x1 = min(b.x0 + 1, W - 1);
+  return b;
+}
 
 // Bilinear corners of pixel p's tap t: pixel indices and weights * mask,
 // all weights 0 when the sample lies outside (-1, extent).
@@ -73,14 +101,12 @@ __device__ __forceinline__ void tap_corners(
     wt[q] = 0.f;
   }
   if (p >= N) return;
-  float yy = sy[p * TAPS + t], xx = sx[p * TAPS + t];
+  const float yr = sy[p * TAPS + t], xr = sx[p * TAPS + t];
   const float mm = m[p * TAPS + t];
-  if (!(yy > -1.f && yy < H && xx > -1.f && xx < W)) return;
-  yy = fminf(fmaxf(yy, 0.f), (float)(H - 1));
-  xx = fminf(fmaxf(xx, 0.f), (float)(W - 1));
-  const int y0 = (int)floorf(yy), x0 = (int)floorf(xx);
-  const float ly = yy - y0, lx = xx - x0;
-  const int y1 = min(y0 + 1, H - 1), x1 = min(x0 + 1, W - 1);
+  if (!in_map(yr, xr, H, W)) return;
+  const Bilinear b = bilinear_at(yr, xr, H, W);
+  const int y0 = b.y0, x0 = b.x0, y1 = b.y1, x1 = b.x1;
+  const float ly = b.ly, lx = b.lx;
   const int base = (int)(p / HWo) * H * W;
   idx[0] = base + y0 * W + x0;
   idx[1] = base + y0 * W + x1;
@@ -354,18 +380,51 @@ __global__ void __launch_bounds__(256, 1) dcn_conv_tc_kernel(
 // B5 replaces mv2d_tpu/ops/pallas_dcn.py: _run_samples (_kernel_samples),
 // B6 replaces _run_samples_bwd (_kernel_samples_bwd).  The TPU kernels
 // worked on row bands kept in VMEM and sent out-of-band samples through
-// an XLA gather; here every sample reads its four corners straight from
-// the channels-last map, so any offset is exact.
+// an XLA gather; here every sample reads its corners straight from the
+// channels-last map, so any offset is exact.
 //
-// What bounds them on the H100: bytes.  B5 writes the [N, 9, C] samples
-// (the tap contraction is a separate GEMM, as in the JAX package) and B6
-// reads them back as dsamples; both read x once per tap corner, which the
-// L2 cache absorbs.  One warp owns one (pixel, tap): its lanes walk the
-// channels in 16-byte vectors, so every corner load and the sample store
-// are coalesced.  B6 scatters dx with float32 atomics into a zeroed
-// float32 buffer (several taps of several pixels hit one input pixel),
-// four channels per vector atomic, and reduces dm, dsy, dsx over the
-// channels with warp shuffles.  The
+// B5.  What bounds it on the H100: bytes.  It writes the [N, 9, C]
+// samples (the tap contraction is a separate GEMM, as in the JAX package)
+// and reads x once per tap corner, which the L2 cache absorbs.  One warp
+// owns one (pixel, tap): its lanes walk the channels in 16-byte vectors,
+// so every corner load and the sample store are coalesced.
+//
+// B6 takes ds = d(loss) / d(samples) and returns dx [V, H, W, C] in
+// x.dtype and dsy, dsx, dm [N, 9] in float32.  What bounds it: bytes, ds
+// (156 MB at stage-3 s2 in bf16), x and dx, each once.  The gradient to
+// x is a scatter: a sample adds w_q m ds to its four corners q, and which
+// samples reach a pixel depends on learned offsets that have no bound.
+// B6's first form scattered it with float32 atomics into a zeroed float32
+// buffer: its result changed from run to run, the atomics took most of
+// its time, and the zero-fill and the cast after it moved more bytes than
+// the function's bound.  Now every dx element has one owner:
+//  * the map is cut into 2 x 2 pixel blocks, and a warp owns a block x a
+//    slice of 32 x 16 bytes of channels: it writes the block's dx once,
+//    in x.dtype, from float32 sums taken in a fixed order;
+//  * an index pass, a thread a sample, gives each sample inside the map
+//    one entry for each distinct block among its four corners (2.25 on
+//    average at a fractional position, where a list by pixel would take
+//    4), keyed by the block, with the weights w_q m its corners put on the
+//    block's pixels (stored slot-major, so the stores coalesce); a stable
+//    LSD radix sort (8-bit digits, integer counts per tile, a scan of each
+//    digit's row, stable ranks from warp matches) lists each block's
+//    entries in sample order;
+//  * the owner walks its list: lane j reads entry j's weights, and the
+//    entries' ds rows stream through a per-warp cp.async ring in shared
+//    memory, 12 rows ahead of the ones summed.  Each ds row is added with
+//    the weights to the block's pixels in registers, and its dot with x at
+//    each of them (x of the block's pixels is loaded once) is written at
+//    the entry's sorted place, so ds is read in this pass only.  Four
+//    entries go as straight-line code (predicated sums, no branches) and
+//    their 16 dots are summed over the warp together by a transposed
+//    butterfly, 16 shuffles in 5 dependent steps: a reduction per entry
+//    made a chain of shuffles that paced the walk.  A last pass per sample
+//    picks its four corners' dots and turns them into dm, dsy and dsx;
+//  * a list longer than LMAX entries (a pile-up on one cell) is cut at the
+//    multiples of LMAX of the sorted entries: each piece after the first
+//    is summed by a warp of its own into a float32 part, and the owner
+//    adds the parts in order.
+// Nothing is atomic on floats, so two runs give equal bits.  The
 // coordinate derivative is the floor form (exact at integer coordinates,
 // where zero-init offsets start) and is zero where the coordinate was
 // clamped into the map: the derivative of the plain version.
@@ -405,92 +464,548 @@ __global__ void __launch_bounds__(SNT) dcn_samples_kernel(
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(SNT) dcn_samples_bwd_kernel(
-    const T* __restrict__ x, const float* __restrict__ sy,
-    const float* __restrict__ sx, const float* __restrict__ m,
-    const T* __restrict__ ds, float* __restrict__ dx,
-    float* __restrict__ dsy, float* __restrict__ dsx,
-    float* __restrict__ dm, int H, int W, int C, int HWo, long long N) {
-  constexpr int VW = 16 / sizeof(T);
-  const long long pt = ((long long)blockIdx.x * SNT + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (pt >= N * TAPS) return;
-  const float yr = sy[pt], xr = sx[pt], mm = m[pt];
-  if (!(yr > -1.f && yr < H && xr > -1.f && xr < W)) {
-    if (lane == 0) dsy[pt] = dsx[pt] = dm[pt] = 0.f;
-    return;
-  }
-  // d(clamped)/d(raw): 1 inside [0, extent - 1], 0 where clamped
-  const float gy = (yr >= 0.f && yr <= (float)(H - 1)) ? 1.f : 0.f;
-  const float gx = (xr >= 0.f && xr <= (float)(W - 1)) ? 1.f : 0.f;
-  const float yy = fminf(fmaxf(yr, 0.f), (float)(H - 1));
-  const float xx = fminf(fmaxf(xr, 0.f), (float)(W - 1));
-  const int y0 = (int)floorf(yy), x0 = (int)floorf(xx);
-  const float ly = yy - y0, lx = xx - x0;
-  const int y1 = min(y0 + 1, H - 1), x1 = min(x0 + 1, W - 1);
-  const size_t base = (size_t)(pt / TAPS / HWo) * H * W;
-  const size_t i00 = (base + (size_t)y0 * W + x0) * C;
-  const size_t i01 = (base + (size_t)y0 * W + x1) * C;
-  const size_t i10 = (base + (size_t)y1 * W + x0) * C;
-  const size_t i11 = (base + (size_t)y1 * W + x1) * C;
-  const float w00 = (1.f - ly) * (1.f - lx), w01 = (1.f - ly) * lx;
-  const float w10 = ly * (1.f - lx), w11 = ly * lx;
-  float am = 0.f, ay = 0.f, ax = 0.f;
-  const T* d = ds + pt * C;
-  for (int c = lane * VW; c < C; c += 32 * VW) {
-    float g[VW], v00[VW], v01[VW], v10[VW], v11[VW];
-    const uint4 rd = *reinterpret_cast<const uint4*>(d + c);
-    const uint4 r00 = *reinterpret_cast<const uint4*>(x + i00 + c);
-    const uint4 r01 = *reinterpret_cast<const uint4*>(x + i01 + c);
-    const uint4 r10 = *reinterpret_cast<const uint4*>(x + i10 + c);
-    const uint4 r11 = *reinterpret_cast<const uint4*>(x + i11 + c);
+constexpr int RT = 256;               // radix-sort threads a block
+constexpr int RI = 16;                // items a thread
+constexpr int RTILE = RT * RI;        // items a tile
+constexpr int RBITS = 8;              // digit bits a pass, at most
+constexpr int LMAX = 256;             // entries a piece of a block's list
+constexpr int WG = 4;                 // entries a stage of a walking warp's ring
+constexpr int WSTG = 4;               // stages of the ring
+constexpr int WALK_WARP = WSTG * WG * 32 + 32 + 8;   // 16-byte words a warp
+constexpr int WALK_SMEM = SNT / 32 * WALK_WARP * 16;  // bytes a block
+constexpr unsigned NOKEY = 0xffffffffu;
+
+__device__ __forceinline__ int digit_of(unsigned key, int shift, int D) {
+  return key == NOKEY ? D : (int)((key >> shift) & (unsigned)(D - 1));
+}
+
+// Index pass: the keys of sample pt are the owner blocks of its corners,
+// each distinct block once in corner order, then NOKEY (all NOKEY outside
+// the map); entry e = 4 pt + slot.  An entry with a key also gets, at
+// slot * NP + pt (slot-major, so a warp's stores are coalesced), wp: the
+// weight w_q m its corners put on each of the block's four pixels (pixel
+// li = 2 (y & 1) + (x & 1)), and pmask: the pixels that hold one of its
+// corners (bit li).  A block of RT
+// threads makes one RTILE-entry tile and counts its digits for the first
+// radix pass: counts[d * nb + tile].
+__global__ void __launch_bounds__(RT) owner_keys_kernel(
+    const float* __restrict__ sy, const float* __restrict__ sx,
+    const float* __restrict__ m, unsigned* __restrict__ keys,
+    float4* __restrict__ wp, int* __restrict__ pmask,
+    int* __restrict__ counts, int H, int W, int Hb, int Wb,
+    int pairs_per_view, long long NP, int D, int nb) {
+  __shared__ int h[1 << RBITS];
+  for (int d = threadIdx.x; d < D; d += RT) h[d] = 0;
+  __syncthreads();
+  const unsigned lt = (1u << (threadIdx.x & 31)) - 1u;
 #pragma unroll
-    for (int j = 0; j < VW; ++j) {
-      g[j] = mv2d::to_f32(reinterpret_cast<const T*>(&rd)[j]);
-      v00[j] = mv2d::to_f32(reinterpret_cast<const T*>(&r00)[j]);
-      v01[j] = mv2d::to_f32(reinterpret_cast<const T*>(&r01)[j]);
-      v10[j] = mv2d::to_f32(reinterpret_cast<const T*>(&r10)[j]);
-      v11[j] = mv2d::to_f32(reinterpret_cast<const T*>(&r11)[j]);
-    }
+  for (int j = 0; j < RI / 4; ++j) {
+    const long long pt =
+        (long long)blockIdx.x * (RTILE / 4) + j * RT + threadIdx.x;
+    const bool here = pt < NP;             // every lane takes part below
+    const float yr = here ? sy[pt] : -2.f, xr = here ? sx[pt] : -2.f;
+    unsigned k[4] = {NOKEY, NOKEY, NOKEY, NOKEY};
+    if (in_map(yr, xr, H, W)) {
+      const Bilinear b = bilinear_at(yr, xr, H, W);
+      const float mm = m[pt];
+      const float wq[4] = {(1.f - b.ly) * (1.f - b.lx) * mm,
+                           (1.f - b.ly) * b.lx * mm,
+                           b.ly * (1.f - b.lx) * mm, b.ly * b.lx * mm};
+      const int cy[4] = {b.y0, b.y0, b.y1, b.y1};
+      const int cx[4] = {b.x0, b.x1, b.x0, b.x1};
+      const unsigned row = (unsigned)(pt / pairs_per_view) * Hb;
+      unsigned bq[4];
 #pragma unroll
-    for (int j = 0; j < VW; ++j) {
-      const float bil = w00 * v00[j] + w01 * v01[j] + w10 * v10[j] +
-                        w11 * v11[j];
-      am = fmaf(g[j], bil, am);
-      ay = fmaf(g[j], (1.f - lx) * (v10[j] - v00[j]) +
-                          lx * (v11[j] - v01[j]), ay);
-      ax = fmaf(g[j], (1.f - ly) * (v01[j] - v00[j]) +
-                          ly * (v11[j] - v10[j]), ax);
+      for (int q = 0; q < 4; ++q)
+        bq[q] = (row + (cy[q] >> 1)) * Wb + (cx[q] >> 1);
+      int slot = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        bool fresh = true;
+#pragma unroll
+        for (int r = 0; r < q; ++r) fresh &= bq[r] != bq[q];
+        if (!fresh) continue;
+        float w4[4] = {0.f, 0.f, 0.f, 0.f};
+        int cm = 0;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int li = (cy[r] & 1) * 2 + (cx[r] & 1);
+          const bool same = bq[r] == bq[q];
+#pragma unroll
+          for (int l = 0; l < 4; ++l)
+            if (same && li == l) w4[l] += wq[r];
+          cm |= same ? 1 << li : 0;
+        }
+        k[slot] = bq[q];
+        wp[slot * NP + pt] = make_float4(w4[0], w4[1], w4[2], w4[3]);
+        pmask[slot * NP + pt] = cm;
+        ++slot;
+      }
     }
-    const float wq[4] = {w00 * mm, w01 * mm, w10 * mm, w11 * mm};
-    const size_t at[4] = {i00, i01, i10, i11};
+    if (here)
+      reinterpret_cast<uint4*>(keys)[pt] = make_uint4(k[0], k[1], k[2], k[3]);
+    // digit counts, one shared atomic per digit a warp holds (neighbouring
+    // samples share blocks, so per-slot atomics would queue on one word)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      if (wq[q] == 0.f) continue;              // lx or ly 0: no share
-      float add[VW];
-#pragma unroll
-      for (int j = 0; j < VW; ++j) add[j] = g[j] * wq[q];
-      mv2d::atomic_add<VW>(dx + at[q] + c, add);
+      const unsigned d = k[q] == NOKEY ? D : k[q] & (unsigned)(D - 1);
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      if (d < (unsigned)D && (peers & lt) == 0)
+        atomicAdd(&h[d], __popc(peers));
     }
   }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += RT)
+    counts[(long long)d * nb + blockIdx.x] = h[d];
+}
+
+// Digit counts of one radix pass over the first *count entries (all with
+// a key), per RTILE tile: counts[d * nb + tile].
+__global__ void __launch_bounds__(RT) radix_hist_kernel(
+    const unsigned* __restrict__ keys, const int* __restrict__ count,
+    int shift, int D, int nb, int* __restrict__ counts) {
+  __shared__ int h[1 << RBITS];
+  for (int d = threadIdx.x; d < D; d += RT) h[d] = 0;
+  __syncthreads();
+  const int n = *count;
+  const long long base = (long long)blockIdx.x * RTILE;
 #pragma unroll
-  for (int s = 16; s > 0; s /= 2) {
-    am += __shfl_xor_sync(0xffffffffu, am, s);
-    ay += __shfl_xor_sync(0xffffffffu, ay, s);
-    ax += __shfl_xor_sync(0xffffffffu, ax, s);
+  for (int j = 0; j < RI; ++j) {
+    const long long i = base + j * RT + threadIdx.x;
+    if (i < n) atomicAdd(&h[(keys[i] >> shift) & (unsigned)(D - 1)], 1);
   }
-  if (lane == 0) {
-    dm[pt] = am;
-    dsy[pt] = ay * mm * gy;
-    dsx[pt] = ax * mm * gx;
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += RT)
+    counts[(long long)d * nb + blockIdx.x] = h[d];
+}
+
+// Exclusive prefix sum over the RT threads of a block (v: this thread's
+// value); `tmp` holds RT / 32 ints of shared memory; *sum gets the total.
+__device__ __forceinline__ int block_scan(int v, int* tmp, int* sum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
   }
+  __syncthreads();                         // tmp free from an earlier call
+  if (lane == 31) tmp[warp] = incl;
+  __syncthreads();
+  int before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < RT / 32; ++w) {
+    before += w < warp ? tmp[w] : 0;
+    all += tmp[w];
+  }
+  *sum = all;
+  return before + incl - v;
+}
+
+// Row d of counts (the tiles' counts of digit d) -> its exclusive prefix
+// sum, in place, and the digit's total: one block a digit.
+__global__ void __launch_bounds__(RT) row_scan_kernel(
+    int* __restrict__ counts, int nb, int* __restrict__ digit_total) {
+  __shared__ int tmp[RT / 32];
+  int* row = counts + (long long)blockIdx.x * nb;
+  int carry = 0;
+  for (int b0 = 0; b0 < nb; b0 += RT) {
+    const int i = b0 + threadIdx.x;
+    const int v = i < nb ? row[i] : 0;
+    int sum;
+    const int ex = block_scan(v, tmp, &sum);
+    if (i < nb) row[i] = carry + ex;
+    carry += sum;
+  }
+  if (threadIdx.x == 0) digit_total[blockIdx.x] = carry;
+}
+
+// One stable radix pass: entry i of the tile goes to (entries of lower
+// digits) + offsets[d * nb + tile] (entries of digit d in earlier tiles)
+// + (entries of digit d before it in the tile).  A warp ranks 32 entries a
+// step with __match_any_sync and keeps running counts per digit, the warps
+// of a tile holding consecutive runs, so ranks follow the entry order.  The
+// first pass reads the index pass's keys (value: the entry, i) and drops
+// NOKEY; the later ones the first *count entries.  With `inv`, the last
+// pass also records where each entry went: inv[entry] = its place.
+template <bool FIRST>
+__global__ void __launch_bounds__(RT) radix_scatter_kernel(
+    const unsigned* __restrict__ kin, const int* __restrict__ vin,
+    const int* __restrict__ count, long long n_first, int shift, int D,
+    int nb, const int* __restrict__ offsets,
+    const int* __restrict__ digit_total, int* __restrict__ total,
+    unsigned* __restrict__ kout, int* __restrict__ vout,
+    int* __restrict__ inv) {
+  constexpr int WARPS = RT / 32;
+  __shared__ int cnt[WARPS][(1 << RBITS) + 2];
+  __shared__ int base_of[1 << RBITS];
+  __shared__ int tmp[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long n = FIRST ? n_first : (long long)*count;
+  for (int e = threadIdx.x; e < WARPS * (D + 2); e += RT)
+    cnt[e / (D + 2)][e % (D + 2)] = 0;
+  // entries of the digits below each digit (D + 1 <= RT + 1 totals)
+  {
+    const int d = threadIdx.x;
+    int sum;
+    const int ex = block_scan(d < D ? digit_total[d] : 0, tmp, &sum);
+    if (d < D) base_of[d] = ex;
+    if (FIRST && blockIdx.x == 0 && d == 0) *total = sum;
+  }
+  __syncthreads();
+  const unsigned lt = (1u << lane) - 1u;
+  const long long base = (long long)blockIdx.x * RTILE + warp * (RI * 32);
+  unsigned key[RI];
+  int val[RI], dg[RI], rank[RI];
+#pragma unroll
+  for (int j = 0; j < RI; ++j) {
+    const long long i = base + j * 32 + lane;
+    const bool ok = i < n;
+    key[j] = ok ? kin[i] : NOKEY;
+    val[j] = !ok ? 0 : FIRST ? (int)i : vin[i];
+    dg[j] = ok ? digit_of(key[j], shift, D) : D + 1;
+  }
+#pragma unroll
+  for (int j = 0; j < RI; ++j) {
+    const unsigned peers = __match_any_sync(0xffffffffu, dg[j]);
+    rank[j] = cnt[warp][dg[j]] + __popc(peers & lt);
+    __syncwarp();
+    if ((peers & lt) == 0) cnt[warp][dg[j]] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += RT) {
+    int run = base_of[d] + offsets[(long long)d * nb + blockIdx.x];
+    for (int w = 0; w < WARPS; ++w) {
+      const int t = cnt[w][d];
+      cnt[w][d] = run;
+      run += t;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < RI; ++j)
+    if (dg[j] < D) {
+      const int pos = cnt[warp][dg[j]] + rank[j];
+      kout[pos] = key[j];
+      vout[pos] = val[j];
+      if (inv != nullptr) inv[val[j]] = pos;
+    }
+}
+
+// starts[k] = the first sorted entry of block k (starts[nkeys] = *count):
+// entry i writes the starts of the blocks after its predecessor's, up to
+// its own.
+__global__ void __launch_bounds__(SNT) owner_starts_kernel(
+    const unsigned* __restrict__ keys, const int* __restrict__ count,
+    int nkeys, int* __restrict__ starts) {
+  const long long i = (long long)blockIdx.x * SNT + threadIdx.x;
+  const int n = *count;
+  if (i > n) return;
+  const int prev = i == 0 ? -1 : (int)keys[i - 1];
+  const int cur = i == n ? nkeys : (int)keys[i];
+  for (int k = prev + 1; k <= cur; ++k) starts[k] = (int)i;
+}
+
+// One step of a transposed warp reduction: lanes with BIT set keep
+// values HALF.. of v[0, 2 HALF), the others values ..HALF - 1, each added
+// to its partner's (lane ^ BIT) copy, into v[0, HALF).
+template <int HALF, int BIT>
+__device__ __forceinline__ void exchange(float* v, int lane) {
+  const bool up = lane & BIT;
+#pragma unroll
+  for (int e = 0; e < HALF; ++e) {
+    const float mine = up ? v[e + HALF] : v[e];
+    const float give = up ? v[e] : v[e + HALF];
+    v[e] = mine + __shfl_xor_sync(0xffffffffu, give, BIT);
+  }
+}
+
+// The owners' walk.  A warp takes (item, channel slice).  With OWNER,
+// item = block kb: it walks the block's list, or of a list longer than
+// LMAX only the first piece, up to the next multiple of LMAX, then adds the
+// later pieces' parts in order, and writes dx.  Without, item + 1 = k:
+// the piece from entry k * LMAX to the end of the list longer than LMAX
+// that runs through it (if that list began before), summed into part[k].
+// Both write, for each sorted entry i, the dot of its ds row with x at each
+// of the block's pixels: dots[(4 i + li) * S + slice].
+template <typename T, bool OWNER>
+__global__ void __launch_bounds__(SNT, 2) owner_walk_kernel(
+    const T* __restrict__ x, const T* __restrict__ ds,
+    const float4* __restrict__ wp, const int* __restrict__ pmask,
+    const unsigned* __restrict__ keys, const int* __restrict__ ents,
+    const int* __restrict__ starts, const int* __restrict__ count,
+    float* __restrict__ part, float* __restrict__ dots, T* __restrict__ dx,
+    int H, int W, int C, int Hb, int Wb, int S, long long NP,
+    long long items) {
+  constexpr int VW = 16 / sizeof(T);
+  const long long gw = ((long long)blockIdx.x * SNT + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  if (gw >= items) return;
+  const int slice = (int)(gw % S);
+  const long long item = gw / S;
+  int kb, lo, hi, begin, end;
+  if (OWNER) {
+    kb = (int)item;
+    lo = begin = starts[kb];
+    end = starts[kb + 1];
+    hi = end - begin > LMAX ? min(end, (begin / LMAX + 1) * LMAX) : end;
+  } else {
+    const long long p0 = (item + 1) * LMAX;
+    if (p0 >= *count) return;
+    kb = (int)keys[p0];
+    lo = (int)p0;
+    begin = starts[kb];
+    end = starts[kb + 1];
+    if (begin == lo || end - begin <= LMAX) return;   // no piece here
+    hi = min(end, lo + LMAX);
+  }
+  const int HWb = Hb * Wb;
+  const int v = kb / HWb, by = (kb % HWb) / Wb, bx = kb % Wb;
+  const int c = slice * 32 * VW + lane * VW;
+  const bool act = c < C;
+  uint4 xr[4];                             // x at the block's pixels
+#pragma unroll
+  for (int li = 0; li < 4; ++li) {
+    const int py = 2 * by + (li >> 1), px = 2 * bx + (li & 1);
+    xr[li] = make_uint4(0, 0, 0, 0);
+    if (act && py < H && px < W)
+      xr[li] = *reinterpret_cast<const uint4*>(
+          x + (((size_t)v * H + py) * W + px) * C + c);
+  }
+  float acc[4][VW];
+#pragma unroll
+  for (int li = 0; li < 4; ++li)
+#pragma unroll
+    for (int j = 0; j < VW; ++j) acc[li][j] = 0.f;
+  // this warp's shared memory: a ring of WSTG stages of WG entries' 16-byte
+  // ds vectors a lane, then a batch's weights and pixel masks
+  extern __shared__ uint4 walk_smem[];
+  uint4* ring = walk_smem + wib * WALK_WARP;
+  float4* bw = reinterpret_cast<float4*>(ring + WSTG * WG * 32);
+  int* bm = reinterpret_cast<int*>(bw + 32);
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  for (int b0 = lo; b0 < hi; b0 += 32) {
+    // a batch of up to 32 entries: lane j loads entry b0 + j's record; the
+    // entries' ds rows stream in by cp.async, WSTG - 1 groups of WG ahead
+    // of the one summed
+    const int nbat = min(32, hi - b0), ng = (nbat + WG - 1) / WG;
+    const int my_en = lane < nbat ? ents[b0 + lane] : 0;
+    auto issue = [&](int g) {
+#pragma unroll
+      for (int u = 0; u < WG; ++u) {
+        const int idx = g * WG + u;
+        const int en = __shfl_sync(0xffffffffu, my_en, idx & 31);
+        mv2d::tc::cp_async<16>(ring + ((g % WSTG) * WG + u) * 32 + lane,
+                               ds + (size_t)(en >> 2) * C + (act ? c : 0),
+                               act && idx < nbat);
+      }
+      mv2d::tc::cp_async_commit();
+    };
+#pragma unroll
+    for (int g = 0; g < WSTG - 1; ++g) {
+      if (g < ng) issue(g);
+      else mv2d::tc::cp_async_commit();
+    }
+    __syncwarp();                          // the last batch's records read
+    if (lane < nbat) {
+      const size_t at = (size_t)(my_en & 3) * NP + (my_en >> 2);
+      bw[lane] = wp[at];
+      bm[lane] = pmask[at];
+    }
+    __syncwarp();
+    for (int g = 0; g < ng; ++g) {
+      if (g + WSTG - 1 < ng) issue(g + WSTG - 1);
+      else mv2d::tc::cp_async_commit();
+      mv2d::tc::cp_async_wait<WSTG - 1>();
+      // the group's WG entries as straight-line code: their sums into
+      // acc (predicated on the pixels each entry's corners hold) and their
+      // per-pixel dots, dl[4 u + li], reduced together below
+      float dl[WG * 4];
+#pragma unroll
+      for (int u = 0; u < WG; ++u) {
+        const int src = g * WG + u;      // >= nbat: a zero-filled slot
+        const int pm = src < nbat ? bm[src] : 0;
+        const float4 w4 = bw[src & 31];
+        const float wl[4] = {w4.x, w4.y, w4.z, w4.w};
+        const uint4 rg = ring[((g % WSTG) * WG + u) * 32 + lane];
+        const T* ge = reinterpret_cast<const T*>(&rg);
+        float gv[VW];
+#pragma unroll
+        for (int j = 0; j < VW; ++j) gv[j] = mv2d::to_f32(ge[j]);
+#pragma unroll
+        for (int li = 0; li < 4; ++li) {
+          const bool on = pm >> li & 1;
+          const T* xe = reinterpret_cast<const T*>(&xr[li]);
+          float d = 0.f;
+#pragma unroll
+          for (int j = 0; j < VW; ++j) {
+            if (on) acc[li][j] = fmaf(wl[li], gv[j], acc[li][j]);
+            d = fmaf(gv[j], mv2d::to_f32(xe[j]), d);
+          }
+          dl[u * 4 + li] = d;
+        }
+      }
+      // transposed butterfly: each exchange halves the values a lane
+      // keeps and doubles the lanes summed into them; lane pair (2 v,
+      // 2 v + 1) ends with value v's sum over the warp
+      exchange<8, 16>(dl, lane);
+      exchange<4, 8>(dl, lane);
+      exchange<2, 4>(dl, lane);
+      exchange<1, 2>(dl, lane);
+      dl[0] += __shfl_xor_sync(0xffffffffu, dl[0], 1);
+      {
+        // lane bits 4..1 name the value: 8 b4 + 4 b3 + 2 b2 + b1 = 4 u + li
+        const int vv = (lane & 16 ? 8 : 0) + (lane & 8 ? 4 : 0) +
+                       (lane & 4 ? 2 : 0) + (lane & 2 ? 1 : 0);
+        const int u = vv >> 2, li = vv & 3, src = g * WG + u;
+        if ((lane & 1) == 0 && src < nbat)
+          dots[((size_t)(b0 + src) * 4 + li) * S + slice] = dl[0];
+      }
+    }
+  }
+  if (!act) return;
+  if (OWNER) {
+    if (end - begin > LMAX)
+      for (int k = begin / LMAX + 1; (long long)k * LMAX < end; ++k)
+#pragma unroll
+        for (int li = 0; li < 4; ++li) {
+          const float* pp = part + ((size_t)k * 4 + li) * C + c;
+#pragma unroll
+          for (int j = 0; j < VW; j += 4) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pp + j);
+            acc[li][j] += p4.x;
+            acc[li][j + 1] += p4.y;
+            acc[li][j + 2] += p4.z;
+            acc[li][j + 3] += p4.w;
+          }
+        }
+#pragma unroll
+    for (int li = 0; li < 4; ++li) {
+      const int py = 2 * by + (li >> 1), px = 2 * bx + (li & 1);
+      if (py >= H || px >= W) continue;
+      uint4 packed;
+      T* e = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) e[j] = mv2d::from_f32<T>(acc[li][j]);
+      *reinterpret_cast<uint4*>(dx + (((size_t)v * H + py) * W + px) * C +
+                                c) = packed;
+    }
+  } else {
+    const long long k = item + 1;
+#pragma unroll
+    for (int li = 0; li < 4; ++li) {
+      float* pp = part + ((size_t)k * 4 + li) * C + c;
+#pragma unroll
+      for (int j = 0; j < VW; j += 4)
+        *reinterpret_cast<float4*>(pp + j) = make_float4(
+            acc[li][j], acc[li][j + 1], acc[li][j + 2], acc[li][j + 3]);
+    }
+  }
+}
+
+// dm, dsy, dsx of each sample from its four corner dots d_q = ds . x_q:
+//   dm = sum_q w_q d_q, dsy = ((1 - lx)(d2 - d0) + lx (d3 - d1)) m gy,
+//   dsx = ((1 - ly)(d1 - d0) + ly (d3 - d2)) m gx,
+// gy, gx = 0 where the coordinate was clamped; all 0 outside the map.
+// Corner q's dot is that of its pixel in the entry of its block (slot as
+// the index pass numbers them), at the entry's sorted place inv[4 pt +
+// slot].
+__global__ void __launch_bounds__(SNT) owner_coords_kernel(
+    const float* __restrict__ sy, const float* __restrict__ sx,
+    const float* __restrict__ m, const int* __restrict__ inv,
+    const float* __restrict__ dots, float* __restrict__ dsy,
+    float* __restrict__ dsx, float* __restrict__ dm, int H, int W, int S,
+    long long NP) {
+  const long long pt = (long long)blockIdx.x * SNT + threadIdx.x;
+  if (pt >= NP) return;
+  const float yr = sy[pt], xr = sx[pt], mm = m[pt];
+  if (!in_map(yr, xr, H, W)) {
+    dsy[pt] = dsx[pt] = dm[pt] = 0.f;
+    return;
+  }
+  const float gy = (yr >= 0.f && yr <= (float)(H - 1)) ? 1.f : 0.f;
+  const float gx = (xr >= 0.f && xr <= (float)(W - 1)) ? 1.f : 0.f;
+  const Bilinear b = bilinear_at(yr, xr, H, W);
+  const int cy[4] = {b.y0, b.y0, b.y1, b.y1};
+  const int cx[4] = {b.x0, b.x1, b.x0, b.x1};
+  // a corner's block, as the index pass compares them: (row, column) pair
+  int by[4], bx[4], slot_of[4];
+  int slots = 0;
+  float d[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    by[q] = cy[q] >> 1;
+    bx[q] = cx[q] >> 1;
+    slot_of[q] = slots;
+#pragma unroll
+    for (int r = q - 1; r >= 0; --r)
+      if (by[r] == by[q] && bx[r] == bx[q]) slot_of[q] = slot_of[r];
+    if (slot_of[q] == slots) ++slots;
+    const size_t at = ((size_t)inv[4 * pt + slot_of[q]] * 4 +
+                       (cy[q] & 1) * 2 + (cx[q] & 1)) * S;
+    d[q] = 0.f;
+    for (int s = 0; s < S; ++s) d[q] += dots[at + s];
+  }
+  const float ly = b.ly, lx = b.lx;
+  dm[pt] = (1.f - ly) * (1.f - lx) * d[0] + (1.f - ly) * lx * d[1] +
+           ly * (1.f - lx) * d[2] + ly * lx * d[3];
+  dsy[pt] = ((1.f - lx) * (d[2] - d[0]) + lx * (d[3] - d[1])) * mm * gy;
+  dsx[pt] = ((1.f - ly) * (d[1] - d[0]) + ly * (d[3] - d[2])) * mm * gx;
+}
+
+// B6's workspace, carved from one buffer (256-byte aligned regions).
+struct OwnerPlan {
+  long long NP, E4;
+  int Hb, Wb, nkeys, S, passes, bits, nb, nchunks;
+  size_t keys0, wp, pmask, inv, kA, vA, vB, counts, digit_total, total,
+      starts, dots, part, bytes;
+
+  OwnerPlan(int V, int H, int W, int C, int Ho, int Wo, int dtype) {
+    NP = (long long)V * Ho * Wo * TAPS;
+    E4 = 4 * NP;
+    Hb = (H + 1) / 2;
+    Wb = (W + 1) / 2;
+    nkeys = V * Hb * Wb;
+    S = (C + 32 * (dtype == 0 ? 4 : 8) - 1) / (32 * (dtype == 0 ? 4 : 8));
+    int key_bits = 1;
+    while (key_bits < 31 && (1LL << key_bits) < nkeys) ++key_bits;
+    passes = (key_bits + RBITS - 1) / RBITS;
+    bits = (key_bits + passes - 1) / passes;
+    nb = (int)std::max<long long>(1, (E4 + RTILE - 1) / RTILE);
+    nchunks = (int)std::max<long long>(1, (E4 + LMAX - 1) / LMAX);
+    size_t at = 0;
+    auto take = [&](size_t n) {
+      const size_t here = at;
+      at += (n + 255) / 256 * 256;
+      return here;
+    };
+    keys0 = take(E4 * 4);                 // the later passes' second keys
+    wp = take(E4 * 16);
+    pmask = take(E4 * 4);
+    inv = take(E4 * 4);
+    kA = take(E4 * 4);
+    vA = take(E4 * 4);
+    vB = take(E4 * 4);
+    counts = take((size_t)(1 << bits) * nb * 4);
+    digit_total = take((size_t)(1 << bits) * 4);
+    total = take(4);
+    starts = take(((size_t)nkeys + 1) * 4);
+    dots = take(E4 * 4 * S * 4);
+    part = take((size_t)nchunks * 4 * C * 4);
+    bytes = at;
+  }
+};
+
+unsigned grid_of(long long threads, int per_block) {
+  return (unsigned)((threads + per_block - 1) / per_block);
 }
 
 // ---- B13: the combined backward of the DCN conv (K2's function).
 //   ds[p, t, c] = sum_f dy[p, f] w[t, c, f]          (sample gradients)
 //   dw[t, c, f] = sum_p samples[p, t, c] dy[p, f]     (tap-weight gradient)
-// and from ds, exactly as B6: dx (scattered), dm, dsy, dsx.
+// and from ds: dx (scattered with float32 atomics, as B6 did before it
+// took one owner per dx element), dm, dsy, dsx.
 // Replaces mv2d_tpu/ops/pallas_dcn.py: _run_conv_bwd (_kernel_conv_bwd),
 // the backward of the MV2D_DCN_TRAIN_FUSED=1 training DCN, which recomputed
 // the samples per band segment so that neither they nor their gradient
@@ -856,25 +1371,97 @@ extern "C" int mv2d_dcn_samples(const void* x, const void* sy,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dsamples [V, Ho, Wo, 9, C] (dtype) -> dx [V, H, W, C] float32 (zeroed by
-// the caller, accumulated), dsy / dsx / dm [V, Ho, Wo, 9] float32
+// The bytes of B6's workspace at these sizes (the `work` argument below).
+extern "C" long long mv2d_dcn_samples_bwd_workspace(int V, int H, int W,
+                                                    int C, int Ho, int Wo,
+                                                    int dtype) {
+  return (long long)OwnerPlan(V, H, W, C, Ho, Wo, dtype).bytes;
+}
+
+// dsamples [V, Ho, Wo, 9, C] (dtype) -> dx [V, H, W, C] (dtype, every
+// element written once), dsy / dsx / dm [V, Ho, Wo, 9] float32; work: the
+// bytes mv2d_dcn_samples_bwd_workspace names, 256-byte aligned.  C % 8 == 0;
+// 36 V Ho Wo and V H W C below 2^31.
 extern "C" int mv2d_dcn_samples_bwd(const void* x, const void* sy,
                                     const void* sx, const void* m,
                                     const void* ds, void* dx, void* dsy,
-                                    void* dsx, void* dm, int V, int H, int W,
-                                    int C, int Ho, int Wo, int dtype,
-                                    void* stream) {
-  const long long N = (long long)V * Ho * Wo;
-  const unsigned blocks = (unsigned)((N * TAPS * 32 + SNT - 1) / SNT);
+                                    void* dsx, void* dm, void* work, int V,
+                                    int H, int W, int C, int Ho, int Wo,
+                                    int dtype, void* stream) {
+  if (C % 8 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const OwnerPlan P(V, H, W, C, Ho, Wo, dtype);
+  if (P.nkeys == 0) return 0;             // no map: nothing to write
   auto s = static_cast<cudaStream_t>(stream);
+  char* wb = static_cast<char*>(work);
+  auto* keys0 = reinterpret_cast<unsigned*>(wb + P.keys0);
+  auto* wp = reinterpret_cast<float4*>(wb + P.wp);
+  auto* pmask = reinterpret_cast<int*>(wb + P.pmask);
+  auto* inv = reinterpret_cast<int*>(wb + P.inv);
+  auto* kA = reinterpret_cast<unsigned*>(wb + P.kA);
+  auto* vA = reinterpret_cast<int*>(wb + P.vA);
+  auto* vB = reinterpret_cast<int*>(wb + P.vB);
+  auto* counts = reinterpret_cast<int*>(wb + P.counts);
+  auto* dtot = reinterpret_cast<int*>(wb + P.digit_total);
+  auto* total = reinterpret_cast<int*>(wb + P.total);
+  auto* starts = reinterpret_cast<int*>(wb + P.starts);
+  auto* dots = reinterpret_cast<float*>(wb + P.dots);
+  auto* part = reinterpret_cast<float*>(wb + P.part);
+  const auto* fy = static_cast<const float*>(sy);
+  const auto* fx = static_cast<const float*>(sx);
+  const auto* fm = static_cast<const float*>(m);
+  // the index pass and the first radix pass (digits of the low bits)
+  int D = 1 << P.bits;
+  owner_keys_kernel<<<P.nb, RT, 0, s>>>(fy, fx, fm, keys0, wp, pmask, counts,
+                                        H, W, P.Hb, P.Wb, Ho * Wo * TAPS,
+                                        P.NP, D, P.nb);
+  row_scan_kernel<<<D, RT, 0, s>>>(counts, P.nb, dtot);
+  radix_scatter_kernel<true><<<P.nb, RT, 0, s>>>(
+      keys0, nullptr, nullptr, P.E4, 0, D, P.nb, counts, dtot, total, kA, vA,
+      P.passes == 1 ? inv : nullptr);
+  // the later passes, between (kA, vA) and (keys0, vB)
+  unsigned *kin = kA, *kout = keys0;
+  int *vin = vA, *vout = vB;
+  for (int p = 1; p < P.passes; ++p) {
+    const int shift = p * P.bits;
+    D = 1 << P.bits;
+    radix_hist_kernel<<<P.nb, RT, 0, s>>>(kin, total, shift, D, P.nb, counts);
+    row_scan_kernel<<<D, RT, 0, s>>>(counts, P.nb, dtot);
+    radix_scatter_kernel<false><<<P.nb, RT, 0, s>>>(
+        kin, vin, total, 0, shift, D, P.nb, counts, dtot, total, kout, vout,
+        p + 1 == P.passes ? inv : nullptr);
+    std::swap(kin, kout);
+    std::swap(vin, vout);
+  }
+  owner_starts_kernel<<<grid_of(P.E4 + 1, SNT), SNT, 0, s>>>(kin, total,
+                                                             P.nkeys, starts);
+  const long long pieces = (long long)(P.nchunks - 1) * P.S;
+  const long long owners = (long long)P.nkeys * P.S;
   MV2D_DISPATCH(dtype, T, {
-    dcn_samples_bwd_kernel<T><<<blocks, SNT, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const float*>(sy),
-        static_cast<const float*>(sx), static_cast<const float*>(m),
-        static_cast<const T*>(ds), static_cast<float*>(dx),
-        static_cast<float*>(dsy), static_cast<float*>(dsx),
-        static_cast<float*>(dm), H, W, C, Ho * Wo, N);
+    const T* tx = static_cast<const T*>(x);
+    const T* tds = static_cast<const T*>(ds);
+    cudaFuncSetAttribute(owner_walk_kernel<T, false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         WALK_SMEM);
+    cudaFuncSetAttribute(owner_walk_kernel<T, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         WALK_SMEM);
+    if (pieces > 0)
+      owner_walk_kernel<T, false><<<grid_of(pieces * 32, SNT), SNT,
+                                    WALK_SMEM, s>>>(
+          tx, tds, wp, pmask, kin, vin, starts, total, part, dots, nullptr, H,
+          W, C, P.Hb, P.Wb, P.S, P.NP, pieces);
+    if (owners > 0)
+      owner_walk_kernel<T, true><<<grid_of(owners * 32, SNT), SNT,
+                                   WALK_SMEM, s>>>(
+          tx, tds, wp, pmask, kin, vin, starts, total, part, dots,
+          static_cast<T*>(dx), H, W, C, P.Hb, P.Wb, P.S, P.NP, owners);
   });
+  if (P.NP > 0)
+    owner_coords_kernel<<<grid_of(P.NP, SNT), SNT, 0, s>>>(
+        fy, fx, fm, inv, dots, static_cast<float*>(dsy),
+        static_cast<float*>(dsx),
+        static_cast<float*>(dm), H, W, P.S, P.NP);
   return static_cast<int>(cudaGetLastError());
 }
 

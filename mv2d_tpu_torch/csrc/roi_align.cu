@@ -8,13 +8,41 @@
 // (_prv_impl -> _kernel_slab_v3).  Its per-view slabs, pass classes,
 // overflow buckets and slot compaction were VMEM artifacts and are gone.
 //
-// What bounds it on the H100: reads.  Each output element averages
-// Sy*Sx bilinear samples (4 corner loads each) from one level; a block
-// owns one RoI and its threads walk (bin, 16-byte channel group) with the
-// channels fastest, so every corner load is a coalesced 16-byte run along
-// C of the channels-last map, and a RoI's footprint stays in L1/L2 across
-// its 49 bins.  The sample coordinates are recomputed per thread (cheap
-// ALU) rather than staged.  C must be a multiple of 8.
+// What bounds it on the H100: bytes, mostly the output (12000 RoIs x 49
+// bins x 256 channels in bf16: 301 MB), then the routed levels.  The
+// first form of this kernel took each output vector as the mean of its
+// bin's bilinear samples, four 16-byte corner loads a sample (several
+// samples a bin on the eval path's RoIs): its time grew in step with C,
+// so those loads paced it.  The weights of a RoI factor by axis: with the averaged
+// bilinear hat profiles Ay [7, rows] and Ax [7, cols] of its footprint,
+//   out[i, j, c] = sum_y Ay[i, y] sum_x Ax[j, x] F[y, x, c],
+// and a cell feeds only the few bins whose samples come within one cell
+// of it.  So:
+//  * a block owns one RoI (and, past 32 x 16 bytes of channels, a slice
+//    a round); warp j owns output column j, lane g channel group g, and
+//    holds out[0..6, j, g] in float32 registers;
+//  * warp j walks the footprint's rows, reading only its bin's columns
+//    (16-byte loads, two rows x two cells in flight), and contracts each
+//    row along x with Ax[j, .] (built once, a lane a column); a cell is
+//    read by one warp, or two at a bin's edge, not once per sample
+//    corner;
+//  * then along y: the row's weights Ay[., y] are built once per tile of
+//    64 rows by the block (a thread a (row, bin), each a sum over the
+//    bin's samples in sample order) and are the same in the whole block,
+//    so a bin the row does not feed costs a branch;
+//  * the output goes out as 16-byte stores.
+// What holds it now is the work and latency of each warp-row, not bytes:
+// its time barely moves with C (chip_smoke.py's `c64_ms`) and deeper
+// prefetch did not help; 14 warps an SM (acc takes 56 registers a lane)
+// hide too little of it.  Tried and dropped (same shapes, same card): each
+// row staged in shared memory by cp.async for all warps (a block barrier a
+// row: slower than the first form); a per-warp cp.async ring (no gain);
+// four channels a lane with 14 warps a block (spills at the register cap
+// of two blocks); weights rebuilt per row by 7 lanes (that scalar work
+// then paced it, whatever C); streaming stores for the output (no gain).
+// The footprints of the eval path's RoIs overlap heavily, and no block
+// reuses another's reads.  Nothing is atomic, so two runs give equal bits.
+// C must be a multiple of 8.
 #include "common.cuh"
 
 namespace {
@@ -47,12 +75,60 @@ __device__ __forceinline__ void store_vec(T* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+constexpr int KT = O * 32;        // K3's threads: warp j <-> bin column j
+constexpr int KR = 2;             // rows a warp loads at once
+constexpr int KC = 2;             // cells of a row a warp loads at once
+constexpr int YT = 64;            // footprint rows a tile of bin weights
+
+// One axis of a RoI: bin i's samples sit at lo + (i + (s + 0.5) / div) *
+// bin for s < ns; a sample inside (-1, n) is clamped into [0, n - 1] and
+// weighs (1 - l) / div on its floor cell and l / div on the next (or the
+// same, at the last cell).
+struct Axis {
+  float lo, bin, div;
+  int ns, n;
+
+  __device__ __forceinline__ float at(int i, int s) const {
+    return lo + ((float)i + ((float)s + 0.5f) / div) * bin;
+  }
+  // the weight of bin i on cell c, summed in sample order
+  __device__ __forceinline__ float weight(int i, int c) const {
+    float w = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      float p = at(i, s);
+      if (!(p > -1.f && p < n)) continue;
+      p = fminf(fmaxf(p, 0.f), (float)(n - 1));
+      const int c0 = (int)floorf(p), c1 = min(c0 + 1, n - 1);
+      const float l = p - c0;
+      if (c0 == c) w += 1.f - l;
+      if (c1 == c) w += l;
+    }
+    return w / div;
+  }
+  // the cells bin i touches: [*a, *b], empty (*a > *b) without a sample
+  // inside the map (inside samples are consecutive: positions grow with s)
+  __device__ __forceinline__ void range(int i, int* a, int* b) const {
+    int s0 = 0, s1 = ns - 1;
+    while (s0 < ns && !(at(i, s0) > -1.f && at(i, s0) < n)) ++s0;
+    while (s1 >= s0 && !(at(i, s1) > -1.f && at(i, s1) < n)) --s1;
+    if (s0 > s1) {
+      *a = 1 << 30;
+      *b = -1;
+      return;
+    }
+    const float top = (float)(n - 1);
+    *a = (int)floorf(fminf(fmaxf(at(i, s0), 0.f), top));
+    *b = min((int)floorf(fminf(fmaxf(at(i, s1), 0.f), top)) + 1, n - 1);
+  }
+};
+
 template <typename T>
-__global__ void __launch_bounds__(NT) roi_align_kernel(
+__global__ void __launch_bounds__(KT, 2) roi_align_kernel(
     Level l0, Level l1, Level l2, Level l3, const float* __restrict__ rois,
     T* __restrict__ out, int P, int C) {
-  constexpr int VW = 16 / sizeof(T);   // channels per thread and load
+  constexpr int VW = 16 / sizeof(T);   // channels per lane and load
   const int r = blockIdx.x, v = r / P;
+  const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float bx1 = rois[4 * r], by1 = rois[4 * r + 1];
   const float bx2 = rois[4 * r + 2], by2 = rois[4 * r + 3];
   const float area = fmaxf((bx2 - bx1) * (by2 - by1), 0.f);
@@ -61,44 +137,105 @@ __global__ void __launch_bounds__(NT) roi_align_kernel(
   const Level L = lvl == 0 ? l0 : lvl == 1 ? l1 : lvl == 2 ? l2 : l3;
   const int H = L.H, W = L.W;
   const T* f = static_cast<const T*>(L.f) + (size_t)v * H * W * C;
-  const float x1 = bx1 * L.scale - 0.5f, y1 = by1 * L.scale - 0.5f;
-  const float bw = (bx2 - bx1) * L.scale / O, bh = (by2 - by1) * L.scale / O;
-  const int nx = (int)fmaxf(ceilf(bw), 0.f), ny = (int)fmaxf(ceilf(bh), 0.f);
-  const float divx = fmaxf((float)nx, 1.f), divy = fmaxf((float)ny, 1.f);
-  T* o = out + (size_t)r * O * O * C;
-  const int groups = C / VW;
-  for (int e = threadIdx.x; e < O * O * groups; e += blockDim.x) {
-    const int bin = e / groups, c = (e % groups) * VW;
-    const int oy = bin / O, ox = bin % O;
-    float acc[VW] = {};
-    for (int iy = 0; iy < ny; ++iy) {
-      float yy = y1 + ((float)oy + ((float)iy + 0.5f) / divy) * bh;
-      if (!(yy > -1.f && yy < H)) continue;
-      yy = fminf(fmaxf(yy, 0.f), (float)(H - 1));
-      const int y0 = (int)floorf(yy), yb = min(y0 + 1, H - 1);
-      const float ly = yy - y0;
-      for (int ix = 0; ix < nx; ++ix) {
-        float xx = x1 + ((float)ox + ((float)ix + 0.5f) / divx) * bw;
-        if (!(xx > -1.f && xx < W)) continue;
-        xx = fminf(fmaxf(xx, 0.f), (float)(W - 1));
-        const int x0 = (int)floorf(xx), xb = min(x0 + 1, W - 1);
-        const float lx = xx - x0;
-        const float w00 = (1.f - ly) * (1.f - lx), w01 = (1.f - ly) * lx;
-        const float w10 = ly * (1.f - lx), w11 = ly * lx;
-        float v00[VW], v01[VW], v10[VW], v11[VW];
-        load_vec(f + ((size_t)y0 * W + x0) * C + c, v00);
-        load_vec(f + ((size_t)y0 * W + xb) * C + c, v01);
-        load_vec(f + ((size_t)yb * W + x0) * C + c, v10);
-        load_vec(f + ((size_t)yb * W + xb) * C + c, v11);
+  Axis ay, ax;
+  ay.lo = by1 * L.scale - 0.5f;
+  ax.lo = bx1 * L.scale - 0.5f;
+  ay.bin = (by2 - by1) * L.scale / O;
+  ax.bin = (bx2 - bx1) * L.scale / O;
+  ay.ns = (int)fmaxf(ceilf(ay.bin), 0.f);
+  ax.ns = (int)fmaxf(ceilf(ax.bin), 0.f);
+  ay.div = fmaxf((float)ay.ns, 1.f);
+  ax.div = fmaxf((float)ax.ns, 1.f);
+  ay.n = H;
+  ax.n = W;
+  // the bins' cells along y and x, once: [lo, hi] each, in shared memory
+  __shared__ int rng[4][O];
+  __shared__ float wyt[YT][8];           // a row tile's bin weights
+  if (threadIdx.x < O)
+    ay.range(threadIdx.x, &rng[0][threadIdx.x], &rng[1][threadIdx.x]);
+  else if (threadIdx.x < 2 * O)
+    ax.range(threadIdx.x - O, &rng[2][threadIdx.x - O],
+             &rng[3][threadIdx.x - O]);
+  __syncthreads();
+  int ylo = 1 << 30, yhi = -1;
 #pragma unroll
-        for (int j = 0; j < VW; ++j)
-          acc[j] += w00 * v00[j] + w01 * v01[j] + w10 * v10[j] +
-                    w11 * v11[j];
+  for (int i = 0; i < O; ++i) {
+    ylo = min(ylo, rng[0][i]);
+    yhi = max(yhi, rng[1][i]);
+  }
+  const int xa = rng[2][j], xb = rng[3][j];   // this warp's columns
+  const int groups = C / VW;
+  T* o = out + (size_t)r * O * O * C;
+  for (int c0 = 0; c0 < groups; c0 += 32) {     // channel slices
+    const int g = c0 + lane;
+    const bool act = g < groups;
+    const T* fg = f + (act ? g * VW : 0);
+    float acc[O][VW];
+#pragma unroll
+    for (int i = 0; i < O; ++i)
+#pragma unroll
+      for (int k = 0; k < VW; ++k) acc[i][k] = 0.f;
+    for (int yt = ylo; yt <= yhi; yt += YT) {    // YT rows at a time
+      const int ye = min(yt + YT - 1, yhi);
+      __syncthreads();                   // the last tile's weights read
+      for (int e = threadIdx.x; e < YT * O; e += KT)
+        wyt[e / O][e % O] = yt + e / O <= ye ? ay.weight(e % O, yt + e / O)
+                                             : 0.f;
+      __syncthreads();
+      for (int xc = xa; xc <= xb; xc += 32) {    // 32 columns at a time
+        const int xe = min(xc + 31, xb);
+        // lane k: the weight of column xc + k
+        const float wx = xc + lane <= xe ? ax.weight(j, xc + lane) : 0.f;
+        for (int y0 = yt; y0 <= ye; y0 += KR) {
+          float t[KR][VW];               // the rows contracted along x
+#pragma unroll
+          for (int q = 0; q < KR; ++q)
+#pragma unroll
+            for (int k = 0; k < VW; ++k) t[q][k] = 0.f;
+          for (int x0 = xc; x0 <= xe; x0 += KC) {
+            uint4 raw[KR][KC];           // every load of the step in flight
+#pragma unroll
+            for (int q = 0; q < KR; ++q)
+#pragma unroll
+              for (int u = 0; u < KC; ++u) {
+                raw[q][u] = make_uint4(0, 0, 0, 0);
+                if (act && x0 + u <= xe && y0 + q <= ye)
+                  raw[q][u] = *reinterpret_cast<const uint4*>(
+                      fg + ((size_t)(y0 + q) * W + x0 + u) * C);
+              }
+#pragma unroll
+            for (int u = 0; u < KC; ++u) {
+              const float w =
+                  __shfl_sync(0xffffffffu, wx, (x0 - xc + u) & 31);
+#pragma unroll
+              for (int q = 0; q < KR; ++q) {
+                const T* e = reinterpret_cast<const T*>(&raw[q][u]);
+#pragma unroll
+                for (int k = 0; k < VW; ++k)
+                  t[q][k] = fmaf(w, mv2d::to_f32(e[k]), t[q][k]);
+              }
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < KR; ++q) {
+            if (y0 + q > ye) break;
+            const float* wr = wyt[y0 + q - yt];
+#pragma unroll
+            for (int i = 0; i < O; ++i) {  // along y: the bins a row feeds
+              const float w = wr[i];
+              if (w == 0.f) continue;      // the same in the block
+#pragma unroll
+              for (int k = 0; k < VW; ++k)
+                acc[i][k] = fmaf(w, t[q][k], acc[i][k]);
+            }
+          }
+        }
       }
     }
+    if (act)
 #pragma unroll
-    for (int j = 0; j < VW; ++j) acc[j] /= divy * divx;
-    store_vec(o + bin * C + c, acc);
+      for (int i = 0; i < O; ++i) store_vec(o + (i * O + j) * C + g * VW,
+                                            acc[i]);
   }
 }
 
@@ -248,8 +385,10 @@ extern "C" int mv2d_roi_align(const void* f0, const void* f1, const void* f2,
   const Level l0{f0, H0, W0, s0}, l1{f1, H1, W1, s1}, l2{f2, H2, W2, s2},
       l3{f3, H3, W3, s3};
   auto s = static_cast<cudaStream_t>(stream);
+  if (C % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (V * P == 0) return 0;
   MV2D_DISPATCH(dtype, T, {
-    roi_align_kernel<T><<<V * P, NT, 0, s>>>(
+    roi_align_kernel<T><<<V * P, KT, 0, s>>>(
         l0, l1, l2, l3, static_cast<const float*>(rois), static_cast<T*>(out),
         P, C);
   });

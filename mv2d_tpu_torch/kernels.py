@@ -35,7 +35,7 @@ SIGNATURES = {
     'mv2d_bottleneck': [_P] * 10 + [_I] * 5 + [_P],
     'mv2d_dcn_conv': [_P] * 6 + [_I] * 8 + [_P],
     'mv2d_dcn_samples': [_P] * 5 + [_I] * 7 + [_P],
-    'mv2d_dcn_samples_bwd': [_P] * 9 + [_I] * 7 + [_P],
+    'mv2d_dcn_samples_bwd': [_P] * 10 + [_I] * 7 + [_P],
     'mv2d_roi_align': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2
                       + [_I] * 4 + [_P],
     'mv2d_roi_align_bwd': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2
@@ -49,6 +49,11 @@ SIGNATURES = {
                            + [_I] * 4 + [_P],
     'mv2d_roi_align_slab': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3
                            + [_I] * 5 + [_P],
+}
+# host functions returning a size in bytes (64-bit) for a launch's
+# workspace: name -> argument types
+SIZES = {
+    'mv2d_dcn_samples_bwd_workspace': [_I] * 7,
 }
 
 
@@ -124,6 +129,10 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in SIZES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         _lib = handle
     return _lib
 
@@ -150,6 +159,11 @@ def check_cuda(*tensors: torch.Tensor) -> None:
     dev = torch.cuda.current_device()
     if any(t.device.index != dev for t in tensors):
         raise ValueError(f'kernel inputs must lie on cuda:{dev}')
+
+
+def workspace_bytes(name: str, *args) -> int:
+    """The bytes of scratch a launch needs, from the C function `name`."""
+    return int(getattr(lib(), name)(*args))
 
 
 def launch(name: str, *args) -> None:

@@ -24,6 +24,8 @@ Sampling coordinates are built in float32 for every activation dtype.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as tnn
 
@@ -31,29 +33,37 @@ from .. import kernels
 from ..nn.layers import conv2d_nhwc
 
 
+def _sample_corners(sy, sx, H: int, W: int):
+    """sy, sx [...] -> (inside [...], rows [..., 4], cols [..., 4],
+    bilinear weights [..., 4], ly, lx): the clamped corners (y0, x0),
+    (y0, x1), (y1, x0), (y1, x1) of each sample and its fractions, as the
+    kernels take them (the weights carry the floor-form derivative)."""
+    inside = (sx > -1.0) & (sx < W) & (sy > -1.0) & (sy < H)
+    yy = sy.clamp(0.0, H - 1)
+    xx = sx.clamp(0.0, W - 1)
+    y0, x0 = yy.floor(), xx.floor()
+    ly, lx = yy - y0, xx - x0
+    y0i, x0i = y0.long(), x0.long()
+    y1i, x1i = (y0i + 1).clamp(max=H - 1), (x0i + 1).clamp(max=W - 1)
+    rows = torch.stack([y0i, y0i, y1i, y1i], -1)
+    cols = torch.stack([x0i, x1i, x0i, x1i], -1)
+    w = torch.stack([(1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx),
+                     ly * lx], -1)
+    return inside, rows, cols, w, ly, lx
+
+
 def bilinear_zero_outside(x: torch.Tensor, sy: torch.Tensor,
                           sx: torch.Tensor) -> torch.Tensor:
     """x [V, H, W, C]; sy, sx [V, P] -> float32 samples [V, P, C]: zero
     unless -1 < s < extent, coordinates clamped into the map."""
     V, H, W, C = x.shape
-    inside = (sx > -1.0) & (sx < W) & (sy > -1.0) & (sy < H)
-    sx = sx.clamp(0.0, W - 1)
-    sy = sy.clamp(0.0, H - 1)
-    x0 = sx.floor()
-    y0 = sy.floor()
-    lx = (sx - x0)[..., None]
-    ly = (sy - y0)[..., None]
-    x0i, y0i = x0.long(), y0.long()
-    x1i = (x0i + 1).clamp(max=W - 1)
-    y1i = (y0i + 1).clamp(max=H - 1)
+    inside, rows, cols, w, _, _ = _sample_corners(sy, sx, H, W)
     flat = x.reshape(V * H * W, C).float()
-    base = (torch.arange(V, device=x.device) * (H * W))[:, None]
-
-    def g(yi, xi):
-        return flat[base + yi * W + xi]
-
-    out = (1 - ly) * (1 - lx) * g(y0i, x0i) + (1 - ly) * lx * g(y0i, x1i) \
-        + ly * (1 - lx) * g(y1i, x0i) + ly * lx * g(y1i, x1i)
+    at = (torch.arange(V, device=x.device) * (H * W))[:, None, None] \
+        + rows * W + cols                                    # [V, P, 4]
+    out = w[..., 0, None] * flat[at[..., 0]]
+    for q in range(1, 4):
+        out = out + w[..., q, None] * flat[at[..., q]]
     return out * inside[..., None]
 
 
@@ -141,28 +151,129 @@ def dcn_samples_forward(x, sy, sx, mask):
 dcn_samples_forward.launches = 0
 
 
+# B6's owners: 2 x 2 pixel blocks of dx
+OWNER_SIDE = 2
+
+
+def _sample_views(sy):
+    """The view of each flat sample of sy [V, Ho, Wo, 9]."""
+    return torch.arange(sy.shape[0], device=sy.device).repeat_interleave(
+        sy[0].numel())
+
+
+def owner_blocks_plain(sy, sx, H: int, W: int):
+    """B6's index pass.  sy, sx [V, Ho, Wo, 9] -> (keys [M], samples [M],
+    starts [nkeys + 1]): every sample inside the map (-1, extent) has one
+    entry for each distinct 2 x 2 owner block among its four clamped
+    corners (block key (v * Hb + y // 2) * Wb + x // 2, Hb = ceil(H / 2),
+    Wb = ceil(W / 2)), all four corners counted: the coordinate
+    derivative reads x at a corner whose dx weight is 0.  Entries are
+    sorted by key, ties in sample order (the kernel's stable radix sort);
+    block k's entries are [starts[k], starts[k + 1])."""
+    V = sy.shape[0]
+    Hb, Wb = -(-H // OWNER_SIDE), -(-W // OWNER_SIDE)
+    view = _sample_views(sy)
+    sy, sx = sy.reshape(-1), sx.reshape(-1)
+    NP = sy.numel()
+    inside, rows, cols, _, _, _ = _sample_corners(sy, sx, H, W)
+    blk = (view[:, None] * Hb + rows // OWNER_SIDE) * Wb \
+        + cols // OWNER_SIDE
+    first = torch.ones_like(blk, dtype=torch.bool)
+    for q in range(1, 4):
+        first[:, q] = (blk[:, q:q + 1] != blk[:, :q]).all(-1)
+    keep = (first & inside[:, None]).reshape(-1)
+    keys = blk.reshape(-1)[keep]
+    samples = torch.arange(4 * NP, device=sy.device)[keep] // 4
+    order = torch.sort(keys, stable=True).indices
+    keys, samples = keys[order], samples[order]
+    starts = torch.searchsorted(
+        keys, torch.arange(V * Hb * Wb + 1, device=sy.device))
+    return keys, samples, starts
+
+
+def dcn_samples_backward_plain(x, sy, sx, mask, dsamples):
+    """B6's function by its owner scheme in plain PyTorch: the entries of
+    `owner_blocks_plain` give dx (each entry adds w_q m ds to the corners
+    of its sample inside its block) and the corner dots ds . x_q, from
+    which dm, dsy and dsx follow.  Returns what `dcn_samples_backward`
+    does: dx in x.dtype, dsy, dsx, dm float32."""
+    V, H, W, C = x.shape
+    NP = sy.numel()
+    keys, samples, _ = owner_blocks_plain(sy, sx, H, W)
+    fy, fx, fm = sy.reshape(-1), sx.reshape(-1), mask.reshape(-1)
+    inside, rows, cols, w, ly, lx = _sample_corners(fy, fx, H, W)
+    Hb, Wb = -(-H // OWNER_SIDE), -(-W // OWNER_SIDE)
+    view = _sample_views(sy)
+    r, c, s = rows[samples], cols[samples], samples
+    # which of the entry's sample corners lie in the entry's block
+    mine = (view[s, None] * Hb + r // OWNER_SIDE) * Wb \
+        + c // OWNER_SIDE == keys[:, None]
+    pix = (view[s, None] * H + r) * W + c                       # [M, 4]
+    g = dsamples.reshape(NP, C).float()[s]                      # [M, C]
+    flat = x.reshape(-1, C).float()
+    wgt = w[s] * fm[s, None] * mine
+    dx = torch.zeros((V * H * W, C), dtype=torch.float32, device=x.device)
+    dx.index_add_(0, pix.reshape(-1),
+                  (wgt[..., None] * g[:, None, :]).reshape(-1, C))
+    dots = torch.zeros((NP, 4), dtype=torch.float32, device=x.device)
+    d = torch.einsum('mc,mqc->mq', g, flat[pix])
+    dots.index_put_((s[:, None].expand_as(pix)[mine], torch.arange(
+        4, device=x.device).expand_as(pix)[mine]), d[mine])
+    d0, d1, d2, d3 = dots.unbind(-1)
+    gy = ((fy >= 0) & (fy <= H - 1)).float()
+    gx = ((fx >= 0) & (fx <= W - 1)).float()
+    dm = (w * dots).sum(-1) * inside
+    dsy = ((1 - lx) * (d2 - d0) + lx * (d3 - d1)) * fm * gy * inside
+    dsx = ((1 - ly) * (d1 - d0) + ly * (d3 - d2)) * fm * gx * inside
+    shape = sy.shape
+    return (dx.reshape(V, H, W, C).to(x.dtype), dsy.reshape(shape),
+            dsx.reshape(shape), dm.reshape(shape))
+
+
 def dcn_samples_backward(x, sy, sx, mask, dsamples):
-    """Kernel B6 on CUDA tensors: dsamples [V, Ho, Wo, 9, C] (x.dtype) ->
-    (dx [V, H, W, C], dsy, dsx, dmask [V, Ho, Wo, 9]), all float32."""
+    """Kernel B6: dsamples [V, Ho, Wo, 9, C] (x.dtype) -> (dx [V, H, W, C]
+    in x.dtype, dsy, dsx, dmask [V, Ho, Wo, 9] float32).  Every dx element
+    is written once, by its owner, from a float32 sum in a fixed order, so
+    two runs give equal bits.  CPU tensors take
+    `dcn_samples_backward_plain`; CUDA tensors launch the kernels (float32
+    or bfloat16, C % 8 == 0, a non-empty map, 36 V Ho Wo below 2^31; any
+    other shape raises)."""
+    if x.device.type == 'cpu':
+        return dcn_samples_backward_plain(x, sy, sx, mask, dsamples)
     _check_samples_args(x, sy, sx, mask)
     V, H, W, C = x.shape
     _, Ho, Wo, K = sy.shape
     if dsamples.shape != (V, Ho, Wo, K, C) or dsamples.dtype != x.dtype:
         raise ValueError('dsamples must be [V, Ho, Wo, 9, C] in x.dtype')
+    if H == 0 or W == 0 or 36 * V * Ho * Wo + 512 >= 2 ** 31 \
+            or V * H * W * C >= 2 ** 31:
+        raise ValueError('dcn samples backward takes a non-empty map and '
+                         f'fewer than 2^31 entries; got x {tuple(x.shape)}, '
+                         f'{Ho}x{Wo} samples')
     x, sy, sx, mask, dsamples = (t.contiguous() for t in
                                  (x, sy, sx, mask, dsamples))
     kernels.check_cuda(x, sy, sx, mask, dsamples)
-    dx = torch.zeros((V, H, W, C), dtype=torch.float32, device=x.device)
-    dsy, dsx, dm = (torch.empty_like(sy) for _ in range(3))
+    code = kernels.dtype_code(x)
+    dx = torch.empty_like(x)
+    dsy, dsx, dm = torch.empty((3, *sy.shape), dtype=torch.float32,
+                               device=x.device)
+    work = torch.empty(_b6_workspace(V, H, W, C, Ho, Wo, code),
+                       dtype=torch.uint8, device=x.device)
     kernels.launch('mv2d_dcn_samples_bwd', x.data_ptr(), sy.data_ptr(),
                    sx.data_ptr(), mask.data_ptr(), dsamples.data_ptr(),
                    dx.data_ptr(), dsy.data_ptr(), dsx.data_ptr(),
-                   dm.data_ptr(), V, H, W, C, Ho, Wo, kernels.dtype_code(x))
+                   dm.data_ptr(), work.data_ptr(), V, H, W, C, Ho, Wo, code)
     dcn_samples_backward.launches += 1
     return dx, dsy, dsx, dm
 
 
 dcn_samples_backward.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def _b6_workspace(*sizes) -> int:
+    """B6's scratch bytes at (V, H, W, C, Ho, Wo, dtype code)."""
+    return kernels.workspace_bytes('mv2d_dcn_samples_bwd_workspace', *sizes)
 
 
 class DCNSamplesFn(torch.autograd.Function):
@@ -176,9 +287,7 @@ class DCNSamplesFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dsamples):
         x, sy, sx, mask = ctx.saved_tensors
-        dx, dsy, dsx, dm = dcn_samples_backward(x, sy, sx, mask,
-                                                dsamples.to(x.dtype))
-        return dx.to(x.dtype), dsy, dsx, dm
+        return dcn_samples_backward(x, sy, sx, mask, dsamples.to(x.dtype))
 
 
 def dcn_samples(x, sy, sx, mask):

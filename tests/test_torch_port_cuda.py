@@ -144,6 +144,55 @@ def test_roi_align_kernel(dev, dtype, tol):
 
 
 @pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('img,C,P,kind', [
+    ((512, 1408), 64, 40, 'edge'),     # 1408x8, 6x512, empty, outside,
+                                       # whole image (level 3)
+    ((640, 1600), 64, 60, 'normal'),   # R101's levels p2..p5
+    ((512, 1408), 64, 30, 'sliver'),   # slivers only: 353 columns a RoI
+    ((256, 512), 40, 50, 'normal'),    # C 40: part of a channel slice
+])
+def test_roi_align_kernel_shapes(dev, dtype, tol, img, C, P, kind):
+    """K3 against its plain version at the edge RoIs, R101's level sizes
+    and slivers; one launch a call."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois = smoke.roi_inputs(dev, getattr(torch, dtype), V=2, P=P,
+                                   img=img, C=C, edge=kind == 'edge',
+                                   sliver=kind == 'sliver')
+    strides = (4, 8, 16, 32)
+    n3 = roi_align.roi_align_multilevel.launches
+    got = roi_align.roi_align_multilevel(feats, rois, strides)
+    assert roi_align.roi_align_multilevel.launches == n3 + 1
+    check(got, roi_align.multilevel_roi_align_plain(feats, rois, strides),
+          tol)
+
+
+def test_roi_align_bf16_runs_are_bit_equal(dev):
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois = smoke.roi_inputs(dev, torch.bfloat16, V=12, P=300,
+                                   edge=True)
+    a = roi_align.roi_align_multilevel(feats, rois, (4, 8, 16, 32))
+    b = roi_align.roi_align_multilevel(feats, rois, (4, 8, 16, 32))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_roi_align_kernel_refuses_what_it_does_not_take(dev):
+    """C % 8, three levels, float16: ValueError or TypeError."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois = smoke.roi_inputs(dev, torch.bfloat16, V=1, P=5,
+                                   img=(64, 128), C=16)
+    strides = (4, 8, 16, 32)
+    with pytest.raises(ValueError):
+        roi_align.roi_align_multilevel([f[..., :12].contiguous()
+                                        for f in feats], rois, strides)
+    with pytest.raises(ValueError):
+        roi_align.roi_align_multilevel(feats[:3], rois, strides[:3])
+    with pytest.raises(TypeError):
+        roi_align.roi_align_multilevel([f.half() for f in feats], rois,
+                                       strides)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
 @pytest.mark.parametrize('self_attn', [False, True])
 def test_attention_kernel(dev, dtype, tol, self_attn):
     from mv2d_tpu_torch.ops import attention
@@ -183,6 +232,81 @@ def test_dcn_samples_kernels(dev, dtype, tol, stride, far, integer):
     assert dcn.dcn_samples_forward.launches == n5 + 1
     assert dcn.dcn_samples_backward.launches == n6 + 1
     check_all([got, *ggot], [out, *grads], tol)
+
+
+def b6_inputs(dev, dt, V, H, W, C, stride, kind):
+    """B6's inputs and a cotangent; `kind`: 'far' (20% of the samples well
+    outside the map), 'integer' (integer coordinates), 'pile' (every
+    sample inside the map on one cell, 20% outside) or 'normal'."""
+    x, sy, sx, m, _ = smoke.dcn_inputs(dev, dt, V, H, W, C, 64, stride,
+                                       far=0.2 if kind in ('far', 'pile')
+                                       else 0.0)
+    if kind == 'integer':
+        sy, sx = sy.round(), sx.round()
+    if kind == 'pile':
+        inside = (sy > -1) & (sy < H) & (sx > -1) & (sx < W)
+        sy = torch.where(inside, torch.full_like(sy, 5.25), sy).contiguous()
+        sx = torch.where(inside, torch.full_like(sx, 7.5), sx).contiguous()
+    g = smoke.cotangent(dcn_samples_plain(x, sy, sx, m))
+    return x, sy, sx, m, g
+
+
+def dcn_samples_plain(*args):
+    from mv2d_tpu_torch.ops import dcn
+    return dcn.dcn_samples_plain(*args)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('V,H,W,C,stride,kind', [
+    (12, 16, 44, 64, 1, 'pile'),      # lists far beyond one piece
+    (2, 11, 19, 64, 1, 'far'),
+    (2, 11, 19, 64, 1, 'integer'),
+    (1, 13, 21, 40, 1, 'normal'),     # ragged: odd sides, C 40
+    (2, 12, 16, 512, 2, 'normal'),    # two channel slices
+])
+def test_dcn_samples_backward_owner_cases(dev, dtype, tol, V, H, W, C,
+                                          stride, kind):
+    """B6 against the plain version's autograd at the edges of its owner
+    scheme; dx comes back in x.dtype, one launch a call."""
+    from mv2d_tpu_torch.ops import dcn
+    x, sy, sx, m, g = b6_inputs(dev, getattr(torch, dtype), V, H, W, C,
+                                stride, kind)
+    _, want = smoke.plain_grads(dcn.dcn_samples_plain, (x, sy, sx, m),
+                                range(4), g)
+    n6 = dcn.dcn_samples_backward.launches
+    got = dcn.dcn_samples_backward(x, sy, sx, m, g)
+    assert dcn.dcn_samples_backward.launches == n6 + 1
+    assert got[0].dtype == x.dtype
+    check_all(list(got), want, tol)
+
+
+def test_dcn_samples_backward_bf16_runs_are_bit_equal(dev):
+    """No float atomics: two runs of B6 give equal bits, at a normal and a
+    pile-up input."""
+    from mv2d_tpu_torch.ops import dcn
+    for kind in ('normal', 'pile'):
+        args = b6_inputs(dev, torch.bfloat16, 12, 32, 88, 256, 1, kind)
+        a = dcn.dcn_samples_backward(*args)
+        b = dcn.dcn_samples_backward(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_dcn_samples_backward_refuses_what_it_does_not_take(dev):
+    """C % 8, float16, dsamples in another dtype or shape: ValueError or
+    TypeError, never a fallback."""
+    from mv2d_tpu_torch.ops import dcn
+    x, sy, sx, m, g = b6_inputs(dev, torch.bfloat16, 1, 8, 8, 16, 1,
+                                'normal')
+    with pytest.raises(ValueError):                       # C % 8
+        dcn.dcn_samples_backward(x[..., :12].contiguous(), sy, sx, m,
+                                 g[..., :12].contiguous())
+    with pytest.raises(ValueError):                       # dsamples dtype
+        dcn.dcn_samples_backward(x, sy, sx, m, g.float())
+    with pytest.raises(ValueError):                       # dsamples shape
+        dcn.dcn_samples_backward(x, sy, sx, m, g[:, :4].contiguous())
+    with pytest.raises(TypeError):                        # float16
+        dcn.dcn_samples_backward(x.half(), sy, sx, m, g.half())
 
 
 @pytest.mark.parametrize('dtype,tol', DTYPES)
@@ -513,3 +637,11 @@ def test_decoder_packs_each_mask_once_a_pass(dev):
         fn.launches = 0
     dec(query, qpos, keys, kpos, self_a, cross_a).sum().backward()
     assert [fn.launches for fn in fns] == [2, 6, 6]
+
+
+def test_tiny_dcn_training_step_equals_cpu(dev):
+    """One tiny+DCN training step (float32) on the GPU, through B5 / B6 and
+    the other training kernels, against the same step on the CPU (plain
+    versions): every loss and every gradient (`chip_smoke.phase_tiny_train`
+    states the tolerances)."""
+    assert smoke.phase_tiny_train(dev)
