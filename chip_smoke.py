@@ -26,12 +26,17 @@ Phases, in order; any failure exits non-zero without the final line:
      attention kernels read the mask as
      the decoder hands it to them, packed once a pass (`mask_tiles`); the
      packing kernel has cases of its own, equal bit for bit, timed beside
-     the whole per-pass build (the bits and both tile lists).  B6 is timed
-     at all four DCN stage shapes as the step calls it (every launch and
-     allocation; its bound counts dx in the input's dtype, and its log
-     line also gives the bound with a float32 dx, its first form's), and
-     checked on a pile-up of every sample on one cell and a ragged
-     [1,13,21,40]; K3 is also timed at R101's levels and on 64 of the
+     the whole per-pass build (the bits and both tile lists).  B5 and B6
+     are timed at all four DCN stage shapes as the step calls them (every
+     launch and allocation; B6's bound counts dx in the input's dtype, and
+     its log line also gives the bound with a float32 dx, its first
+     form's); B5 is also checked on ragged pixel tiles [1,13,21,40], B6 on
+     a pile-up of every sample on one cell and a ragged [1,13,21,40].  B9
+     is timed at the training RoIs [6,512] on R50's and R101's levels (its
+     bound counts the level gradients in the features' dtype, and its log
+     line also gives the bound with float32 ones, its first form's), and
+     checked on a pile-up of 512 identical RoIs a view and for equal bits
+     in two runs; K3 is also timed at R101's levels and on 64 of the
      channels of its main case (`c64_ms`), and checked on slivers only;
   4. tiny: the tiny config with DCN, eval forward, GPU (kernels) against
      CPU (plain versions), same seeded weights;
@@ -566,14 +571,15 @@ def kernel_cases():
             sx = torch.where(inside, torch.full_like(sx, 7.5), sx)
         return x, sy.contiguous(), sx.contiguous(), m
 
-    def dcn_fwd(V, H, W, C, s, far=0.0, integer=False):
+    def dcn_fwd(V, H, W, C, s, far=0.0, integer=False, per_step=0):
         def build(dev, dt):
             x, sy, sx, m = samples_args(dev, dt, V, H, W, C, s, far, integer)
             out_bytes = sy.numel() * C * x.element_size()
             return Case(lambda: dcn.dcn_samples_forward(x, sy, sx, m),
                         lambda: dcn.dcn_samples_plain(x, sy, sx, m),
                         (nbytes(x, sy, sx, m) + out_bytes,
-                         8.0 * sy.numel() * C))
+                         8.0 * sy.numel() * C),
+                        note=f'  {per_step} a step' if per_step else '')
         return build
 
     def dcn_bwd(V, H, W, C, s, far=0.0, integer=False, pile=False,
@@ -685,9 +691,13 @@ def kernel_cases():
                     feats, vp, strides)})
         return build
 
-    def roi_bwd(edge, V=6, P=512):
+    def roi_bwd(edge, V=6, P=512, img=(512, 1408), pile=False,
+                repeat=False):
         def build(dev, dt):
-            feats, rois = roi_inputs(dev, dt, V=V, P=P, edge=edge)
+            feats, rois = roi_inputs(dev, dt, V=V, P=P, img=img, edge=edge)
+            if pile:                    # every RoI the same box (level 1)
+                rois[:] = torch.tensor([300.0, 100.0, 420.0, 230.0],
+                                       device=rois.device)
             strides = (4, 8, 16, 32)
             C = feats[0].shape[-1]
             leaves = [f.clone().requires_grad_(True) for f in feats]
@@ -695,13 +705,40 @@ def kernel_cases():
                 out = roi_align.multilevel_roi_align_plain(leaves, rois,
                                                            strides)
             g = cotangent(out)
-            return Case(
-                lambda: roi_align.roi_align_multilevel_backward(
-                    feats, rois, g, strides),
-                lambda: torch.autograd.grad(out, leaves, g,
-                                            retain_graph=True),
-                (nbytes(g, rois) + sum(f.numel() for f in feats) * 4,
-                 8.0 * C * roi_samples(rois, feats, strides)))
+            ops = 8.0 * C * roi_samples(rois, feats, strides)
+            # the level gradients in the features' dtype, as B9 writes
+            # them; B9's first form wrote float32 ones, and its bound
+            # counted that
+            old = bound((nbytes(g, rois) + sum(f.numel() for f in feats) * 4,
+                         ops))[0]
+
+            def kernel():
+                return roi_align.roi_align_multilevel_backward(
+                    feats, rois, g, strides)
+
+            def autograd():             # zeros for a level no RoI reads
+                return [torch.zeros_like(f) if d is None else d
+                        for f, d in zip(feats, torch.autograd.grad(
+                            out, leaves, g, retain_graph=True,
+                            allow_unused=True))]
+            # `repeat`: a second run of the kernel, to be equal bit for bit
+            plain = kernel if repeat else autograd
+            # the owners' lists: RoIs a tile, mean and max, p2..p5
+            dims = [d for f in feats for d in f.shape[1:3]]
+            keys, _, starts = roi_align.roi_owner_lists_plain(
+                rois.cpu(), dims, strides)
+            n = (starts[1:] - starts[:-1]).float()
+            tyn, txn, first, _ = roi_align._owner_tiles(dims, V)
+            lists = ', '.join(
+                f'{float(p.mean()):.1f}/{int(p.max())}' for p in (
+                    n[int(first[l]):int(first[l] + V * tyn[l] * txn[l])]
+                    for l in range(4)))
+            return Case(kernel, plain, (nbytes(g, rois, *feats), ops),
+                        exact=repeat,
+                        note=f'  bound with float32 level gradients (B9\'s '
+                             f'first form) {old:.3f} ms; {keys.numel()} '
+                             f'(RoI, tile) pairs, RoIs a tile p2..p5 '
+                             f'mean/max {lists}')
         return build
 
     def sdpa_args(q, k, v, a, H):
@@ -853,17 +890,19 @@ def kernel_cases():
         ('masked_attention', 'edge: ragged q101 k1000', False,
          attn(ragged_attn)),
         ('dcn_samples', 'stage3 s2 [12,64,176,256]', True,
-         dcn_fwd(12, 64, 176, 256, 2)),
-        ('dcn_samples', 'stage3 s1 [12,32,88,256]', False,
-         dcn_fwd(12, 32, 88, 256, 1)),
-        ('dcn_samples', 'stage4 s2 [12,32,88,512]', False,
-         dcn_fwd(12, 32, 88, 512, 2)),
-        ('dcn_samples', 'stage4 s1 [12,16,44,512]', False,
-         dcn_fwd(12, 16, 44, 512, 1)),
+         dcn_fwd(12, 64, 176, 256, 2, per_step=1)),
+        ('dcn_samples', 'stage3 s1 [12,32,88,256]', True,
+         dcn_fwd(12, 32, 88, 256, 1, per_step=5)),
+        ('dcn_samples', 'stage4 s2 [12,32,88,512]', True,
+         dcn_fwd(12, 32, 88, 512, 2, per_step=1)),
+        ('dcn_samples', 'stage4 s1 [12,16,44,512]', True,
+         dcn_fwd(12, 16, 44, 512, 1, per_step=2)),
         ('dcn_samples', 'edge: 20% offsets far outside', False,
          dcn_fwd(12, 16, 44, 512, 1, far=0.2)),
         ('dcn_samples', 'edge: integer coordinates', False,
          dcn_fwd(12, 16, 44, 512, 1, integer=True)),
+        ('dcn_samples', 'edge: ragged tiles [1,13,21,40]', False,
+         dcn_fwd(1, 13, 21, 40, 1)),
         ('dcn_samples_backward', 'stage3 s2 [12,64,176,256]', True,
          dcn_bwd(12, 64, 176, 256, 2, per_step=1)),
         ('dcn_samples_backward', 'stage3 s1 [12,32,88,256]', True,
@@ -893,7 +932,16 @@ def kernel_cases():
         ('roi_align_multilevel_backward', 'train rois [6,512,4]', True,
          roi_bwd(False)),
         ('roi_align_multilevel_backward',
+         'R101 p2-p5 1600x640, rois [6,512,4]', True,
+         roi_bwd(False, img=(640, 1600))),
+        ('roi_align_multilevel_backward',
          'edge: 1408x8, 6x512, empty, outside', False, roi_bwd(True)),
+        ('roi_align_multilevel_backward',
+         'edge: pile-up, 512 identical rois a view', False,
+         roi_bwd(False, pile=True)),
+        ('roi_align_multilevel_backward',
+         'run to run: two kernel runs, bit for bit', False,
+         roi_bwd(False, repeat=True)),
         ('fused_identity_chain', 'layer2 tail P128 [12,64,176,512] x3',
          True, identity_chain(12, 64, 176, 1)),
         ('fused_identity_chain', 'layer3 tail P256 [12,32,88,1024] x5',

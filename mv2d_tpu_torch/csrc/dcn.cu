@@ -385,9 +385,29 @@ __global__ void __launch_bounds__(256, 1) dcn_conv_tc_kernel(
 //
 // B5.  What bounds it on the H100: bytes.  It writes the [N, 9, C]
 // samples (the tap contraction is a separate GEMM, as in the JAX package)
-// and reads x once per tap corner, which the L2 cache absorbs.  One warp
-// owns one (pixel, tap): its lanes walk the channels in 16-byte vectors,
-// so every corner load and the sample store are coalesced.
+// and reads x, whose four corners a sample takes come from the L2 cache
+// (623 MB of them at stage-3 s2, four times the samples' bytes).  The
+// first form gave a warp to each (pixel, tap): every lane computed the
+// sample's corners itself, issued its four loads, stored once and exited,
+// and a block's eight taps of one pixel shared no corner with the next
+// block's (0.136 ms at stage-3 s2, half its 0.068 ms bound).  Now a
+// block owns a B5Y x B5X tile of output pixels x all 9 taps x a slice of
+// 32 x 16 bytes of channels:
+//  * each (pixel, tap)'s four corner offsets and bilinear weights x mask
+//    are computed once, a thread a (pixel, tap), into shared memory;
+//  * warp w takes the block's (pixel, tap) rows w, w + 8, ..., B5U at a
+//    time with all their corner loads in flight (16 bytes a lane; none for
+//    a corner of weight 0), so the eight warps work on neighbouring taps
+//    together and the tile's shared corners come from L1;
+//  * each sample is weighted in float32, rounded once and stored with a
+//    16-byte streaming store, so the samples do not push x out of L2.
+// 0.100 / 0.086 / 0.055 / 0.047 ms at stage-3 s2 / s1 and stage-4 s2 /
+// s1, 68% to 55% of the bound (chip_smoke.py; NVIDIA H100 80GB HBM3,
+// 700 W); what is left is each block's prologue and its corner loads'
+// latency at four blocks an SM.  Tried and dropped (the same shapes and
+// card): 4 x 8 and 8 x 8 pixel tiles (fewer blocks: a tail at stage 4),
+// four rows a warp in flight (two blocks an SM), five or eight blocks an
+// SM (spills), plain stores in place of the streaming ones.
 //
 // B6 takes ds = d(loss) / d(samples) and returns dx [V, H, W, C] in
 // x.dtype and dsy, dsx, dm [N, 9] in float32.  What bounds it: bytes, ds
@@ -430,37 +450,73 @@ __global__ void __launch_bounds__(256, 1) dcn_conv_tc_kernel(
 // clamped into the map: the derivative of the plain version.
 constexpr int SNT = 256;
 
+constexpr int B5Y = 4, B5X = 4;             // B5's output pixel tile
+constexpr int B5R = B5Y * B5X * TAPS;       // its (pixel, tap) rows
+constexpr int B5U = 2;                      // rows a warp has in flight
+
 template <typename T>
-__global__ void __launch_bounds__(SNT) dcn_samples_kernel(
+__global__ void __launch_bounds__(SNT, 4) dcn_samples_kernel(
     const T* __restrict__ x, const float* __restrict__ sy,
     const float* __restrict__ sx, const float* __restrict__ m,
-    T* __restrict__ out, int H, int W, int C, int HWo, long long N) {
+    T* __restrict__ out, int H, int W, int C, int Ho, int Wo) {
   constexpr int VW = 16 / sizeof(T);
-  const long long pt = ((long long)blockIdx.x * SNT + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (pt >= N * TAPS) return;
-  int idx[4];
-  float wt[4];
-  tap_corners(pt / TAPS, (int)(pt % TAPS), sy, sx, m, H, W, HWo, N, idx, wt);
-  T* o = out + pt * C;
-  for (int c = lane * VW; c < C; c += 32 * VW) {
-    float acc[VW] = {};
-    if (wt[0] != 0.f || wt[1] != 0.f || wt[2] != 0.f || wt[3] != 0.f) {
+  constexpr int NW = SNT / 32;
+  __shared__ int cidx[B5R][4];
+  __shared__ float cwt[B5R][4];
+  const int tyn = (Ho + B5Y - 1) / B5Y, txn = (Wo + B5X - 1) / B5X;
+  const int v = blockIdx.x / (tyn * txn), t = blockIdx.x % (tyn * txn);
+  const int oy0 = t / txn * B5Y, ox0 = t % txn * B5X;
+  const long long N = (long long)(v + 1) * Ho * Wo;   // pixels up to v's
+  // pixel q of the tile (row-major) and its place, N outside the map
+  auto pixel = [&](int q) -> long long {
+    const int oy = oy0 + q / B5X, ox = ox0 + q % B5X;
+    return oy < Ho && ox < Wo ? ((long long)v * Ho + oy) * Wo + ox : N;
+  };
+  for (int e = threadIdx.x; e < B5R; e += SNT)
+    tap_corners(pixel(e / TAPS), e % TAPS, sy, sx, m, H, W, Ho * Wo, N,
+                cidx[e], cwt[e]);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = (blockIdx.y * 32 + lane) * VW;
+  if (c >= C) return;
+  for (int r0 = warp; r0 < B5R; r0 += NW * B5U) {
+    uint4 raw[B5U][4];
+    float wt[B5U][4];
+#pragma unroll
+    for (int u = 0; u < B5U; ++u) {
+      const int r = r0 + u * NW;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const uint4 raw =
-            *reinterpret_cast<const uint4*>(x + (size_t)idx[q] * C + c);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < VW; ++j)
-          acc[j] = fmaf(wt[q], mv2d::to_f32(e[j]), acc[j]);
+        wt[u][q] = r < B5R ? cwt[r][q] : 0.f;
+        raw[u][q] = make_uint4(0, 0, 0, 0);
+        if (wt[u][q] != 0.f)
+          raw[u][q] = *reinterpret_cast<const uint4*>(
+              x + (size_t)cidx[r][q] * C + c);
       }
     }
-    uint4 packed;
-    T* e = reinterpret_cast<T*>(&packed);
 #pragma unroll
-    for (int j = 0; j < VW; ++j) e[j] = mv2d::from_f32<T>(acc[j]);
-    *reinterpret_cast<uint4*>(o + c) = packed;
+    for (int u = 0; u < B5U; ++u) {
+      const int r = r0 + u * NW;
+      if (r >= B5R) break;
+      const long long p = pixel(r / TAPS);
+      if (p >= N) continue;
+      float acc[VW];
+#pragma unroll
+      for (int j = 0; j < VW; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const T* e = reinterpret_cast<const T*>(&raw[u][q]);
+#pragma unroll
+        for (int j = 0; j < VW; ++j)
+          acc[j] = fmaf(wt[u][q], mv2d::to_f32(e[j]), acc[j]);
+      }
+      uint4 packed;
+      T* e = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) e[j] = mv2d::from_f32<T>(acc[j]);
+      __stcs(reinterpret_cast<uint4*>(out + (p * TAPS + r % TAPS) * C + c),
+             packed);
+    }
   }
 }
 
@@ -1359,14 +1415,17 @@ extern "C" int mv2d_dcn_samples(const void* x, const void* sy,
                                 const void* sx, const void* m, void* out,
                                 int V, int H, int W, int C, int Ho, int Wo,
                                 int dtype, void* stream) {
-  const long long N = (long long)V * Ho * Wo;
-  const unsigned blocks = (unsigned)((N * TAPS * 32 + SNT - 1) / SNT);
   auto s = static_cast<cudaStream_t>(stream);
+  if ((long long)V * Ho * Wo == 0 || C == 0) return 0;
+  const long long tiles = (long long)V * ((Ho + B5Y - 1) / B5Y) *
+                          ((Wo + B5X - 1) / B5X);
   MV2D_DISPATCH(dtype, T, {
-    dcn_samples_kernel<T><<<blocks, SNT, 0, s>>>(
+    constexpr int VW = 16 / sizeof(T);
+    const dim3 grid((unsigned)tiles, (C / VW + 31) / 32);
+    dcn_samples_kernel<T><<<grid, SNT, 0, s>>>(
         static_cast<const T*>(x), static_cast<const float*>(sy),
         static_cast<const float*>(sx), static_cast<const float*>(m),
-        static_cast<T*>(out), H, W, C, Ho * Wo, N);
+        static_cast<T*>(out), H, W, C, Ho, Wo);
   });
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,7 +38,7 @@ SIGNATURES = {
     'mv2d_dcn_samples_bwd': [_P] * 10 + [_I] * 7 + [_P],
     'mv2d_roi_align': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2
                       + [_I] * 4 + [_P],
-    'mv2d_roi_align_bwd': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 2
+    'mv2d_roi_align_bwd': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 4
                           + [_I] * 4 + [_P],
     'mv2d_mask_bits': [_P] * 2 + [_I] * 2 + [_P],
     'mv2d_masked_attention': [_P] * 11 + [_I] * 6 + [_P],

@@ -272,13 +272,179 @@ def roi_align_slab(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 roi_align_slab.launches = 0
 
 
+# B9's owners: tiles of OWNER_TILE x OWNER_TILE cells of each (view, level)
+# map
+OWNER_TILE = 8
+
+
+def _roi_axes(rois: torch.Tensor, scale: torch.Tensor):
+    """K3's axes of each RoI on its level: (y1, bh, x1, bw), the first
+    sample's offset and the RoI's extent in cells (scale [R] = 1 / the
+    level's stride)."""
+    x1 = rois[:, 0] * scale - 0.5
+    y1 = rois[:, 1] * scale - 0.5
+    bw = (rois[:, 2] - rois[:, 0]) * scale
+    bh = (rois[:, 3] - rois[:, 1]) * scale
+    return y1, bh, x1, bw
+
+
+def _axis_footprint(lo, extent, n):
+    """[lo, hi] per RoI [R]: the cells the samples of its 7 bins touch
+    along one axis (floor and floor + 1 of each clamped sample inside
+    (-1, n)), lo > hi without a sample inside."""
+    O = 7
+    bin_ = extent / O
+    ns = torch.ceil(bin_).clamp(min=0.0)
+    div = ns.clamp(min=1.0)
+    S = max(int(ns.max()) if ns.numel() else 0, 1)
+    s = torch.arange(S, dtype=lo.dtype)
+    oi = torch.arange(O, dtype=lo.dtype)
+    xs = lo[:, None, None] + (oi[:, None] + (s + 0.5) / div[:, None, None]) \
+        * bin_[:, None, None]                                  # [R, O, S]
+    ok = (s < ns[:, None, None]) & (xs > -1.0) & (xs < n[:, None, None])
+    top = (n - 1).to(lo.dtype)[:, None, None]
+    c0 = torch.minimum(torch.maximum(xs, torch.zeros_like(xs)), top).floor()
+    c1 = torch.minimum(c0 + 1, top)
+    big = torch.full_like(xs, float(1 << 30))
+    lo_c = torch.where(ok, c0, big).amin((1, 2))
+    hi_c = torch.where(ok, c1, -torch.ones_like(xs)).amax((1, 2))
+    return lo_c.long(), hi_c.long()
+
+
+def roi_footprints_plain(rois: torch.Tensor, dims: Sequence[int],
+                         strides: Sequence[int]):
+    """B9's index pass.  rois [R, 4] image pixels, dims the four levels'
+    (H_l, W_l) pairs -> (level [R], box [R, 4] = (ylo, yhi, xlo, xhi)):
+    the cells of its level that the RoI's samples touch (K3's routing and
+    adaptive ceil(bin) sampling), (2^30, -1, 2^30, -1) without a sample
+    inside the map."""
+    rois = rois.float()
+    lvl = roi_levels(rois)
+    H = torch.tensor(dims[0::2])[lvl]
+    W = torch.tensor(dims[1::2])[lvl]
+    scale = (1.0 / torch.tensor([float(s) for s in strides]))[lvl]
+    y1, bh, x1, bw = _roi_axes(rois, scale)
+    ylo, yhi = _axis_footprint(y1, bh, H)
+    xlo, xhi = _axis_footprint(x1, bw, W)
+    box = torch.stack([ylo, yhi, xlo, xhi], -1)
+    empty = (ylo > yhi) | (xlo > xhi)
+    box[empty] = torch.tensor([1 << 30, -1, 1 << 30, -1])
+    return lvl, box
+
+
+def _owner_tiles(dims: Sequence[int], V: int):
+    """B9's tiles, numbered as its blocks are: from the coarsest level
+    down, view-major within a level, row-major within a map.  -> (tyn [4],
+    txn [4], first [4], total): the tiles a level spans along y and x, and
+    the number of the first tile of each level's view 0."""
+    T = OWNER_TILE
+    tyn = torch.tensor([-(-h // T) for h in dims[0::2]])
+    txn = torch.tensor([-(-w // T) for w in dims[1::2]])
+    n = V * tyn * txn
+    first = torch.flip(torch.cumsum(torch.flip(n, (0,)), 0), (0,)) - n
+    return tyn, txn, first, int(n.sum())
+
+
+def roi_owner_lists_plain(rois: torch.Tensor, dims: Sequence[int],
+                          strides: Sequence[int]):
+    """B9's tile lists.  rois [V, P, 4] -> (keys [M], roi [M], starts
+    [ntiles + 1]): one entry for each (RoI, owner tile) pair whose
+    footprint (`roi_footprints_plain`) meets the tile, keyed by the tile
+    (`_owner_tiles`: first[l] + v * tiles of level l + ty * txn[l] + tx,
+    tiles of OWNER_TILE cells), sorted by key, ties in RoI order (roi =
+    v * P + p); tile k's entries are [starts[k], starts[k + 1])."""
+    V, P = rois.shape[:2]
+    T = OWNER_TILE
+    lvl, box = roi_footprints_plain(rois.reshape(-1, 4), dims, strides)
+    tyn, txn, first, total = _owner_tiles(dims, V)
+    live = box[:, 0] <= box[:, 1]
+    t0y, t1y = box[:, 0] // T, box[:, 1] // T
+    t0x, t1x = box[:, 2] // T, box[:, 3] // T
+    nty = torch.where(live, t1y - t0y + 1, 0)
+    ntx = torch.where(live, t1x - t0x + 1, 0)
+    cnt = nty * ntx
+    roi = torch.repeat_interleave(torch.arange(V * P), cnt)
+    local = torch.arange(int(cnt.sum())) - torch.repeat_interleave(
+        torch.cumsum(cnt, 0) - cnt, cnt)
+    ty = t0y[roi] + local // ntx[roi]
+    tx = t0x[roi] + local % ntx[roi]
+    lr = lvl[roi]
+    keys = first[lr] + roi // P * tyn[lr] * txn[lr] + ty * txn[lr] + tx
+    order = torch.sort(keys, stable=True).indices
+    keys, roi = keys[order], roi[order]
+    starts = torch.searchsorted(keys, torch.arange(total + 1))
+    return keys, roi, starts
+
+
+def roi_align_backward_plain(feats: Sequence[torch.Tensor],
+                             rois: torch.Tensor, dout: torch.Tensor,
+                             strides: Sequence[int]):
+    """B9's function by its owner scheme in plain PyTorch: each entry of
+    `roi_owner_lists_plain` adds Wy[i, y] Wx[j, x] dOut[r, i, j] to the
+    cells of its tile (the RoI's profiles, as `_axis_weights` gives them,
+    on the tile's rows and columns), and each tile's sum, in float32, goes
+    to its cells of the level gradient.  Returns what
+    `roi_align_multilevel_backward` does: the four levels' gradients in
+    the features' dtype."""
+    V, P = rois.shape[:2]
+    C = feats[0].shape[-1]
+    T = OWNER_TILE
+    dims = [d for f in feats for d in (f.shape[1], f.shape[2])]
+    keys, roi, _ = roi_owner_lists_plain(rois, dims, strides)
+    tyn, txn, first, total = _owner_tiles(dims, V)
+    flat = rois.reshape(-1, 4).float()
+    lvl = roi_levels(flat)
+    d = dout.reshape(V * P, 7, 7, C).float()
+    tiles = torch.zeros((total, T, T, C))
+    for l, s in enumerate(strides):
+        H, W = dims[2 * l], dims[2 * l + 1]
+        at = lvl[roi] == l
+        if not bool(at.any()):
+            continue
+        e_roi, e_key = roi[at], keys[at]
+        t = (e_key - first[l]) % (tyn[l] * txn[l])
+        ty, tx = t // txn[l], t % txn[l]
+        y1, bh, x1, bw = _roi_axes(flat[e_roi], torch.full((e_roi.numel(),),
+                                                           1.0 / s))
+        amax = (max(int(torch.ceil(bh / 7).max()), 1),
+                max(int(torch.ceil(bw / 7).max()), 1))
+        Hp, Wp = int(tyn[l]) * T, int(txn[l]) * T
+        # the profiles over the level, padded to whole tiles, on the tiles'
+        # rows and columns: [E, 7, T]
+        wy = torch.nn.functional.pad(_axis_weights(y1, bh, H, 7, amax[0]),
+                                     (0, Hp - H))
+        wx = torch.nn.functional.pad(_axis_weights(x1, bw, W, 7, amax[1]),
+                                     (0, Wp - W))
+        ar = torch.arange(T)
+        wy = wy.gather(2, (ty[:, None] * T + ar)[:, None].expand(-1, 7, -1))
+        wx = wx.gather(2, (tx[:, None] * T + ar)[:, None].expand(-1, 7, -1))
+        tiles.index_add_(0, e_key, torch.einsum('eiy,ejx,eijc->eyxc', wy,
+                                                wx, d[e_roi]))
+    grads = []
+    for l, f in enumerate(feats):
+        H, W = dims[2 * l], dims[2 * l + 1]
+        ny, nx = int(tyn[l]), int(txn[l])
+        t = tiles[int(first[l]):int(first[l]) + V * ny * nx]
+        g = t.reshape(V, ny, nx, T, T, C).permute(0, 1, 3, 2, 4, 5) \
+            .reshape(V, ny * T, nx * T, C)[:, :H, :W]
+        grads.append(g.to(f.dtype).contiguous())
+    return grads
+
+
 def roi_align_multilevel_backward(feats: Sequence[torch.Tensor],
                                   rois: torch.Tensor, dout: torch.Tensor,
                                   strides: Sequence[int]):
-    """Kernel B9 on CUDA tensors: dOut [V, P, 7, 7, C] (feats' dtype) ->
-    the four levels' float32 gradients [V, H_l, W_l, C] (K3's routing and
-    sampling transposed, in separable form).  It is the backward of K3 and
-    of B11, which compute the same function."""
+    """Kernel B9: dOut [V, P, 7, 7, C] (feats' dtype) -> the four levels'
+    gradients [V, H_l, W_l, C] in the features' dtype (K3's routing and
+    sampling transposed, in separable form).  Every element is written
+    once, by the owner of its tile, from a float32 sum over the RoIs that
+    reach it in RoI order, so two runs give equal bits.  It is the
+    backward of K3 and of B11, which compute the same function.  CPU
+    tensors take `roi_align_backward_plain`; CUDA tensors launch the
+    kernels (float32 or bfloat16, C % 8 == 0, sides <= 512; any other
+    input raises)."""
+    if rois.device.type == 'cpu':
+        return roi_align_backward_plain(feats, rois, dout, strides)
     V, P = rois.shape[:2]
     feats, dims, scales = _levels(feats, strides, V)
     C = feats[0].shape[-1]
@@ -289,11 +455,13 @@ def roi_align_multilevel_backward(feats: Sequence[torch.Tensor],
     rois = rois.float().contiguous()
     dout = dout.contiguous()
     kernels.check_cuda(rois, dout)
-    grads = [torch.zeros(f.shape, dtype=torch.float32, device=rois.device)
-             for f in feats]
+    grads = [torch.empty_like(f) for f in feats]
+    box = torch.empty((V * P, 4), dtype=torch.int32, device=rois.device)
+    lvl = torch.empty((V * P,), dtype=torch.int32, device=rois.device)
     kernels.launch('mv2d_roi_align_bwd', *(g.data_ptr() for g in grads),
-                   *dims, *scales, rois.data_ptr(), dout.data_ptr(), V, P,
-                   C, kernels.dtype_code(dout))
+                   *dims, *scales, rois.data_ptr(), dout.data_ptr(),
+                   box.data_ptr(), lvl.data_ptr(), V, P, C,
+                   kernels.dtype_code(dout))
     roi_align_multilevel_backward.launches += 1
     return grads
 
@@ -303,8 +471,9 @@ roi_align_multilevel_backward.launches = 0
 
 class RoIAlignMultilevelFn(torch.autograd.Function):
     """K3 forward, or B11 with `slab` (JAX's v2 route: the v2 forward and
-    the slab backward's pallas_call); B9 backward.  The RoIs get no
-    gradient."""
+    the slab backward's pallas_call); B9 backward, whose level gradients
+    come back in the features' dtype as the kernel writes them.  The RoIs
+    get no gradient."""
 
     @staticmethod
     def forward(ctx, rois, strides, slab, *feats):
@@ -316,10 +485,9 @@ class RoIAlignMultilevelFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         rois, *feats = ctx.saved_tensors
-        grads = roi_align_multilevel_backward(
-            feats, rois, dout.to(feats[0].dtype), ctx.strides)
         return (None, None, None,
-                *(g.to(f.dtype) for g, f in zip(grads, feats)))
+                *roi_align_multilevel_backward(feats, rois, dout,
+                                               ctx.strides))
 
 
 def roi_align_multilevel_train(feats: Sequence[torch.Tensor],

@@ -358,6 +358,108 @@ def test_roi_align_backward_kernel(dev, dtype, tol):
     check_all([got, *ggot], [out, *grads], tol)
 
 
+def b9_case(dev, dt, V=2, P=60, img=(256, 512), C=32, edge=True,
+            pile=False):
+    """B9's inputs, the plain version's autograd and a cotangent; `pile`
+    puts every RoI on one box."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois = smoke.roi_inputs(dev, dt, V=V, P=P, img=img, C=C,
+                                   edge=edge)
+    if pile:
+        rois[:] = torch.tensor([100.0, 50.0, 220.0, 170.0], device=dev)
+    strides = (4, 8, 16, 32)
+
+    def plain(*fs):
+        return roi_align.multilevel_roi_align_plain(fs, rois, strides)
+    g = smoke.cotangent(plain(*feats))
+    _, want = smoke.plain_grads(plain, feats, range(4), g)
+    return feats, rois, strides, g, want
+
+
+def test_roi_align_backward_bf16_runs_are_bit_equal(dev):
+    """No float atomics: two runs of B9 give equal bits, at the training
+    RoIs' shape and on a pile-up."""
+    from mv2d_tpu_torch.ops import roi_align
+    for pile in (False, True):
+        feats, rois, strides, g, _ = b9_case(dev, torch.bfloat16, V=6,
+                                             P=512, img=(512, 1408), C=64,
+                                             edge=False, pile=pile)
+        a = roi_align.roi_align_multilevel_backward(feats, rois, g, strides)
+        b = roi_align.roi_align_multilevel_backward(feats, rois, g, strides)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+def test_roi_align_backward_dtype_and_zeros(dev, dtype, tol):
+    """B9 returns each level in the features' dtype, written in full: zero
+    exactly where no RoI's footprint reaches (the plain index pass's
+    boxes), the plain version's autograd elsewhere."""
+    from mv2d_tpu_torch.ops import roi_align
+    dt = getattr(torch, dtype)
+    feats, rois, strides, g, want = b9_case(dev, dt)
+    got = roi_align.roi_align_multilevel_backward(feats, rois, g, strides)
+    check_all(got, want, tol)
+    dims = [d for f in feats for d in (f.shape[1], f.shape[2])]
+    lvl, box = roi_align.roi_footprints_plain(rois.reshape(-1, 4).cpu(),
+                                              dims, strides)
+    P = rois.shape[1]
+    for l, (f, gl) in enumerate(zip(feats, got)):
+        assert gl.dtype == f.dtype and gl.shape == f.shape
+        cover = torch.zeros(f.shape[:3], dtype=torch.bool)
+        for r in torch.nonzero(lvl == l).flatten().tolist():
+            y0, y1, x0, x1 = box[r].tolist()
+            cover[r // P, y0:y1 + 1, x0:x1 + 1] = True
+        assert bool((gl.cpu()[~cover] == 0).all())
+        assert bool(cover.any()) == bool((gl != 0).any())
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+def test_roi_align_backward_pile_up(dev, dtype, tol):
+    """512 identical RoIs on a view: each tile they cover walks a list of
+    512 RoIs."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois, strides, g, want = b9_case(
+        dev, getattr(torch, dtype), V=2, P=512, C=64, edge=False, pile=True)
+    n9 = roi_align.roi_align_multilevel_backward.launches
+    got = roi_align.roi_align_multilevel_backward(feats, rois, g, strides)
+    assert roi_align.roi_align_multilevel_backward.launches == n9 + 1
+    check_all(got, want, tol)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('V,H,W,C,stride', [
+    (12, 64, 176, 256, 2), (12, 32, 88, 256, 1),     # the stage shapes
+    (12, 32, 88, 512, 2), (12, 16, 44, 512, 1),
+    (1, 13, 21, 40, 1), (2, 9, 15, 64, 2)])           # ragged pixel tiles
+def test_dcn_samples_forward_shapes(dev, dtype, tol, V, H, W, C, stride):
+    """B5 at the four DCN stage shapes and where Ho, Wo are not multiples
+    of its pixel tile; one launch a call."""
+    from mv2d_tpu_torch.ops import dcn
+    x, sy, sx, m, _ = smoke.dcn_inputs(dev, getattr(torch, dtype), V, H, W,
+                                       C, 64, stride)
+    n5 = dcn.dcn_samples_forward.launches
+    got = dcn.dcn_samples_forward(x, sy, sx, m)
+    assert dcn.dcn_samples_forward.launches == n5 + 1
+    assert got.dtype == x.dtype
+    check(got, dcn.dcn_samples_plain(x, sy, sx, m), tol)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('kind', ['far', 'integer'])
+def test_dcn_samples_forward_far_and_integer(dev, dtype, tol, kind):
+    """B5 with half the samples far outside the map (no corner loads),
+    and on integer coordinates (three corners of weight 0)."""
+    from mv2d_tpu_torch.ops import dcn
+    x, sy, sx, m, _ = smoke.dcn_inputs(dev, getattr(torch, dtype), 2, 13,
+                                       21, 64, 64, 1,
+                                       far=0.5 if kind == 'far' else 0.0)
+    if kind == 'integer':
+        sy, sx = sy.round(), sx.round()
+    check(dcn.dcn_samples_forward(x, sy, sx, m),
+          dcn.dcn_samples_plain(x, sy, sx, m), tol)
+
+
 def test_kernels_refuse_cpu_fallback(dev):
     """On CUDA tensors a wrapper launches or raises; bad input raises."""
     from mv2d_tpu_torch.ops import attention, dcn
