@@ -37,7 +37,14 @@ Phases, in order; any failure exits non-zero without the final line:
      line also gives the bound with float32 ones, its first form's), and
      checked on a pile-up of 512 identical RoIs a view and for equal bits
      in two runs; K3 is also timed at R101's levels and on 64 of the
-     channels of its main case (`c64_ms`), and checked on slivers only;
+     channels of its main case (`c64_ms`), and checked on slivers only.
+     B13 is timed at its three stage shapes beside the route's forward +
+     backward a layer (`route_fwd_bwd_ms`) and the default route's
+     (`default_route_fwd_bwd_ms`), logs its transient workspace, and is
+     checked on a pile-up of every sample on one cell and for equal bits in
+     two runs; B10's cases time the cuDNN chain it replaces as `library`,
+     log its bf16 tile and the shared memory a block takes, and are checked
+     on ragged tiles at both widths and for equal bits in two runs;
   4. tiny: the tiny config with DCN, eval forward, GPU (kernels) against
      CPU (plain versions), same seeded weights;
   5. tiny_train: one tiny+DCN training step (float32, TF32 off, dropout
@@ -71,8 +78,10 @@ Phases, in order; any failure exits non-zero without the final line:
      layer2's tail, and not while gradients are recorded), one tiny+DCN
      training step with dcn_train_fused and flash_sparse
      (MV2D_DCN_TRAIN_FUSED=1, MV2D_FLASH_SPARSE=1; K2, B13 and B8, which
-     answers the sparse route; B5 and B6 not launched), and one with align_v2 (MV2D_ALIGN_V2=1; B11 and B9,
-     K3 not launched), every loss and gradient;
+     answers the sparse route; B5 and B6's wrappers not called: B13 runs
+     B6's walk inside its own C entry), and one with align_v2
+     (MV2D_ALIGN_V2=1; B11 and B9, K3 not launched), every loss and
+     gradient;
   10. routes: at full width, two bf16 eval forwards with fused_stages='all'
      and three training steps with the three training routes (B13, B8
      on the sparse attention route, and B11 with B9 for the R-CNN RoIAlign): finite outputs,
@@ -158,8 +167,10 @@ TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_samples': 9,
                   'mask_bits': MASKS_PER_PASS,
                   **{n: 0 for n in ROUTED_KERNELS}}
 # launches per training step with the dcn_train_fused, flash_sparse and
-# align_v2 routes (K2: the nine DCN convs' forwards; B8 answers the sparse
-# attention's backward; B11: the detect pass and the R-CNN RoIs)
+# align_v2 routes (K2: the nine DCN convs' forwards; B13 their backwards,
+# with B6's walk inside its own C entry, so B6's wrapper counts none; B8
+# answers the sparse attention's backward; B11: the detect pass and the
+# R-CNN RoIs)
 ROUTED_TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_conv': 9,
                          'dcn_conv_backward': 9, 'dcn_samples': 0,
                          'dcn_samples_backward': 0, 'masked_attention': 12,
@@ -528,16 +539,30 @@ def kernel_cases():
                         note=note)
         return build
 
-    def identity_chain(V, H, W, stage_index):
+    def identity_chain(V, H, W, stage_index, repeat=False):
         def build(dev, dt):
             x, blocks = identity_chain_inputs(dev, dt, V, H, W, stage_index)
             N = x.shape[0] * x.shape[1] * x.shape[2]
             macs = sum(w.numel() for blk in blocks for k, w in blk.items()
                        if k.startswith('w'))
-            return Case(lambda: stage.fused_identity_chain(x, blocks),
-                        lambda: stage.fused_identity_chain_plain(x, blocks),
+            planes = blocks[0]['w1'].shape[1]
+            th, tw, smem = stage.identity_block_plan(planes)
+            tiles = V * -(-H // th) * -(-W // tw)
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            note = (f'  bf16 tile {th}x{tw}, {smem / 1024:.1f} KB shared a '
+                    f'block, {tiles} tiles on {min(tiles, sms)} blocks')
+
+            def kernel():
+                return stage.fused_identity_chain(x, blocks)
+
+            def cudnn():            # the unfused chain B10 replaces
+                return stage.fused_identity_chain_plain(x, blocks)
+            # `repeat`: a second run of the kernel, to be equal bit for bit
+            return Case(kernel, kernel if repeat else cudnn,
                         (nbytes(x) * 2 + macs * x.element_size(),
-                         2.0 * N * macs))
+                         2.0 * N * macs), library=cudnn, exact=repeat,
+                        note=note)
         return build
 
     def dcn_conv(V, H, W, C, F_, s, far=0.0, integer=False, per_forward=0):
@@ -604,17 +629,28 @@ def kernel_cases():
                 (moved + nbytes(x), 20.0 * sy.numel() * C), note=note)
         return build
 
-    def dcn_conv_bwd(V, H, W, C, F_, s, far=0.0, integer=False):
+    def dcn_conv_bwd(V, H, W, C, F_, s, far=0.0, integer=False, pile=False,
+                     repeat=False):
         def build(dev, dt):
             x, sy, sx, m, w = dcn_inputs(dev, dt, V, H, W, C, F_, s, far=far)
             if integer:                 # zero offsets: integer coordinates
                 sy, sx = sy.round(), sx.round()
-            args = (x, sy, sx, m, w)
+            if pile:                    # every in-map sample on one cell
+                inside = (sy > -1) & (sy < H) & (sx > -1) & (sx < W)
+                sy = torch.where(inside, torch.full_like(sy, 5.25), sy)
+                sx = torch.where(inside, torch.full_like(sx, 7.5), sx)
+            args = (x, sy.contiguous(), sx.contiguous(), m, w)
             leaves = [t.clone().requires_grad_(True) for t in args]
             with torch.enable_grad():
                 out = dcn.dcn_conv_plain(*leaves)
             g = cotangent(out)
             N = sy.numel() // 9
+            Ho, Wo = sy.shape[1:3]
+            work = dcn.conv_backward_workspace(
+                V, H, W, C, Ho, Wo, F_, 0 if dt == torch.float32 else 1)
+
+            def kernel():
+                return dcn.dcn_conv_backward(*args, g)
 
             def fwd_bwd(fn):            # a route's forward and backward
                 with torch.enable_grad():
@@ -624,16 +660,20 @@ def kernel_cases():
                 smp = dcn.dcn_samples(x_, sy_, sx_, m_)
                 return (smp.reshape(N, -1) @ w_.reshape(-1, F_)).reshape(
                     out.shape)
+            # dx and dw in the inputs' dtypes, as B13 writes them; `repeat`:
+            # a second run of the kernel, to be equal bit for bit
             return Case(
-                lambda: dcn.dcn_conv_backward(x, sy, sx, m, w, g),
-                lambda: torch.autograd.grad(out, leaves, g,
-                                            retain_graph=True),
-                (nbytes(x, sy, sx, m, w, g) + 4.0 * (x.numel() + w.numel())
-                 + 3 * nbytes(sy), 4.0 * N * 9 * C * F_),
+                kernel, kernel if repeat else lambda: torch.autograd.grad(
+                    out, leaves, g, retain_graph=True),
+                (nbytes(x, sy, sx, m, w, g) + nbytes(x, w) + 3 * nbytes(sy),
+                 4.0 * N * 9 * C * F_),
                 extra={'route_fwd_bwd_ms':
                        lambda: fwd_bwd(dcn.dcn_conv_train),
                        'default_route_fwd_bwd_ms':
-                       lambda: fwd_bwd(default_route)})
+                       lambda: fwd_bwd(default_route)},
+                exact=repeat,
+                note=f'  workspace {work / 2 ** 20:.1f} MiB (ds, B6\'s '
+                     f'lists, dw\'s split partials)')
         return build
 
     def roi(edge, V=12, P=1000, img=(512, 1408), sliver=False, c64=False):
@@ -948,6 +988,10 @@ def kernel_cases():
          True, identity_chain(12, 32, 88, 2)),
         ('fused_identity_chain', 'edge: ragged tiles P128 [2,13,37,512]',
          False, identity_chain(2, 13, 37, 1)),
+        ('fused_identity_chain', 'edge: ragged tiles P256 [2,13,37,1024]',
+         False, identity_chain(2, 13, 37, 2)),
+        ('fused_identity_chain', 'run to run: two kernel runs, bit for bit',
+         False, identity_chain(12, 32, 88, 2, repeat=True)),
         ('dcn_conv_backward', 'stage3 s2 [12,64,176,256]', True,
          dcn_conv_bwd(12, 64, 176, 256, 256, 2)),
         ('dcn_conv_backward', 'stage3 s1 [12,32,88,256]', True,
@@ -958,6 +1002,10 @@ def kernel_cases():
          dcn_conv_bwd(12, 16, 44, 512, 512, 1, far=0.2)),
         ('dcn_conv_backward', 'edge: integer coordinates', False,
          dcn_conv_bwd(12, 16, 44, 512, 512, 1, integer=True)),
+        ('dcn_conv_backward', 'edge: pile-up, every sample on one cell',
+         False, dcn_conv_bwd(12, 16, 44, 512, 512, 1, far=0.2, pile=True)),
+        ('dcn_conv_backward', 'run to run: two kernel runs, bit for bit',
+         False, dcn_conv_bwd(12, 32, 88, 256, 256, 1, repeat=True)),
         ('masked_attention_backward', 'sparse route: cross q2628 k16384',
          True, attn_bwd(train_attn(False), sparse=True)),
         ('masked_attention_backward', 'sparse route: self q2628 DN mask',
@@ -1656,8 +1704,9 @@ def phase_routes_tiny(dev):
     stage output within 1e-4 of its max magnitude; with gradients on, no
     B10 and a gradient in layer2's tail), then one tiny+DCN training step
     with dcn_train_fused and flash_sparse (phase_tiny_train's checks, with
-    K2, B13 and B8 launched and B5 and B6 not), and one with align_v2
-    (B11 and B9 launched, K3 not)."""
+    K2, B13 and B8 launched and B5 and B6's wrappers not called: B13 runs
+    B6's walk inside its own C entry), and one with align_v2 (B11 and B9
+    launched, K3 not)."""
     import torch
     from mv2d_tpu_torch.nn.resnet import ResNet
     from mv2d_tpu_torch.routes import Routes
@@ -1715,7 +1764,9 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     """Full width on the optional routes: bf16 eval forwards with
     fused_stages='all' (B10 on layer2's tail), then training steps with
     dcn_train_fused, flash_sparse and align_v2 (B13, B8, B11 / B9), each
-    beside the default route's ms and peak memory from this run."""
+    beside the default route's ms and peak memory from this run.  B13 runs
+    B6's walk inside its own C entry, so B5 and B6's wrappers count no
+    launch on the routed step (ROUTED_TRAIN_PER_STEP)."""
     import torch
     import mv2d_tpu_torch.nn.resnet as resnet
     import mv2d_tpu_torch.ops.attention as attention

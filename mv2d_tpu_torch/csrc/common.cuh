@@ -24,22 +24,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// p[0..N) += v[0..N) with float32 atomics; p 16-byte aligned, N % 4 == 0.
-// sm_90 adds four floats in one vector atomic.
-template <int N>
-__device__ __forceinline__ void atomic_add(float* p, const float* v) {
-  static_assert(N % 4 == 0, "atomic_add takes whole float4 groups");
-#pragma unroll
-  for (int k = 0; k < N; k += 4) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-    atomicAdd(reinterpret_cast<float4*>(p + k),
-              make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
-#else
-    for (int j = 0; j < 4; ++j) atomicAdd(p + k + j, v[k + j]);
-#endif
-  }
-}
-
 }  // namespace mv2d
 
 // Runs the statement block with T bound to the element type of `code`.

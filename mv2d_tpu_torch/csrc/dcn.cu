@@ -89,20 +89,17 @@ __device__ __forceinline__ Bilinear bilinear_at(float yr, float xr, int H,
   return b;
 }
 
-// Bilinear corners of pixel p's tap t: pixel indices and weights * mask,
-// all weights 0 when the sample lies outside (-1, extent).
-__device__ __forceinline__ void tap_corners(
-    long long p, int t, const float* __restrict__ sy,
-    const float* __restrict__ sx, const float* __restrict__ m, int H, int W,
-    int HWo, long long N, int* idx, float* wt) {
+// Bilinear corners of pixel p's sample at (yr, xr) with mask mm: pixel
+// indices and weights * mask, all weights 0 when the sample lies outside
+// (-1, extent).
+__device__ __forceinline__ void corners_at(long long p, float yr, float xr,
+                                           float mm, int H, int W, int HWo,
+                                           int* idx, float* wt) {
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     idx[q] = 0;
     wt[q] = 0.f;
   }
-  if (p >= N) return;
-  const float yr = sy[p * TAPS + t], xr = sx[p * TAPS + t];
-  const float mm = m[p * TAPS + t];
   if (!in_map(yr, xr, H, W)) return;
   const Bilinear b = bilinear_at(yr, xr, H, W);
   const int y0 = b.y0, x0 = b.x0, y1 = b.y1, x1 = b.x1;
@@ -116,6 +113,16 @@ __device__ __forceinline__ void tap_corners(
   wt[1] = (1.f - ly) * lx * mm;
   wt[2] = ly * (1.f - lx) * mm;
   wt[3] = ly * lx * mm;
+}
+
+// the same for pixel p's tap t; pixels past N are 0
+__device__ __forceinline__ void tap_corners(
+    long long p, int t, const float* __restrict__ sy,
+    const float* __restrict__ sx, const float* __restrict__ m, int H, int W,
+    int HWo, long long N, int* idx, float* wt) {
+  const bool here = p < N;
+  corners_at(p, here ? sy[p * TAPS + t] : -2.f, here ? sx[p * TAPS + t] : -2.f,
+             here ? m[p * TAPS + t] : 0.f, H, W, HWo, idx, wt);
 }
 
 template <typename T>
@@ -323,12 +330,11 @@ __global__ void __launch_bounds__(256, 1) dcn_conv_tc_kernel(
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < G::KS; ++ks)
-      wgmma_tb<FT>(acc,
-                   desc_sw128(as + buf * G::A_TILE + wg_row * 128 + ks * 32,
-                              16, 1024),
-                   desc_sw128(ws + s * G::W_TILE + ks * 2048 +
-                                  wg_col / 64 * G::W_LBO,
-                              G::W_LBO, 1024));
+      wgmma_ss<FT, 0, 1>(
+          acc,
+          desc_sw128(as + buf * G::A_TILE + wg_row * 128 + ks * 32, 16, 1024),
+          desc_sw128(ws + s * G::W_TILE + ks * 2048 + wg_col / 64 * G::W_LBO,
+                     G::W_LBO, 1024));
     wgmma_commit();
     if (i + 1 < n) fill(i + 1, buf ^ 1);
     wgmma_wait<0>();
@@ -840,7 +846,6 @@ __global__ void __launch_bounds__(SNT, 2) owner_walk_kernel(
   uint4* ring = walk_smem + wib * WALK_WARP;
   float4* bw = reinterpret_cast<float4*>(ring + WSTG * WG * 32);
   int* bm = reinterpret_cast<int*>(bw + 32);
-  const bool hi16 = lane & 16, hi8 = lane & 8;
   for (int b0 = lo; b0 < hi; b0 += 32) {
     // a batch of up to 32 entries: lane j loads entry b0 + j's record; the
     // entries' ds rows stream in by cp.async, WSTG - 1 groups of WG ahead
@@ -1060,206 +1065,67 @@ unsigned grid_of(long long threads, int per_block) {
 // ---- B13: the combined backward of the DCN conv (K2's function).
 //   ds[p, t, c] = sum_f dy[p, f] w[t, c, f]          (sample gradients)
 //   dw[t, c, f] = sum_p samples[p, t, c] dy[p, f]     (tap-weight gradient)
-// and from ds: dx (scattered with float32 atomics, as B6 did before it
-// took one owner per dx element), dm, dsy, dsx.
+// and from ds: dx, dm, dsy, dsx, as B6 takes them from dsamples.
 // Replaces mv2d_tpu/ops/pallas_dcn.py: _run_conv_bwd (_kernel_conv_bwd),
 // the backward of the MV2D_DCN_TRAIN_FUSED=1 training DCN, which recomputed
-// the samples per band segment so that neither they nor their gradient
-// ([V, Ho, Wo, 9C], ~156 MB a stage-3 layer in float32) reach memory.
+// the samples per band segment so that the forward saves none of them.
 //
-// What bounds it on the H100: operations.  Both products (ds and dw) are
-// 2 * N * 9C * F operations each (39.9 GFLOP each at the stage-3 stride-1
-// layer); the bytes (x, dy, the coordinates, dx and dw) are a few tens of
-// MB.  Two kernels, neither of which writes the samples or ds:
-//  * dcn_conv_bwd_input_kernel: a block owns 64 output pixels and keeps
-//    their dy rows in shared memory; per tap and 64-channel slice it forms
-//    the ds tile = dy tile . w[t]^T (float32 FMAs, 4x4 per thread) in
-//    shared memory, then, as B6 does per sample, reads the four corners,
-//    scatters ds * weight * mask into dx with 16-byte float32 vector
-//    atomics and reduces dm, dsy, dsx over the channels (shuffles within
-//    16-lane groups, registers across the slices);
-//  * dcn_conv_bwd_weight_kernel: a block owns a 64 (tap, channel) x 64
-//    output-channel tile of dw and a share of the pixels (a split over
-//    pixels that fills the card); per 32-pixel chunk it gathers the masked
-//    samples into shared memory, loads the dy rows, and accumulates
-//    samples^T . dy in registers.  Each split writes its partial tile once
-//    and dcn_reduce_splits_kernel sums them: no atomic per product.
-// Products are float32 FMAs in both dtypes (the samples are recomputed in
-// float32 from x); tensor cores are later work.
-constexpr int BTP = 64;    // pixels per input-gradient block
-constexpr int BKF = 32;    // output-channel chunk of the ds product
-constexpr int BNC = 64;    // channel slice
-constexpr int BDS = BNC + 4;
-constexpr int WPB = 32;    // pixels per dw chunk
+// What bounds it on the H100: operations.  Both products are 2 N 9C F
+// operations (39.9 GFLOP each at the stage-3 layers: 0.081 ms for the two
+// at the bf16 peak); the bytes (x, dy, the coordinates, dx, dw) are a few
+// tens of MB.  The first form ran both products as float32 FMAs (over
+// 1 ms of FMA floor alone) and scattered dx with float32 vector atomics
+// into a zeroed float32 buffer: 6.22 ms at stage-3 s2.  Now one C entry
+// runs, in order:
+//  * ds = dy w^T on the tensor cores into a workspace in x's dtype, held
+//    for the call only (156 MB at stage-3 s2 in bf16; the default route's
+//    matmul hands B6 bf16 dsamples too, so the rounding is the port's
+//    own).  A persistent block keeps a 128-row slice of w (all of F) in
+//    shared memory and walks a contiguous range of 128-pixel tiles: dy
+//    arrives by TMA in 64-column chunks through a four-stage ring, two
+//    warpgroups run m64n128k16 wgmma (both operands K-major), and each
+//    tile leaves through a 128-byte-swizzled staging tile by TMA stores;
+//  * dw on the tensor cores: a block owns a (tap, 64 or 128 channels) x
+//    F-column tile of dw and a share of the pixels.  Per 64- or 128-pixel
+//    chunk it gathers the masked samples into swizzled shared tiles as K2
+//    does (each sample weighed in float32 and rounded to bf16 exactly as
+//    K2 rounds it, the next chunk's coordinates loaded beside these
+//    corners), dy's rows arrive by TMA, and samples^T dy runs as
+//    asynchronous wgmma with both operands MN-major while the threads
+//    gather the next chunk.  At F = 256 a block takes 128 channels (a
+//    warpgroup each), so that each dy row it reads feeds twice the work.
+//    The pixel split makes three blocks an SM; each split writes its
+//    float32 partial tile once, and a last pass sums the splits in order
+//    into dw, in w's dtype;
+//  * dx, dsy, dsx, dm by B6's owners' walk over the ds workspace (the
+//    index pass, the radix sort, a warp a 2x2 block; see above): dx is
+//    written once, in x's dtype, from float32 sums in a fixed order.
+// Nothing is atomic on floats: two runs give equal bits, with no zero-fill
+// and no cast around the call.  At stage-3 s2 it takes 0.64 ms
+// (chip_smoke.py; NVIDIA H100 80GB HBM3, 700 W), from 6.22; in a routed
+// training step (profile_train) its dw kernel takes 1.55 ms over nine
+// launches and B6's walk 1.10 over eighteen.  What holds each: dw, its dy
+// rows' L2 traffic and the gathers' latency at one block an SM; ds, each
+// tile's four chunk round trips and its staging between its products.
+// Tried and dropped on the way (slower or no faster at chip_smoke.py's
+// shapes): a 256-row w slice re-read for every pixel tile, two ds blocks
+// an SM with stores from registers, a second accumulator overlapping a
+// tile's stores with the next tile's products, dw with 64-pixel chunks
+// and the coordinates loaded after the gathers.  float32 inputs (the
+// parity runs, 1e-4 with TF32 off) run FMA products for ds and dw over
+// the same plan, and the same owners' walk.
+constexpr int WPB = 32;    // pixels per float32 dw chunk
+constexpr int BNC = 64;    // channel slice of a float32 dw tile
 
-// four consecutive channels of x at element offset i, as float32
-__device__ __forceinline__ void load4(const float* x, size_t i, float* v) {
-  const float4 r = *reinterpret_cast<const float4*>(x + i);
-  v[0] = r.x;
-  v[1] = r.y;
-  v[2] = r.z;
-  v[3] = r.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* x, size_t i,
-                                      float* v) {
-  const uint2 r = *reinterpret_cast<const uint2*>(x + i);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&r);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = __bfloat162float(e[j]);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) dcn_conv_bwd_input_kernel(
-    const T* __restrict__ x, const float* __restrict__ sy,
-    const float* __restrict__ sx, const float* __restrict__ m,
-    const T* __restrict__ w, const T* __restrict__ dy,
-    float* __restrict__ dx, float* __restrict__ dsy,
-    float* __restrict__ dsx, float* __restrict__ dm, int H, int W, int C,
-    int HWo, long long N, int F) {
-  using mv2d::to_f32;
-  extern __shared__ float sm[];
-  const int FS = F + 1;
-  float* dys = sm;                   // [BTP][F + 1] dy rows
-  float* wts = dys + BTP * FS;       // [BKF][BNC + 1] w[t, c0 + c, f0 + f]
-  float* dss = wts + BKF * (BNC + 1);  // [BTP][BDS] ds slice
-  __shared__ int cidx[BTP][4];       // corner pixel indices
-  __shared__ float cwt[BTP][4];      // bilinear weights (no mask)
-  __shared__ float cinfo[BTP][6];    // ly, lx, mask, gy, gx, valid
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int cg = tid % 16;           // channel group of the scatter
-  const long long p0 = (long long)blockIdx.x * BTP;
-
-  for (int e = tid; e < BTP * F; e += NT) {
-    const int p = e / F, f = e % F;
-    dys[p * FS + f] = p0 + p < N ? to_f32(dy[(p0 + p) * F + f]) : 0.f;
-  }
-  for (int t = 0; t < TAPS; ++t) {
-    if (tid < BTP) {
-      const long long p = p0 + tid;
-      float valid = 0.f;
-      if (p < N) {
-        const float yr = sy[p * TAPS + t], xr = sx[p * TAPS + t];
-        if (yr > -1.f && yr < H && xr > -1.f && xr < W) {
-          valid = 1.f;
-          const float yy = fminf(fmaxf(yr, 0.f), (float)(H - 1));
-          const float xx = fminf(fmaxf(xr, 0.f), (float)(W - 1));
-          const int y0 = (int)floorf(yy), x0 = (int)floorf(xx);
-          const float ly = yy - y0, lx = xx - x0;
-          const int y1 = min(y0 + 1, H - 1), x1 = min(x0 + 1, W - 1);
-          const int base = (int)(p / HWo) * H * W;
-          cidx[tid][0] = base + y0 * W + x0;
-          cidx[tid][1] = base + y0 * W + x1;
-          cidx[tid][2] = base + y1 * W + x0;
-          cidx[tid][3] = base + y1 * W + x1;
-          cwt[tid][0] = (1.f - ly) * (1.f - lx);
-          cwt[tid][1] = (1.f - ly) * lx;
-          cwt[tid][2] = ly * (1.f - lx);
-          cwt[tid][3] = ly * lx;
-          cinfo[tid][0] = ly;
-          cinfo[tid][1] = lx;
-          cinfo[tid][2] = m[p * TAPS + t];
-          // d(clamped)/d(raw): 1 inside [0, extent - 1], 0 where clamped
-          cinfo[tid][3] = (yr >= 0.f && yr <= (float)(H - 1)) ? 1.f : 0.f;
-          cinfo[tid][4] = (xr >= 0.f && xr <= (float)(W - 1)) ? 1.f : 0.f;
-        }
-      }
-      cinfo[tid][5] = valid;
-    }
-    __syncthreads();
-    float am[4] = {}, ay[4] = {}, ax[4] = {};
-    for (int c0 = 0; c0 < C; c0 += BNC) {
-      float acc[4][4] = {};
-      for (int f0 = 0; f0 < F; f0 += BKF) {
-        for (int e = tid; e < BKF * BNC; e += NT) {
-          const int c = e / BKF, f = e % BKF;
-          wts[f * (BNC + 1) + c] =
-              to_f32(w[((size_t)t * C + c0 + c) * F + f0 + f]);
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int k = 0; k < BKF; ++k) {
-          float a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = dys[(ty + 16 * i) * FS + f0 + k];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = wts[k * (BNC + 1) + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          dss[(ty + 16 * i) * BDS + tx + 16 * j] = acc[i][j];
-      __syncthreads();
-      // pixel it * 16 + tid / 16, channels c0 + 4 cg .. + 3
-#pragma unroll
-      for (int it = 0; it < 4; ++it) {
-        const int p = it * 16 + tid / 16;
-        if (cinfo[p][5] == 0.f) continue;
-        const float4 g4 =
-            *reinterpret_cast<const float4*>(&dss[p * BDS + 4 * cg]);
-        const float g[4] = {g4.x, g4.y, g4.z, g4.w};
-        const size_t c = (size_t)c0 + 4 * cg;
-        float v[4][4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) load4(x, (size_t)cidx[p][q] * C + c, v[q]);
-        const float ly = cinfo[p][0], lx = cinfo[p][1], mm = cinfo[p][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float bil = cwt[p][0] * v[0][j] + cwt[p][1] * v[1][j] +
-                            cwt[p][2] * v[2][j] + cwt[p][3] * v[3][j];
-          am[it] = fmaf(g[j], bil, am[it]);
-          ay[it] = fmaf(g[j], (1.f - lx) * (v[2][j] - v[0][j]) +
-                                  lx * (v[3][j] - v[1][j]), ay[it]);
-          ax[it] = fmaf(g[j], (1.f - ly) * (v[1][j] - v[0][j]) +
-                                  ly * (v[3][j] - v[2][j]), ax[it]);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float wq = cwt[p][q] * mm;
-          if (wq == 0.f) continue;               // lx or ly 0: no share
-          float add[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) add[j] = g[j] * wq;
-          mv2d::atomic_add<4>(dx + (size_t)cidx[p][q] * C + c, add);
-        }
-      }
-    }
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-#pragma unroll
-      for (int s = 8; s > 0; s /= 2) {
-        am[it] += __shfl_xor_sync(0xffffffffu, am[it], s);
-        ay[it] += __shfl_xor_sync(0xffffffffu, ay[it], s);
-        ax[it] += __shfl_xor_sync(0xffffffffu, ax[it], s);
-      }
-      const int p = it * 16 + tid / 16;
-      if (cg == 0 && p0 + p < N) {
-        const size_t o = (size_t)(p0 + p) * TAPS + t;
-        const bool ok = cinfo[p][5] != 0.f;
-        const float mm = cinfo[p][2];
-        dm[o] = ok ? am[it] : 0.f;
-        dsy[o] = ok ? ay[it] * mm * cinfo[p][3] : 0.f;
-        dsx[o] = ok ? ax[it] * mm * cinfo[p][4] : 0.f;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
+// the float32 dw: a block owns a 64 (tap, channel) x 64 output-channel tile
+// of dw and a share of the pixels; per 32-pixel chunk it gathers the masked
+// samples into shared memory, loads the dy rows and accumulates samples^T
+// dy in registers, then writes its split's partial tile once
 __global__ void __launch_bounds__(NT) dcn_conv_bwd_weight_kernel(
-    const T* __restrict__ x, const float* __restrict__ sy,
+    const float* __restrict__ x, const float* __restrict__ sy,
     const float* __restrict__ sx, const float* __restrict__ m,
-    const T* __restrict__ dy, float* __restrict__ part, int H, int W, int C,
-    int HWo, long long N, int F, long long per_split) {
-  using mv2d::to_f32;
+    const float* __restrict__ dy, float* __restrict__ part, int H, int W,
+    int C, int HWo, long long N, int F, long long per_split) {
   __shared__ float as[WPB][BNC];   // masked samples [pixel][channel]
   __shared__ float bs[WPB][BNC];   // dy [pixel][output channel]
   __shared__ int cidx[WPB][4];
@@ -1280,9 +1146,9 @@ __global__ void __launch_bounds__(NT) dcn_conv_bwd_weight_kernel(
       float s = 0.f;
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        s = fmaf(cwt[p][q], to_f32(x[(size_t)cidx[p][q] * C + c0 + c]), s);
+        s = fmaf(cwt[p][q], x[(size_t)cidx[p][q] * C + c0 + c], s);
       as[p][c] = s;
-      bs[p][c] = pc + p < end ? to_f32(dy[(pc + p) * F + f0 + c]) : 0.f;
+      bs[p][c] = pc + p < end ? dy[(pc + p) * F + f0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -1307,151 +1173,447 @@ __global__ void __launch_bounds__(NT) dcn_conv_bwd_weight_kernel(
       out[(size_t)(r0 + ty + 16 * i) * F + f0 + tx + 16 * j] = acc[i][j];
 }
 
-// dw[e] = sum_s part[s][e]
+// the float32 ds: D [M, Nc] = A [M, K] B [Nc, K]^T by FMAs, a 64 x 64 tile
+// a block (4 x 4 a thread), K in steps of 16 through shared memory
+__global__ void __launch_bounds__(NT) sgemm_nt_kernel(
+    const float* __restrict__ A, const float* __restrict__ B,
+    float* __restrict__ D, long long M, int Nc, int K) {
+  __shared__ float as[16][64 + 4], bs[16][64 + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const long long m0 = (long long)blockIdx.x * 64;
+  const int n0 = blockIdx.y * 64;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    for (int e = tid; e < 64 * 16; e += NT) {
+      const int r = e / 16, k = e % 16;
+      as[k][r] = m0 + r < M ? A[(m0 + r) * K + k0 + k] : 0.f;
+      bs[k][r] = B[(size_t)(n0 + r) * K + k0 + k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = as[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long long r = m0 + ty + 16 * i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) D[r * Nc + n0 + tx + 16 * j] = acc[i][j];
+  }
+}
+
+// dw[e] = sum_s part[s][e], the splits in order, in dw's dtype
+template <typename T>
 __global__ void dcn_reduce_splits_kernel(const float* __restrict__ part,
-                                         float* __restrict__ dw,
-                                         long long n, int splits) {
+                                         T* __restrict__ dw, long long n,
+                                         int splits) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   float s = 0.f;
   for (int k = 0; k < splits; ++k) s += part[(size_t)k * n + e];
-  dw[e] = s;
+  dw[e] = mv2d::from_f32<T>(s);
 }
 
-// the bfloat16 body at one tiling: FT = F's widest of 256 / 128 / 64 that
-// divides it, KC = 64 channels a chunk where C allows, else 32
-template <int FT, int KC, int WGF>
-int launch_conv_tc(const bf16* x, const float* sy, const float* sx,
-                   const float* m, const bf16* w, bf16* out, int H, int W,
-                   int C, int HWo, long long N, int F, cudaStream_t s) {
-  using G = ConvWg<FT, KC, WGF>;
-  auto* kernel = dcn_conv_tc_kernel<FT, KC, WGF>;
-  // w as a [9 C, F] matrix, read in 64-column x KC-row boxes, 128-byte
-  // swizzled as wgmma reads them
-  mv2d::tc::TmapEncode encode = mv2d::tc::tmap_encode();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap wmap;
-  const cuuint64_t dims[2] = {(cuuint64_t)F, (cuuint64_t)TAPS * C};
-  const cuuint64_t strides[1] = {(cuuint64_t)F * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, (cuuint32_t)KC}, unit[2] = {1, 1};
-  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<bf16*>(w), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+// ds = dy w^T in bf16 (the design is in the note above): BM x BN tiles of
+// ds [N, NC], NC = 9C, taken column slice by column slice: a block keeps
+// w's [BN][F] slice (F <= 512) and walks its range of pixel tiles, whose dy
+// [BM][64] chunks pass through the ring.  A tile leaves through a staging
+// tile in shared memory by TMA stores, which drain while the next tile's
+// products run
+template <int BN>
+struct DsGemm {
+  static constexpr int BM = 128, S = 4;
+  static constexpr int A_ST = BM * 128, B_MAX = BN * 512 * 2;
+  static constexpr int OUT = BM * BN * 2;     // BN / 64 boxes of [BM][64]
+  static constexpr int SMEM = 1024 + S * A_ST + B_MAX + OUT + 64;
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
+
+template <int BN>
+__global__ void __launch_bounds__(256, 1) ds_gemm_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap bmap,
+    const __grid_constant__ CUtensorMap omap, long long N, int NC, int F) {
+  using G = DsGemm<BN>;
+  using namespace mv2d::tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* as = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* bs = as + G::S * G::A_ST;
+  unsigned char* os = bs + G::B_MAX;
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + G::OUT);
+  uint64_t* bfull = full + G::S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, g8 = lane >> 2, tq = lane & 3;
+  const int nk = F / 64;
+  const long long pix_tiles = (N + G::BM - 1) / G::BM;
+  const long long tiles = pix_tiles * (NC / BN);
+  // this block's tiles: a contiguous range, column slice outer, so that it
+  // loads one or two slices of w; chunk q is dy's columns 64 (q % nk) .. of
+  // its tile q / nk, into stage q % S
+  const long long first = tiles * blockIdx.x / gridDim.x;
+  const int mine = (int)(tiles * (blockIdx.x + 1) / gridDim.x - first);
+  const int nq = mine * nk;
+  auto issue = [&](int q) {             // one thread
+    if (q >= nq) return;
+    const long long tile = first + q / nk;
+    const int s = q % G::S;
+    mbar_expect_tx(full + s, G::A_ST);
+    tma_load_2d(as + s * G::A_ST, &amap, (q % nk) * 64,
+                (int)(tile % pix_tiles * G::BM), full + s);
+  };
+  if (tid == 0) {
+    for (int s = 0; s <= G::S; ++s) mbar_init(full + s, 1);
+    fence_mbar_init();
+    for (int q = 0; q < G::S; ++q) issue(q);
+  }
+  __syncthreads();
+  float acc[BN / 2];
+  int q = 0, slice = -1, loads = 0;
+  for (int j = 0; j < mine; ++j) {
+    const long long tile = first + j;
+    const int col = (int)(tile / pix_tiles);
+    const int m0 = (int)(tile % pix_tiles * G::BM);
+    if (col != slice) {   // every product of the last slice is done
+      if (tid == 0) {
+        mbar_expect_tx(bfull, BN * F * 2);
+        for (int k = 0; k < nk; ++k)
+          tma_load_2d(bs + k * BN * 128, &bmap, k * 64, col * BN, bfull);
+      }
+      mbar_wait(bfull, loads++ & 1);
+      slice = col;
+    }
+#pragma unroll
+    for (int r = 0; r < BN / 2; ++r) acc[r] = 0.f;
+    for (int k = 0; k < nk; ++k, ++q) {
+      const int s = q % G::S;
+      mbar_wait(full + s, (q / G::S) & 1);
+#pragma unroll
+      for (int r = 0; r < BN / 2; ++r) fence_operand(acc[r]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss<BN, 0, 0>(
+            acc, desc_sw128(as + s * G::A_ST + wg * 64 * 128 + ks * 32, 16,
+                            1024),
+            desc_sw128(bs + k * BN * 128 + ks * 32, 16, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int r = 0; r < BN / 2; ++r) fence_operand(acc[r]);
+      __syncthreads();                  // stage s read by both warpgroups
+      if (tid == 0) issue(q + G::S);
+    }
+    // the tile, bf16, into the staging tile (128-byte-swizzled rows, as
+    // the TMA store reads them) once the last tile's stores have read it
+    if (tid == 0) bulk_wait<0, true>();
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + (warp & 3) * 16 + g8 + 8 * h;
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+        *reinterpret_cast<uint32_t*>(os + (n >> 3) * (G::BM * 128) +
+                                     swz(r, n & 7) + 4 * tq) =
+            pack_bf16(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
+    }
+    fence_proxy_async();                // the writes, to the TMA store
+    __syncthreads();
+    if (tid == 0) {                     // rows past N are not written
+      for (int b = 0; b < BN / 64; ++b)
+        tma_store_2d(&omap, col * BN + b * 64, m0, os + b * (G::BM * 128));
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait<0, false>();
+}
+
+// dw in bf16 (the design is in the note above): a block owns tap t, 64 CG
+// channels c0 .. and FB output channels.  With CG = 1 warpgroup g < NWG
+// takes FT = FB / NWG of the output channels; with CG = 2 warpgroup g takes
+// all FB = FT of them for channel group g, so that the block reads each dy
+// row for twice the channels.  A chunk is KP pixels: the samples [CG][KP]
+// [64 ch] and a stage of the dy ring [KP][FB] as FB / 64 boxes of 64
+// columns
+template <int FT, int NWG, int CG, int KP>
+struct DwTc {
+  static constexpr int FB = CG == 2 ? FT : FT * NWG;
+  static constexpr int CV = 8 * CG;            // 16-byte vectors a pixel
+  static constexpr int PS = 256 / CV;          // pixels a pass of the block
+  static constexpr int VPT = KP / PS;          // vectors a thread
+  static constexpr int A_GRP = KP * 128;       // samples [KP px][64 ch]
+  static constexpr int A_TILE = CG * A_GRP;
+  static constexpr int D_BOX = KP * 128;       // dy [KP px][64]
+  static constexpr int D_TILE = D_BOX * FB / 64;
+  static constexpr int REST = 1024 + 2 * A_TILE + 3 * KP * 32 + 64;
+  static constexpr int S = REST + 3 * D_TILE <= 232448 ? 3 : 2;
+  static constexpr int SMEM = REST + S * D_TILE;
+  static_assert(SMEM <= 232448, "a block's shared memory");
+};
+
+template <int FT, int NWG, int CG, int KP>
+__global__ void __launch_bounds__(256, 1) dw_tc_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ sy,
+    const float* __restrict__ sx, const float* __restrict__ m,
+    const __grid_constant__ CUtensorMap dymap, float* __restrict__ part,
+    int H, int W, int C, int HWo, long long N, int F, long long per_split) {
+  using G = DwTc<FT, NWG, CG, KP>;
+  using namespace mv2d::tc;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* as = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* dys = as + 2 * G::A_TILE;
+  Corner* ctab = reinterpret_cast<Corner*>(dys + G::S * G::D_TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ctab + 3 * KP);
+  const int tid = threadIdx.x, warp = tid >> 5, wg = warp >> 2;
+  const int nfc = F / G::FB, cpt = C / (64 * CG);
+  const int fc = blockIdx.x % nfc, r = blockIdx.x / nfc;
+  const int t = r / cpt, c0 = (r % cpt) * 64 * CG, f0 = fc * G::FB;
+  // warpgroup wg's channel group and first output channel
+  const int wc = CG == 2 ? wg : 0, wf = CG == 2 ? 0 : wg * FT;
+  const long long beg = (long long)blockIdx.y * per_split;
+  const long long end = min(N, beg + per_split);
+  const int n = end > beg ? (int)((end - beg + KP - 1) / KP) : 0;   // chunks
+
+  // chunk i's corners (pixels beg + KP i ..), one thread a pixel, into
+  // ctab slot i % 3: the coordinates are loaded first, so that their loads
+  // fly with the sample loads of the chunk before
+  struct Coord {
+    float y, x, m;
+  };
+  auto coords = [&](int i) -> Coord {
+    const long long p = beg + (long long)KP * i + tid;
+    if (tid < KP && i < n && p < N)
+      return {sy[p * TAPS + t], sx[p * TAPS + t], m[p * TAPS + t]};
+    return {-2.f, -2.f, 0.f};
+  };
+  auto corners = [&](int i, Coord c) {
+    if (tid < KP && i < n) {
+      int idx[4];
+      float wt[4];
+      corners_at(beg + (long long)KP * i + tid, c.y, c.x, c.m, H, W, HWo, idx,
+                 wt);
+      ctab[(i % 3) * KP + tid] = {
+          make_int4(idx[0] * C, idx[1] * C, idx[2] * C, idx[3] * C),
+          make_float4(wt[0], wt[1], wt[2], wt[3])};
+    }
+  };
+  // chunk i's dy rows, FB / 64 boxes by TMA (one thread); rows past N
+  // arrive as zeros
+  auto load_dy = [&](int i) {
+    const int s = i % G::S;
+    mbar_expect_tx(full + s, G::D_TILE);
+    for (int b = 0; b < G::FB / 64; ++b)
+      tma_load_2d(dys + s * G::D_TILE + b * G::D_BOX, &dymap, f0 + b * 64,
+                  (int)(beg + (long long)KP * i), full + s);
+  };
+  // what a thread gathers: pixels pp + PS v, channels 8 q .. (of group
+  // q / 8)
+  const int pp = tid / G::CV, q = tid % G::CV, q8 = q & 7;
+  const uint32_t adst = (q >> 3) * G::A_GRP + (pp >> 3) * 1024 +
+                        (pp & 7) * 128 + ((q8 ^ (pp & 7)) << 4);
+  const bf16* xq = x + c0 + q * 8;
+  auto fill = [&](int i, int buf) {     // chunk i's samples, K2's rounding
+    const Corner* ct = ctab + (i % 3) * KP + pp;
+    static_assert(G::PS % 8 == 0, "a thread's pixels keep their swizzle");
+    uint4 raw[G::VPT][4];
+#pragma unroll
+    for (int v = 0; v < G::VPT; ++v) {  // every corner load in flight
+      const int4 o = ct[v * G::PS].off;
+      raw[v][0] = ldg_nc_v4(xq + o.x);
+      raw[v][1] = ldg_nc_v4(xq + o.y);
+      raw[v][2] = ldg_nc_v4(xq + o.z);
+      raw[v][3] = ldg_nc_v4(xq + o.w);
+    }
+#pragma unroll
+    for (int v = 0; v < G::VPT; ++v) {
+      const float4 cw = ct[v * G::PS].wt;
+      const float wq4[4] = {cw.x, cw.y, cw.z, cw.w};
+      float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t* rr = reinterpret_cast<const uint32_t*>(&raw[v][k]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[2 * j] = fmaf(wq4[k], __uint_as_float(rr[j] << 16), s[2 * j]);
+          s[2 * j + 1] =
+              fmaf(wq4[k], __uint_as_float(rr[j] & 0xffff0000u), s[2 * j + 1]);
+        }
+      }
+      uint4 packed;
+      uint32_t* o = reinterpret_cast<uint32_t*>(&packed);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      *reinterpret_cast<uint4*>(as + buf * G::A_TILE + adst +
+                                v * G::PS * 128) = packed;
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < G::S; ++s) mbar_init(full + s, 1);
+    fence_mbar_init();
+  }
+  corners(0, coords(0));
+  corners(1, coords(1));
+  __syncthreads();                      // corners and barriers are set
+  if (tid == 0)
+    for (int i = 0; i < G::S && i < n; ++i) load_dy(i);
+  if (n > 0) fill(0, 0);
+  fence_proxy_async();
+  __syncthreads();
+  float acc[FT / 2];
+#pragma unroll
+  for (int k = 0; k < FT / 2; ++k) acc[k] = 0.f;
+  // chunk i's products (samples^T [64 ch x KP px] . dy [KP px x FT], both
+  // MN-major) run while the threads gather chunk i + 1 and find chunk i +
+  // 2's corners; one block barrier a chunk, after which its dy stage is
+  // refilled
+  for (int i = 0; i < n; ++i) {
+    const int buf = i & 1, s = i % G::S;
+    mbar_wait(full + s, (i / G::S) & 1);
+#pragma unroll
+    for (int k = 0; k < FT / 2; ++k) fence_operand(acc[k]);
+    wgmma_fence();
+    if (wg < NWG) {
+#pragma unroll
+      for (int ks = 0; ks < KP / 16; ++ks)
+        wgmma_ss<FT, 1, 1>(
+            acc,
+            desc_sw128(as + buf * G::A_TILE + wc * G::A_GRP + ks * 2048,
+                       G::A_GRP, 1024),
+            desc_sw128(dys + s * G::D_TILE + wf / 64 * G::D_BOX + ks * 2048,
+                       G::D_BOX, 1024));
+    }
+    wgmma_commit();
+    const Coord c = coords(i + 2);
+    if (i + 1 < n) fill(i + 1, buf ^ 1);
+    corners(i + 2, c);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int k = 0; k < FT / 2; ++k) fence_operand(acc[k]);
+    fence_proxy_async();                // the samples, to wgmma's reads
+    __syncthreads();
+    if (tid == 0 && i + G::S < n) load_dy(i + G::S);
+  }
+  if (wg >= NWG) return;
+  // the split's partial tile, float32, rows (t, c0 + ..), columns f0 + ..
+  const int lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  float* out = part +
+               ((size_t)blockIdx.y * TAPS * C + (size_t)t * C + c0 + wc * 64) *
+                   F +
+               f0 + wf;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = (warp & 3) * 16 + h * 8 + g;
+#pragma unroll
+    for (int j = 0; j < FT / 8; ++j)
+      *reinterpret_cast<float2*>(out + (size_t)row * F + 8 * j + 2 * tq) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// B13's plan: the pixel split of dw and its workspace, carved from one
+// buffer (256-byte aligned regions): ds [N, 9C] in x's dtype, B6's
+// workspace, the splits' float32 partials of dw
+struct ConvBwdPlan {
+  long long N;
+  int ft, nwg, cg, splits;
+  long long per_split;
+  size_t ds, owner, part, bytes;
+
+  ConvBwdPlan(int V, int H, int W, int C, int Ho, int Wo, int F, int dtype,
+              int sms) {
+    N = (long long)V * Ho * Wo;
+    // the bf16 dw's tile: 64 cg channels x fb output channels a block
+    cg = F == 256 && C % 128 == 0 ? 2 : 1;
+    ft = F % 512 == 0 || cg == 2 ? 256 : 64;
+    nwg = F % 128 == 0 ? 2 : 1;
+    const int fb = cg == 2 ? ft : ft * nwg;
+    const long long tiles = dtype == 1 ? 9LL * (C / 64 / cg) * (F / fb)
+                                       : 9LL * (C / 64) * (F / 64);
+    // about three blocks an SM deep, at least 256 pixels a split
+    long long s = std::max(1LL, 3LL * sms / std::max(1LL, tiles));
+    s = std::min(s, std::max(1LL, (N + 255) / 256));
+    splits = (int)s;
+    per_split = ((N + splits - 1) / splits + 127) / 128 * 128;
+    size_t at = 0;
+    auto take = [&](size_t n) {
+      const size_t here = at;
+      at += (n + 255) / 256 * 256;
+      return here;
+    };
+    ds = take((size_t)N * TAPS * C * (dtype == 1 ? 2 : 4));
+    owner = take(OwnerPlan(V, H, W, C, Ho, Wo, dtype).bytes);
+    part = take((size_t)splits * TAPS * C * F * 4);
+    bytes = at;
+  }
+};
+
+int device_sms() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+template <int BN>
+int launch_ds_gemm(const bf16* dy, const bf16* w, bf16* ds, long long N,
+                   int C, int F, int sms, cudaStream_t s) {
+  using G = DsGemm<BN>;
+  CUtensorMap amap, bmap, omap;
+  using mv2d::tc::encode_rows;
+  if (F > 512 || !encode_rows(&amap, dy, N, F, G::BM) ||
+      !encode_rows(&bmap, w, (long long)TAPS * C, F, BN) ||
+      !encode_rows(&omap, ds, N, TAPS * C, G::BM))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = ds_gemm_kernel<BN>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        G::SMEM);
-  const long long tiles = (N + G::BP - 1) / G::BP;
-  kernel<<<(unsigned)(tiles * (F / G::FB)), G::NT, G::SMEM, s>>>(
-      x, sy, sx, m, wmap, out, H, W, C, HWo, N, F);
+  const long long tiles = (N + G::BM - 1) / G::BM * (TAPS * C / BN);
+  kernel<<<(unsigned)std::min<long long>(tiles, sms), 256, G::SMEM, s>>>(
+      amap, bmap, omap, N, TAPS * C, F);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KC>
-int launch_conv_tc_f(const bf16* x, const float* sy, const float* sx,
-                     const float* m, const bf16* w, bf16* out, int H, int W,
-                     int C, int HWo, long long N, int F, cudaStream_t s) {
-  if (F % 512 == 0)
-    return launch_conv_tc<256, KC, 2>(x, sy, sx, m, w, out, H, W, C, HWo, N,
-                                      F, s);
-  if (F % 256 == 0)
-    return launch_conv_tc<256, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N,
-                                      F, s);
-  if (F % 128 == 0)
-    return launch_conv_tc<128, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N,
-                                      F, s);
-  return launch_conv_tc<64, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N, F,
-                                   s);
-}
-
-}  // namespace
-
-// B13: dy [V, Ho, Wo, F] (dtype) -> dx [V, H, W, C] float32 (zeroed by the
-// caller, accumulated), dsy / dsx / dm [V, Ho, Wo, 9] float32, dw [9, C, F]
-// float32; part [splits, 9, C, F] float32 scratch (unused when splits == 1);
-// C and F multiples of 64, F <= 512
-extern "C" int mv2d_dcn_conv_bwd(const void* x, const void* sy,
-                                 const void* sx, const void* m, const void* w,
-                                 const void* dy, void* dx, void* dsy,
-                                 void* dsx, void* dm, void* dw, void* part,
-                                 int V, int H, int W, int C, int Ho, int Wo,
-                                 int F, int splits, int dtype, void* stream) {
-  const long long N = (long long)V * Ho * Wo;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* fy = static_cast<const float*>(sy);
-  const auto* fx = static_cast<const float*>(sx);
-  const auto* fm = static_cast<const float*>(m);
-  const int smem = (BTP * (F + 1) + BKF * (BNC + 1) + BTP * BDS) * 4;
-  const long long per_split = ((N + splits - 1) / splits + WPB - 1) / WPB *
-                              WPB;
-  float* pw = splits == 1 ? static_cast<float*>(dw)
-                          : static_cast<float*>(part);
-  const dim3 gw(TAPS * C / BNC, F / BNC, splits);
-  MV2D_DISPATCH(dtype, T, {
-    cudaFuncSetAttribute(dcn_conv_bwd_input_kernel<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    dcn_conv_bwd_input_kernel<T><<<(unsigned)((N + BTP - 1) / BTP), NT,
-                                   smem, s>>>(
-        static_cast<const T*>(x), fy, fx, fm, static_cast<const T*>(w),
-        static_cast<const T*>(dy), static_cast<float*>(dx),
-        static_cast<float*>(dsy), static_cast<float*>(dsx),
-        static_cast<float*>(dm), H, W, C, Ho * Wo, N, F);
-    dcn_conv_bwd_weight_kernel<T><<<gw, NT, 0, s>>>(
-        static_cast<const T*>(x), fy, fx, fm, static_cast<const T*>(dy), pw,
-        H, W, C, Ho * Wo, N, F, per_split);
-  });
-  if (splits > 1) {
-    const long long n = (long long)TAPS * C * F;
-    dcn_reduce_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-        static_cast<const float*>(part), static_cast<float*>(dw), n, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// x [V, H, W, C] (dtype), sy / sx / m [V, Ho, Wo, 9] float32 ->
-// out [V, Ho, Wo, 9, C] (dtype); C a multiple of 16 bytes
-extern "C" int mv2d_dcn_samples(const void* x, const void* sy,
-                                const void* sx, const void* m, void* out,
-                                int V, int H, int W, int C, int Ho, int Wo,
-                                int dtype, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if ((long long)V * Ho * Wo == 0 || C == 0) return 0;
-  const long long tiles = (long long)V * ((Ho + B5Y - 1) / B5Y) *
-                          ((Wo + B5X - 1) / B5X);
-  MV2D_DISPATCH(dtype, T, {
-    constexpr int VW = 16 / sizeof(T);
-    const dim3 grid((unsigned)tiles, (C / VW + 31) / 32);
-    dcn_samples_kernel<T><<<grid, SNT, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const float*>(sy),
-        static_cast<const float*>(sx), static_cast<const float*>(m),
-        static_cast<T*>(out), H, W, C, Ho, Wo);
-  });
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The bytes of B6's workspace at these sizes (the `work` argument below).
-extern "C" long long mv2d_dcn_samples_bwd_workspace(int V, int H, int W,
-                                                    int C, int Ho, int Wo,
-                                                    int dtype) {
-  return (long long)OwnerPlan(V, H, W, C, Ho, Wo, dtype).bytes;
-}
-
-// dsamples [V, Ho, Wo, 9, C] (dtype) -> dx [V, H, W, C] (dtype, every
-// element written once), dsy / dsx / dm [V, Ho, Wo, 9] float32; work: the
-// bytes mv2d_dcn_samples_bwd_workspace names, 256-byte aligned.  C % 8 == 0;
-// 36 V Ho Wo and V H W C below 2^31.
-extern "C" int mv2d_dcn_samples_bwd(const void* x, const void* sy,
-                                    const void* sx, const void* m,
-                                    const void* ds, void* dx, void* dsy,
-                                    void* dsx, void* dm, void* work, int V,
-                                    int H, int W, int C, int Ho, int Wo,
-                                    int dtype, void* stream) {
-  if (C % 8 || (dtype != 0 && dtype != 1))
+// dw's tile: KP = 128 pixels a chunk, 64 where the dy stage or the
+// registers would be too many (FB = 512, or two channel groups)
+template <int FT, int NWG, int CG>
+int launch_dw_tc(const bf16* x, const float* sy, const float* sx,
+                 const float* m, const bf16* dy, float* part, int H, int W,
+                 int C, int HWo, const ConvBwdPlan& P, int F,
+                 cudaStream_t s) {
+  constexpr int KP = CG == 1 && FT * NWG <= 256 ? 128 : 64;
+  using G = DwTc<FT, NWG, CG, KP>;
+  CUtensorMap dymap;
+  if (!mv2d::tc::encode_rows(&dymap, dy, P.N, F, KP))
     return static_cast<int>(cudaErrorInvalidValue);
+  auto* kernel = dw_tc_kernel<FT, NWG, CG, KP>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       G::SMEM);
+  const dim3 grid((unsigned)(TAPS * (C / 64 / CG) * (F / G::FB)),
+                  (unsigned)P.splits);
+  kernel<<<grid, 256, G::SMEM, s>>>(x, sy, sx, m, dymap, part, H, W, C, HWo,
+                                    P.N, F, P.per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B6 (the index pass, the radix sort, the owners' walk, the coordinate
+// pass) over ds [V, Ho, Wo, 9, C]; work holds OwnerPlan's bytes
+int samples_bwd(const void* x, const float* fy, const float* fx,
+                const float* fm, const void* ds, void* dx, float* dsy,
+                float* dsx, float* dm, void* work, int V, int H, int W,
+                int C, int Ho, int Wo, int dtype, cudaStream_t s) {
   const OwnerPlan P(V, H, W, C, Ho, Wo, dtype);
   if (P.nkeys == 0) return 0;             // no map: nothing to write
-  auto s = static_cast<cudaStream_t>(stream);
   char* wb = static_cast<char*>(work);
   auto* keys0 = reinterpret_cast<unsigned*>(wb + P.keys0);
   auto* wp = reinterpret_cast<float4*>(wb + P.wp);
@@ -1466,9 +1628,6 @@ extern "C" int mv2d_dcn_samples_bwd(const void* x, const void* sy,
   auto* starts = reinterpret_cast<int*>(wb + P.starts);
   auto* dots = reinterpret_cast<float*>(wb + P.dots);
   auto* part = reinterpret_cast<float*>(wb + P.part);
-  const auto* fy = static_cast<const float*>(sy);
-  const auto* fx = static_cast<const float*>(sx);
-  const auto* fm = static_cast<const float*>(m);
   // the index pass and the first radix pass (digits of the low bits)
   int D = 1 << P.bits;
   owner_keys_kernel<<<P.nb, RT, 0, s>>>(fy, fx, fm, keys0, wp, pmask, counts,
@@ -1518,10 +1677,171 @@ extern "C" int mv2d_dcn_samples_bwd(const void* x, const void* sy,
   });
   if (P.NP > 0)
     owner_coords_kernel<<<grid_of(P.NP, SNT), SNT, 0, s>>>(
-        fy, fx, fm, inv, dots, static_cast<float*>(dsy),
-        static_cast<float*>(dsx),
-        static_cast<float*>(dm), H, W, P.S, P.NP);
+        fy, fx, fm, inv, dots, dsy, dsx, dm, H, W, P.S, P.NP);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the bfloat16 body at one tiling: FT = F's widest of 256 / 128 / 64 that
+// divides it, KC = 64 channels a chunk where C allows, else 32
+template <int FT, int KC, int WGF>
+int launch_conv_tc(const bf16* x, const float* sy, const float* sx,
+                   const float* m, const bf16* w, bf16* out, int H, int W,
+                   int C, int HWo, long long N, int F, cudaStream_t s) {
+  using G = ConvWg<FT, KC, WGF>;
+  auto* kernel = dcn_conv_tc_kernel<FT, KC, WGF>;
+  // w as a [9 C, F] matrix, read in 64-column x KC-row boxes, 128-byte
+  // swizzled as wgmma reads them
+  CUtensorMap wmap;
+  if (!mv2d::tc::encode_rows(&wmap, w, (long long)TAPS * C, F, KC))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       G::SMEM);
+  const long long tiles = (N + G::BP - 1) / G::BP;
+  kernel<<<(unsigned)(tiles * (F / G::FB)), G::NT, G::SMEM, s>>>(
+      x, sy, sx, m, wmap, out, H, W, C, HWo, N, F);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KC>
+int launch_conv_tc_f(const bf16* x, const float* sy, const float* sx,
+                     const float* m, const bf16* w, bf16* out, int H, int W,
+                     int C, int HWo, long long N, int F, cudaStream_t s) {
+  if (F % 512 == 0)
+    return launch_conv_tc<256, KC, 2>(x, sy, sx, m, w, out, H, W, C, HWo, N,
+                                      F, s);
+  if (F % 256 == 0)
+    return launch_conv_tc<256, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N,
+                                      F, s);
+  if (F % 128 == 0)
+    return launch_conv_tc<128, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N,
+                                      F, s);
+  return launch_conv_tc<64, KC, 1>(x, sy, sx, m, w, out, H, W, C, HWo, N, F,
+                                   s);
+}
+
+}  // namespace
+
+// The bytes of B13's workspace at these sizes (the `work` argument below).
+extern "C" long long mv2d_dcn_conv_bwd_workspace(int V, int H, int W, int C,
+                                                 int Ho, int Wo, int F,
+                                                 int dtype) {
+  return (long long)ConvBwdPlan(V, H, W, C, Ho, Wo, F, dtype, device_sms())
+      .bytes;
+}
+
+// B13: dy [V, Ho, Wo, F] (dtype) -> dx [V, H, W, C] (dtype, every element
+// written once), dsy / dsx / dm [V, Ho, Wo, 9] float32, dw [9, C, F]
+// (dtype, written once); work: the bytes mv2d_dcn_conv_bwd_workspace names,
+// 256-byte aligned.  C and F multiples of 64, F <= 512; 36 V Ho Wo and
+// V H W C below 2^31.
+extern "C" int mv2d_dcn_conv_bwd(const void* x, const void* sy,
+                                 const void* sx, const void* m, const void* w,
+                                 const void* dy, void* dx, void* dsy,
+                                 void* dsx, void* dm, void* dw, void* work,
+                                 int V, int H, int W, int C, int Ho, int Wo,
+                                 int F, int dtype, void* stream) {
+  if (C % 64 || F % 64 || F > 512 || (dtype != 0 && dtype != 1) ||
+      (long long)V * H * W * C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = device_sms();
+  const ConvBwdPlan P(V, H, W, C, Ho, Wo, F, dtype, sms);
+  if (P.N == 0 || H == 0 || W == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* fy = static_cast<const float*>(sy);
+  const auto* fx = static_cast<const float*>(sx);
+  const auto* fm = static_cast<const float*>(m);
+  char* wb = static_cast<char*>(work);
+  float* part = reinterpret_cast<float*>(wb + P.part);
+  const long long n = (long long)TAPS * C * F;
+  int err = 0;
+  if (dtype == 1) {
+    const auto* bx = static_cast<const bf16*>(x);
+    const auto* bdy = static_cast<const bf16*>(dy);
+    auto* ds = reinterpret_cast<bf16*>(wb + P.ds);
+    const auto* bw = static_cast<const bf16*>(w);
+    // a slice of w that divides 9C and stays resident
+    err = C % 128 == 0 ? launch_ds_gemm<128>(bdy, bw, ds, P.N, C, F, sms, s)
+                       : launch_ds_gemm<64>(bdy, bw, ds, P.N, C, F, sms, s);
+    if (err) return err;
+    const int HWo = Ho * Wo;
+    err = P.cg == 2 ? launch_dw_tc<256, 2, 2>(bx, fy, fx, fm, bdy, part, H,
+                                              W, C, HWo, P, F, s)
+          : P.ft == 256 ? launch_dw_tc<256, 2, 1>(bx, fy, fx, fm, bdy, part,
+                                                  H, W, C, HWo, P, F, s)
+          : P.nwg == 2 ? launch_dw_tc<64, 2, 1>(bx, fy, fx, fm, bdy, part, H,
+                                                W, C, HWo, P, F, s)
+                       : launch_dw_tc<64, 1, 1>(bx, fy, fx, fm, bdy, part, H,
+                                                W, C, HWo, P, F, s);
+    if (err) return err;
+    dcn_reduce_splits_kernel<bf16><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        part, static_cast<bf16*>(dw), n, P.splits);
+  } else {
+    const auto* fdy = static_cast<const float*>(dy);
+    auto* ds = reinterpret_cast<float*>(wb + P.ds);
+    sgemm_nt_kernel<<<dim3((unsigned)((P.N + 63) / 64), TAPS * C / 64), NT, 0,
+                      s>>>(fdy, static_cast<const float*>(w), ds, P.N,
+                           TAPS * C, F);
+    dcn_conv_bwd_weight_kernel<<<dim3(TAPS * C / BNC, F / BNC, P.splits), NT,
+                                 0, s>>>(
+        static_cast<const float*>(x), fy, fx, fm, fdy, part, H, W, C, Ho * Wo,
+        P.N, F, P.per_split);
+    dcn_reduce_splits_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0,
+                                      s>>>(part, static_cast<float*>(dw), n,
+                                           P.splits);
+  }
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return samples_bwd(x, fy, fx, fm, wb + P.ds, dx, static_cast<float*>(dsy),
+                     static_cast<float*>(dsx), static_cast<float*>(dm),
+                     wb + P.owner, V, H, W, C, Ho, Wo, dtype, s);
+}
+
+// x [V, H, W, C] (dtype), sy / sx / m [V, Ho, Wo, 9] float32 ->
+// out [V, Ho, Wo, 9, C] (dtype); C a multiple of 16 bytes
+extern "C" int mv2d_dcn_samples(const void* x, const void* sy,
+                                const void* sx, const void* m, void* out,
+                                int V, int H, int W, int C, int Ho, int Wo,
+                                int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if ((long long)V * Ho * Wo == 0 || C == 0) return 0;
+  const long long tiles = (long long)V * ((Ho + B5Y - 1) / B5Y) *
+                          ((Wo + B5X - 1) / B5X);
+  MV2D_DISPATCH(dtype, T, {
+    constexpr int VW = 16 / sizeof(T);
+    const dim3 grid((unsigned)tiles, (C / VW + 31) / 32);
+    dcn_samples_kernel<T><<<grid, SNT, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(sy),
+        static_cast<const float*>(sx), static_cast<const float*>(m),
+        static_cast<T*>(out), H, W, C, Ho, Wo);
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bytes of B6's workspace at these sizes (the `work` argument below).
+extern "C" long long mv2d_dcn_samples_bwd_workspace(int V, int H, int W,
+                                                    int C, int Ho, int Wo,
+                                                    int dtype) {
+  return (long long)OwnerPlan(V, H, W, C, Ho, Wo, dtype).bytes;
+}
+
+// dsamples [V, Ho, Wo, 9, C] (dtype) -> dx [V, H, W, C] (dtype, every
+// element written once), dsy / dsx / dm [V, Ho, Wo, 9] float32; work: the
+// bytes mv2d_dcn_samples_bwd_workspace names, 256-byte aligned.  C % 8 == 0;
+// 36 V Ho Wo and V H W C below 2^31.
+extern "C" int mv2d_dcn_samples_bwd(const void* x, const void* sy,
+                                    const void* sx, const void* m,
+                                    const void* ds, void* dx, void* dsy,
+                                    void* dsx, void* dm, void* work, int V,
+                                    int H, int W, int C, int Ho, int Wo,
+                                    int dtype, void* stream) {
+  if (C % 8 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return samples_bwd(x, static_cast<const float*>(sy),
+                     static_cast<const float*>(sx),
+                     static_cast<const float*>(m), ds, dx,
+                     static_cast<float*>(dsy), static_cast<float*>(dsx),
+                     static_cast<float*>(dm), work, V, H, W, C, Ho, Wo, dtype,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // x [V, H, W, C], w [9, C, F] (dtype), sy / sx / m [V, Ho, Wo, 9] float32

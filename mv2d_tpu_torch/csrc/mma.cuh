@@ -1,8 +1,8 @@
 // Tensor-core and async-copy helpers of the bfloat16 kernels (K1, K2, K4,
-// B8): cp.async into shared memory, non-coherent 16-byte loads, ldmatrix,
-// mma.sync.m16n8k16, mbarriers, TMA tensor copies and the host's encoder
-// of their tensor maps, and the warpgroup product wgmma (bf16 in, float32
-// accumulate).
+// B8, B10, B13): cp.async into shared memory, non-coherent 16-byte loads,
+// ldmatrix, mma.sync.m16n8k16, the 128-byte swizzle, mbarriers, TMA tensor
+// copies and the host's encoders of their tensor maps, and the warpgroup
+// product wgmma (bf16 in, float32 accumulate).
 #pragma once
 
 #include <cuda.h>
@@ -81,6 +81,23 @@ __device__ __forceinline__ uint4 ldg_nc_v4(const void* p) {
   return r;
 }
 
+// offset of 16-byte group c of row r among 128-byte rows (64 bf16
+// channels), swizzled as TMA's SWIZZLE_128B lays them (1024-byte aligned
+// base): ldmatrix's eight rows of one matrix fall on distinct banks for any
+// eight consecutive rows, and wgmma's 128-byte-swizzle descriptors read it
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
 // ---- mbarriers and TMA (sm_90)
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -136,6 +153,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap,
       : "memory");
 }
 
+// a 2D box from shared memory at src to the tensor at (x inner, y outer);
+// the part of the box outside the tensor is not written.  The copy joins
+// this thread's open bulk group
+__device__ __forceinline__ void tma_store_2d(const void* tmap, int x, int y,
+                                             const void* src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2}], [%3];\n" ::"l"(tmap),
+      "r"(x), "r"(y), "r"(smem_u32(src))
+      : "memory");
+}
+
 // a 4D box from shared memory at src to the tensor at (c0 .. c3); the
 // part of the box outside the tensor is not written.  The copy joins this
 // thread's open bulk group
@@ -183,6 +212,40 @@ inline TmapEncode tmap_encode() {
   return fn;
 }
 
+// a bf16 tensor map, 128-byte swizzled, read or written in boxes of 64
+// innermost elements; missing elements of a box arrive as zeros
+inline bool encode_bf16(CUtensorMap* map, const void* p, int rank,
+                        const cuuint64_t* dims, const cuuint32_t* box) {
+  TmapEncode encode = tmap_encode();
+  if (encode == nullptr) return false;
+  cuuint64_t strides[3];
+  cuuint64_t run = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = run *= dims[i];
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major [rows, cols] bf16 matrix, read in (64, box_rows) boxes
+inline bool encode_rows(CUtensorMap* map, const void* p, long long rows,
+                        int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return encode_bf16(map, p, 2, dims, box);
+}
+
+// a [V, H, W, C] bf16 tensor, read or written in (64, bw, bh, 1) boxes
+inline bool encode_nhwc(CUtensorMap* map, const void* p, int V, int H, int W,
+                        int C, int bw, int bh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)V};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  return encode_bf16(map, p, 4, dims, box);
+}
+
 // ---- wgmma (sm_90a): a warpgroup's asynchronous m64nNk16 product,
 // D [64 x N] float32 (+)= A [64 x 16] B [16 x N], both operands in shared
 // memory, named by matrix descriptors.  D's registers: n8 tile j of warp w
@@ -222,85 +285,87 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
 }
 
-// D += A B with A K-major and B MN-major (imm-trans-b 1), bf16 in
-template <int N>
-__device__ void wgmma_tb(float* d, uint64_t da, uint64_t db);
-
 #define MV2D_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define MV2D_D16(i) MV2D_D4(i), MV2D_D4(i + 4), MV2D_D4(i + 8), MV2D_D4(i + 12)
 #define MV2D_D32(i) MV2D_D16(i), MV2D_D16(i + 16)
+#define MV2D_R32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31"
+#define MV2D_R64                                                           \
+  MV2D_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63"
+#define MV2D_R128                                                          \
+  MV2D_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "  \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "    \
+  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, " \
+  "%115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+  "%127"
 
-template <>
-__device__ __forceinline__ void wgmma_tb<64>(float* d, uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : MV2D_D32(0)
-      : "l"(da), "l"(db), "r"(1));
+// D += A B, bf16 in, both operands in shared memory: TA / TB 0 for a
+// K-major operand, 1 for an MN-major one (imm-trans-a / imm-trans-b)
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da,
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_ss: N 64/128/256");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MV2D_R32
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : MV2D_D32(0)
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MV2D_R64
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : MV2D_D32(0), MV2D_D32(32)
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " MV2D_R128
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : MV2D_D32(0), MV2D_D32(32), MV2D_D32(64), MV2D_D32(96)
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tb<128>(float* d, uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : MV2D_D32(0), MV2D_D32(32)
-      : "l"(da), "l"(db), "r"(1));
+// D [64 x N] += A B with A from registers (each warp of the warpgroup its
+// 16 rows, as mma_bf16's A fragment) and B MN-major (imm-trans-b 1)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N 64/128");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MV2D_R32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : MV2D_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " MV2D_R64
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : MV2D_D32(0), MV2D_D32(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_tb<256>(float* d, uint64_t da,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127},"
-      " %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : MV2D_D32(0), MV2D_D32(32), MV2D_D32(64), MV2D_D32(96)
-      : "l"(da), "l"(db), "r"(1));
-}
-// D [64 x 64] += A B with A from registers (each warp of the warpgroup
-// its 16 rows, as mma_bf16's A fragment) and B MN-major (imm-trans-b 1)
-__device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : MV2D_D32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 // keeps the compiler from reusing a register the asynchronous product
 // still reads
 __device__ __forceinline__ void fence_operand(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+#undef MV2D_R128
+#undef MV2D_R64
+#undef MV2D_R32
 #undef MV2D_D32
 #undef MV2D_D16
 #undef MV2D_D4

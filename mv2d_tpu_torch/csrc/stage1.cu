@@ -285,22 +285,6 @@ struct Smem {
   static constexpr int BYTES = BAR + 80 + 1024;   // + the base's alignment
 };
 
-// offset of 16-byte group c of row r among 128-byte rows, swizzled as
-// TMA's SWIZZLE_128B lays them (1024-byte aligned base): ldmatrix's eight
-// rows of one matrix fall on distinct banks for any eight consecutive rows
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * ROW + ((c ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
 __device__ __forceinline__ void tile_origin(int id, int tiles_w,
                                             int tiles_hw, int& v, int& y0,
                                             int& x0) {
@@ -496,9 +480,9 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_tc_kernel(
 #pragma unroll
       for (int st = 0; st < 36; ++st) {
         wgmma_fence();
-        wgmma_rs64(acc2, a[st % 3],
-                   desc_sw128(sm + L::W2 + (st >> 2) * BLK + (st & 3) * 2048,
-                              BLK, 1024));
+        wgmma_rs<64>(acc2, a[st % 3],
+                     desc_sw128(sm + L::W2 + (st >> 2) * BLK + (st & 3) * 2048,
+                                BLK, 1024));
         wgmma_commit();
         if (st + 2 < 36) {
           wgmma_wait<1>();            // step st - 1 has read its fragment
@@ -633,26 +617,6 @@ __global__ void __launch_bounds__(NT, 1) bottleneck_tc_kernel(
   if (mover) bulk_wait<0, false>();
 }
 
-// a [V, H, W, C] bf16 tensor's map, read or written in (64, bw, bh, 1)
-// boxes, 128-byte swizzled
-bool encode_map(CUtensorMap* map, const void* p, int V, int H, int W, int C,
-                int bw, int bh) {
-  mv2d::tc::TmapEncode encode = mv2d::tc::tmap_encode();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)V};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * sizeof(bf16),
-                                 (cuuint64_t)W * C * sizeof(bf16),
-                                 (cuuint64_t)H * W * C * sizeof(bf16)};
-  const cuuint32_t box[4] = {P, (cuuint32_t)bw, (cuuint32_t)bh, 1},
-                   unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(p), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int CIN>
 int launch_tc(const bf16* x, const bf16* w1, const float* b1,
               const bf16* w2, const float* b2, const bf16* w3,
@@ -664,9 +628,10 @@ int launch_tc(const bf16* x, const bf16* w1, const float* b1,
   if (tiles == 0) return 0;
   // x: the halo tile and (identity) the residual; out: a quarter's boxes
   CUtensorMap xmap, rmap, omap;
-  if (!encode_map(&xmap, x, V, H, W, CIN, HW, HH) ||
-      !encode_map(&rmap, x, V, H, W, CIN, TW, 2) ||
-      !encode_map(&omap, out, V, H, W, 4 * P, TW, 2))
+  using mv2d::tc::encode_nhwc;
+  if (!encode_nhwc(&xmap, x, V, H, W, CIN, HW, HH) ||
+      !encode_nhwc(&rmap, x, V, H, W, CIN, TW, 2) ||
+      !encode_nhwc(&omap, out, V, H, W, 4 * P, TW, 2))
     return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);

@@ -44,16 +44,19 @@ SIGNATURES = {
     'mv2d_masked_attention': [_P] * 11 + [_I] * 6 + [_P],
     'mv2d_masked_attention_bwd': [_P] * 16 + [_I] * 6 + [_P],
     'mv2d_identity_block': [_P] * 8 + [_I] * 5 + [_P],
-    'mv2d_dcn_conv_bwd': [_P] * 12 + [_I] * 9 + [_P],
+    'mv2d_dcn_conv_bwd': [_P] * 12 + [_I] * 8 + [_P],
     'mv2d_roi_align_flat': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3
                            + [_I] * 4 + [_P],
     'mv2d_roi_align_slab': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3
                            + [_I] * 5 + [_P],
 }
-# host functions returning a size in bytes (64-bit) for a launch's
-# workspace: name -> argument types
+# host functions returning a size (64-bit): a launch's workspace in bytes,
+# or a kernel's tiling; name -> argument types
 SIZES = {
     'mv2d_dcn_samples_bwd_workspace': [_I] * 7,
+    'mv2d_dcn_conv_bwd_workspace': [_I] * 8,
+    'mv2d_identity_block_tile_rows': [_I],
+    'mv2d_identity_block_smem': [_I],
 }
 
 

@@ -17,8 +17,11 @@ contracts them, so dw and dsamples come from the matmul's autograd.
 A conv built with `fused_train` (MV2D_DCN_TRAIN_FUSED=1, see `routes`)
 follows the JAX package's fused training form instead: `dcn_conv_train`
 runs `DCNConvFn`, K2 as the forward and kernel B13 (`dcn_conv_backward`,
-replacing `pallas_dcn.py: _run_conv_bwd`) as one combined backward, so the
-[V, Ho, Wo, 9C] samples reach memory in neither direction.
+replacing `pallas_dcn.py: _run_conv_bwd`) as one combined backward: the
+forward saves no samples, and B13 recomputes them inside its dw product.
+B13 forms the sample gradients on the tensor cores into a transient
+workspace and hands them to B6's owners' walk inside its own C entry, so
+B6's wrapper is not called on that route.
 
 Sampling coordinates are built in float32 for every activation dtype.
 """
@@ -299,11 +302,39 @@ def dcn_samples(x, sy, sx, mask):
     return DCNSamplesFn.apply(x, sy, sx, mask)
 
 
+def dcn_conv_backward_plain(x, sy, sx, mask, w, dy):
+    """B13's function composed as its kernels compose it, in plain
+    PyTorch: ds = dy w^T (float32 sums, rounded to x.dtype as the kernel
+    writes its workspace), dx / dsy / dsx / dm from ds by B6's owner scheme
+    (`dcn_samples_backward_plain`), and dw = samples^T dy from the samples
+    rounded as the forward rounds them, summed in float32.  Returns what
+    `dcn_conv_backward` does: dx in x.dtype, dsy, dsx, dmask float32, dw in
+    w.dtype."""
+    V, Ho, Wo, K = sy.shape
+    C, F_ = w.shape[1], w.shape[2]
+    N = V * Ho * Wo
+    g = dy.reshape(N, F_).float()
+    ds = (g @ w.reshape(K * C, F_).float().t()).to(x.dtype)
+    dx, dsy, dsx, dm = dcn_samples_backward_plain(
+        x, sy, sx, mask, ds.reshape(V, Ho, Wo, K, C))
+    smp = dcn_samples_plain(x, sy, sx, mask).reshape(N, K * C).float()
+    dw = (smp.t() @ g).reshape(K, C, F_).to(w.dtype)
+    return dx, dsy, dsx, dm, dw
+
+
 def dcn_conv_backward(x, sy, sx, mask, w, dy):
-    """Kernel B13 on CUDA tensors: the VJP of `dcn_conv` at dy
-    [V, Ho, Wo, F] (x.dtype) -> (dx [V, H, W, C], dsy, dsx, dmask
-    [V, Ho, Wo, 9], dw [9, C, F]), all float32.  The derivatives follow
-    B6's conventions (floor form; zero where a coordinate was clamped)."""
+    """Kernel B13: the VJP of `dcn_conv` at dy [V, Ho, Wo, F] (x.dtype) ->
+    (dx [V, H, W, C] in x.dtype, dsy, dsx, dmask [V, Ho, Wo, 9] float32,
+    dw [9, C, F] in w.dtype).  ds = dy w^T and dw run on the tensor cores
+    in bfloat16 (FMAs in float32); dx, dsy, dsx and dm come from ds by B6's
+    owners' walk inside the same C entry, so every dx and dw element is
+    written once, from float32 sums in a fixed order: two runs give equal
+    bits.  The derivatives follow B6's conventions (floor form; zero where
+    a coordinate was clamped).  CPU tensors take `dcn_conv_backward_plain`;
+    CUDA tensors launch the kernels (3x3 taps, C % 64 == 0, F % 64 == 0,
+    F <= 512, a non-empty map; any other shape raises)."""
+    if x.device.type == 'cpu':
+        return dcn_conv_backward_plain(x, sy, sx, mask, w, dy)
     V, H, W, C = x.shape
     _, Ho, Wo, K = sy.shape
     F_ = w.shape[-1]
@@ -320,26 +351,26 @@ def dcn_conv_backward(x, sy, sx, mask, w, dy):
             or dy.shape != (V, Ho, Wo, F_):
         raise ValueError('sy, sx, mask must be [V, Ho, Wo, 9], dy '
                          '[V, Ho, Wo, F]')
+    if H == 0 or W == 0 or 36 * V * Ho * Wo + 512 >= 2 ** 31 \
+            or V * H * W * C >= 2 ** 31:
+        raise ValueError('dcn backward kernel takes a non-empty map and '
+                         f'fewer than 2^31 entries; got x {tuple(x.shape)}, '
+                         f'{Ho}x{Wo} samples')
     x, sy, sx, mask, w, dy = (t.contiguous() for t in
                               (x, sy, sx, mask, w, dy))
     kernels.check_cuda(x, sy, sx, mask, w, dy)
-    # split the pixels of the dw product so that its 64 x 64 tiles fill
-    # the card about four times over; the splits' partials are summed
-    N = V * Ho * Wo
-    tiles = (9 * C // 64) * (F_ // 64)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = max(1, min(-(-4 * sms // tiles), -(-N // 512)))
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.zeros((V, H, W, C), **f32)
-    dsy, dsx, dm = (torch.empty_like(sy) for _ in range(3))
-    dw = torch.empty((9, C, F_), **f32)
-    part = torch.empty((splits, 9, C, F_) if splits > 1 else (1,), **f32)
+    code = kernels.dtype_code(x)
+    dx = torch.empty_like(x)
+    dsy, dsx, dm = torch.empty((3, *sy.shape), dtype=torch.float32,
+                               device=x.device)
+    dw = torch.empty_like(w)
+    work = torch.empty(conv_backward_workspace(V, H, W, C, Ho, Wo, F_, code),
+                       dtype=torch.uint8, device=x.device)
     kernels.launch('mv2d_dcn_conv_bwd', x.data_ptr(), sy.data_ptr(),
                    sx.data_ptr(), mask.data_ptr(), w.data_ptr(),
                    dy.data_ptr(), dx.data_ptr(), dsy.data_ptr(),
                    dsx.data_ptr(), dm.data_ptr(), dw.data_ptr(),
-                   part.data_ptr(), V, H, W, C, Ho, Wo, F_, splits,
-                   kernels.dtype_code(x))
+                   work.data_ptr(), V, H, W, C, Ho, Wo, F_, code)
     dcn_conv_backward.launches += 1
     return dx, dsy, dsx, dm, dw
 
@@ -347,8 +378,16 @@ def dcn_conv_backward(x, sy, sx, mask, w, dy):
 dcn_conv_backward.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def conv_backward_workspace(*sizes) -> int:
+    """B13's transient bytes at (V, H, W, C, Ho, Wo, F, dtype code): ds
+    [N, 9C] in x's dtype, B6's workspace and dw's split partials."""
+    return kernels.workspace_bytes('mv2d_dcn_conv_bwd_workspace', *sizes)
+
+
 class DCNConvFn(torch.autograd.Function):
-    """K2 forward, B13 backward (gradients to x, sy, sx, mask and w)."""
+    """K2 forward, B13 backward (gradients to x, sy, sx, mask and w, each
+    in its input's dtype as B13 returns it)."""
 
     @staticmethod
     def forward(ctx, x, sy, sx, mask, w):
@@ -357,10 +396,7 @@ class DCNConvFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, sy, sx, mask, w = ctx.saved_tensors
-        dx, dsy, dsx, dm, dw = dcn_conv_backward(x, sy, sx, mask, w,
-                                                 dy.to(x.dtype))
-        return dx.to(x.dtype), dsy, dsx, dm, dw.to(w.dtype)
+        return dcn_conv_backward(*ctx.saved_tensors, dy)
 
 
 def dcn_conv_train(x, sy, sx, mask, w):

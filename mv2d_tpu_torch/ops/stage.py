@@ -19,6 +19,14 @@ products (0.23 ms); `csrc/stage1.cu` says more.  It takes block 0 at Cin
 64 (with the projection) and identity blocks at Cin 256; the float32
 kernel (the parity tests) takes any Cin % 32 == 0.
 
+B10 in bfloat16 carries K1's design over to weights too large to stay
+resident (544 KB at width 128, 2.2 MB at 256): a persistent block per SM
+walks 8x16 (width 128) or 4x16 (width 256) output tiles, and one TMA ring
+brings the input's halo tile and 64-row chunks of the weights, streamed
+from L2, in the order the wgmma products take them; both intermediates
+stay in shared memory (`identity_block_plan` gives the tile and the
+shared memory a block takes).
+
 Block weights come folded (BN affine in the weights, float32), in the
 layouts the kernels read: w1 [Cin, P], w2 [9, P, P] (tap-major, (dy, dx)
 row-major), w3 [P, 4P], wd [Cin, 4P]; biases [P] or [4P].  `pack_block`
@@ -126,6 +134,14 @@ def identity_block_cuda(x: torch.Tensor, blk: Block) -> torch.Tensor:
         planes, kernels.dtype_code(x))
     fused_identity_chain.launches += 1
     return out
+
+
+def identity_block_plan(planes: int):
+    """B10's bfloat16 tiling at width `planes` (128 or 256): (output tile
+    rows, output tile columns, shared-memory bytes a block), from the
+    kernel's own constants."""
+    return (kernels.workspace_bytes('mv2d_identity_block_tile_rows', planes),
+            16, kernels.workspace_bytes('mv2d_identity_block_smem', planes))
 
 
 # B10's oracle is the same unfused chain of folded bottlenecks as K1's

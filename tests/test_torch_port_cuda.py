@@ -545,6 +545,89 @@ def test_attention_sparse_backward_kernel(dev, dtype, tol, mask):
         assert bool((ggot[1][:64] == 0).all() and (ggot[2][:64] == 0).all())
 
 
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('stage_index,V,H,W', [
+    (1, 2, 64, 176),      # 176 tiles of 8x16: more than the SMs
+    (2, 4, 32, 88),       # 192 tiles of 4x16 (88 = 5.5 tiles wide)
+    (1, 1, 8, 16),        # one tile
+    (2, 1, 3, 11)])       # one tile, under its size
+def test_identity_chain_kernel_tile_counts(dev, dtype, tol, stage_index, V,
+                                           H, W):
+    """B10's persistent walk: a tile count that is not a multiple of the
+    SM count, and a map of one tile, at planes 128 and 256."""
+    from mv2d_tpu_torch.ops import stage
+    x, blocks = smoke.identity_chain_inputs(dev, getattr(torch, dtype), V=V,
+                                            H=H, W=W, stage=stage_index)
+    want = stage.fused_identity_chain_plain(x, blocks)
+    got = stage.fused_identity_chain(x, blocks)
+    check(got, want, tol)
+
+
+def test_identity_chain_bf16_runs_are_bit_equal(dev):
+    """No atomics in B10: two runs give equal bits."""
+    from mv2d_tpu_torch.ops import stage
+    for stage_index in (1, 2):
+        x, blocks = smoke.identity_chain_inputs(dev, torch.bfloat16, V=2,
+                                                H=21, W=40, stage=stage_index)
+        a = stage.fused_identity_chain(x, blocks)
+        b = stage.fused_identity_chain(x, blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def b13_inputs(dev, dt, V, H, W, C, F, stride, kind):
+    """B13's inputs and a cotangent; `kind` as b6_inputs takes it."""
+    x, sy, sx, m, w = smoke.dcn_inputs(dev, dt, V, H, W, C, F, stride,
+                                       far=0.2 if kind in ('far', 'pile')
+                                       else 0.0)
+    if kind == 'pile':
+        inside = (sy > -1) & (sy < H) & (sx > -1) & (sx < W)
+        sy = torch.where(inside, torch.full_like(sy, 5.25), sy).contiguous()
+        sx = torch.where(inside, torch.full_like(sx, 7.5), sx).contiguous()
+    from mv2d_tpu_torch.ops import dcn
+    g = smoke.cotangent(dcn.dcn_conv_plain(x, sy, sx, m, w))
+    return x, sy, sx, m, w, g
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_dcn_conv_backward_runs_are_bit_equal(dev, dtype):
+    """No float atomics in B13: two runs give equal bits, at a normal and a
+    pile-up input, with C 256 and F 256 (the stage-3 tiles) and C 512,
+    F 512 (stage 4's)."""
+    from mv2d_tpu_torch.ops import dcn
+    for C, kind in ((256, 'normal'), (512, 'pile')):
+        args = b13_inputs(dev, getattr(torch, dtype), 2, 16, 44, C, C, 1,
+                          kind)
+        a = dcn.dcn_conv_backward(*args)
+        b = dcn.dcn_conv_backward(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('V,H,W,C,F,stride,kind', [
+    (12, 16, 44, 64, 128, 1, 'pile'),    # every sample on one cell
+    (2, 13, 21, 128, 64, 1, 'normal'),   # ragged N, F 64 (one warpgroup)
+    (2, 12, 16, 512, 512, 2, 'far'),     # stage 4's tiles
+    (1, 9, 30, 192, 384, 1, 'normal')])  # C 192, F 384
+def test_dcn_conv_backward_kernel_cases(dev, dtype, tol, V, H, W, C, F,
+                                        stride, kind):
+    """B13 alone against the plain conv's autograd: dx in x.dtype, dw in
+    w.dtype, one launch a call and no launch of B6's own wrapper."""
+    from mv2d_tpu_torch.ops import dcn
+    x, sy, sx, m, w, g = b13_inputs(dev, getattr(torch, dtype), V, H, W, C,
+                                    F, stride, kind)
+    _, want = smoke.plain_grads(dcn.dcn_conv_plain, (x, sy, sx, m, w),
+                                range(5), g)
+    n13 = dcn.dcn_conv_backward.launches
+    n6 = dcn.dcn_samples_backward.launches
+    got = dcn.dcn_conv_backward(x, sy, sx, m, w, g)
+    assert dcn.dcn_conv_backward.launches == n13 + 1
+    assert dcn.dcn_samples_backward.launches == n6
+    assert got[0].dtype == x.dtype and got[4].dtype == w.dtype
+    check_all(list(got), want, tol)
+
+
 def test_routed_kernels_refuse_what_they_do_not_take(dev):
     """On CUDA tensors the new wrappers launch or raise."""
     from mv2d_tpu_torch.ops import dcn, stage
