@@ -35,16 +35,24 @@ Phases, in order; any failure exits non-zero without the final line:
      is timed at the training RoIs [6,512] on R50's and R101's levels (its
      bound counts the level gradients in the features' dtype, and its log
      line also gives the bound with float32 ones, its first form's), and
-     checked on a pile-up of 512 identical RoIs a view and for equal bits
-     in two runs; K3 is also timed at R101's levels and on 64 of the
-     channels of its main case (`c64_ms`), and checked on slivers only.
+     checked on a finest level 560 cells wide, on a pile-up of 512
+     identical RoIs a view and for equal bits in two runs; the bound of
+     the forward RoIAlign kernels (K3, B11, B12) counts the levels' cells
+     that their RoIs' footprints cover, once per (view, level), and their
+     log line also gives the bound with every level read whole; K3 is also
+     timed at R101's levels and on 64 of the channels of its main case
+     (`c64_ms`), and checked on slivers only.
      B13 is timed at its three stage shapes beside the route's forward +
      backward a layer (`route_fwd_bwd_ms`) and the default route's
      (`default_route_fwd_bwd_ms`), logs its transient workspace, and is
      checked on a pile-up of every sample on one cell and for equal bits in
      two runs; B10's cases time the cuDNN chain it replaces as `library`,
      log its bf16 tile and the shared memory a block takes, and are checked
-     on ragged tiles at both widths and for equal bits in two runs;
+     on ragged tiles at both widths and for equal bits in two runs; B11
+     and B12 are timed beside K3 on the same RoIs (`k3_ms`), log their
+     plan (box, ring slots, blocks an SM, registers, shared memory), and
+     are checked on a finest level 560 cells wide and for equal bits in
+     two runs;
   4. tiny: the tiny config with DCN, eval forward, GPU (kernels) against
      CPU (plain versions), same seeded weights;
   5. tiny_train: one tiny+DCN training step (float32, TF32 off, dropout
@@ -335,67 +343,6 @@ def dcn_inputs(dev, dtype, V, H, W, C, F, stride, seed=0, far=0.0):
             sx.to(dev).contiguous(), mask.to(dev), w.to(dev, dtype))
 
 
-def roi_inputs(dev, dtype, V=12, P=1000, img=(512, 1408), C=256, seed=0,
-               edge=False, sliver=False):
-    """p2..p5 maps and anchor-like RoIs over all levels; with `edge`,
-    extreme-aspect, zero-area and partly outside RoIs are mixed in; with
-    `sliver`, every RoI is a sliver: across the image 8 pixels tall, or
-    6 pixels wide from top to bottom, at random places (level 0)."""
-    import torch
-    g = torch.Generator().manual_seed(seed)
-    feats = [torch.randn(V, img[0] // s, img[1] // s, C, generator=g)
-             .to(dev, dtype) for s in (4, 8, 16, 32)]
-    side = 32 * 2 ** torch.randint(0, 5, (V, P), generator=g).float() \
-        * (0.7 + 0.7 * torch.rand(V, P, generator=g))
-    ratio = 2.0 ** torch.randint(-1, 2, (V, P), generator=g).float()
-    w, h = side / ratio.sqrt(), side * ratio.sqrt()
-    cx = torch.rand(V, P, generator=g) * img[1]
-    cy = torch.rand(V, P, generator=g) * img[0]
-    rois = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
-    rois[..., 0::2] = rois[..., 0::2].clamp(0, img[1])
-    rois[..., 1::2] = rois[..., 1::2].clamp(0, img[0])
-    if sliver:
-        across = torch.rand(V, P, generator=g) < 0.5
-        rois = torch.where(across[..., None], torch.stack(
-            [torch.zeros_like(cy), cy - 4, torch.full_like(cy, img[1]),
-             cy + 4], -1), torch.stack(
-            [cx - 3, torch.zeros_like(cx), cx + 3,
-             torch.full_like(cx, img[0])], -1))
-    if edge:
-        rois[:, 0] = torch.tensor([0.0, 200.0, img[1], 208.0])   # 1408 x 8
-        rois[:, 1] = torch.tensor([700.0, 0.0, 706.0, img[0]])   # 6 x 512
-        rois[:, 2] = torch.tensor([300.0, 300.0, 300.0, 300.0])  # empty
-        rois[:, 3] = torch.tensor([-40.0, -30.0, 60.0, 50.0])    # outside
-        rois[:, 4] = torch.tensor([0.0, 0.0, img[1], img[0]])    # level 3
-    return feats, rois.to(dev)
-
-
-def flat_roi_inputs(dev, dtype, R=12000, V=12, img=(512, 1408), C=256,
-                    seed=0, edge=False):
-    """The JAX package's micro-bench of its flat RoIAlign
-    (tools/micro_bench.py 'palign'): p2..p5 maps, R RoIs with corners
-    ~ U(0, 1000) and sides ~ U(100, 400) on random views; with `edge`,
-    RoIs outside the image, zero-area, whole-image and > 61-cell slivers
-    are mixed in."""
-    import torch
-    g = torch.Generator().manual_seed(seed)
-    feats = [torch.randn(V, img[0] // s, img[1] // s, C, generator=g)
-             .to(dev, dtype) for s in (4, 8, 16, 32)]
-    xy = torch.rand(R, 2, generator=g) * 1000
-    rois = torch.cat([xy, xy + 100 + 300 * torch.rand(R, 2, generator=g)],
-                     1)
-    views = torch.randint(0, V, (R,), generator=g, dtype=torch.int32)
-    if edge:
-        rois[:6] = torch.tensor([
-            [-300.0, -200.0, -40.0, -10.0],       # outside the image
-            [500.0, 300.0, 500.0, 300.0],         # zero area
-            [0.0, 0.0, img[1], img[0]],           # whole image
-            [0.0, 100.0, img[1], 110.0],          # 352 x 2.5 cells at p2
-            [900.0, 0.0, 907.0, img[0]],          # 1.75 x 128 cells
-            [-50.0, 400.0, 300.0, 700.0]])        # across the bottom edge
-    return feats, rois.to(dev), views.to(dev)
-
-
 def attention_inputs(dev, dtype, Q=900, K=16384, C=256, seed=0,
                      self_attn=False):
     """Projected q/k/v and a correlation-like mask: each query sees a few
@@ -506,11 +453,75 @@ def roi_samples(rois, feats, strides, sampling_ratio=0):
     return float((n[..., 0] * n[..., 1]).sum()) * 49
 
 
+def _axis_cells(lo, extent, sampling_ratio, n):
+    """One axis of each RoI as the RoIAlign kernels read it (`Axis` in
+    csrc/roi_axis.cuh): lo, extent [N] in cells of a level n cells long ->
+    (first, last) [N] cells its samples inside (-1, n) touch, each sample
+    clamped to [0, n - 1] and taking its cell and the next; first > last
+    where no sample lies inside."""
+    import torch
+    bin_ = extent / 7
+    if sampling_ratio > 0:
+        ns = torch.full_like(bin_, float(sampling_ratio))
+    else:
+        ns = torch.ceil(bin_).clamp(min=0)
+    m = max(int(ns.max()), 1)           # at least one slot (masked off)
+    s = torch.arange(m, device=lo.device, dtype=torch.float32)
+    i = torch.arange(7, device=lo.device, dtype=torch.float32)
+    div = ns.clamp(min=1)[:, None, None]
+    p = (lo[:, None, None] + (i[None, :, None] + (s + 0.5) / div) *
+         bin_[:, None, None]).flatten(1)
+    ok = (s < ns[:, None, None]).expand(-1, 7, -1).flatten(1) & \
+        (p > -1.0) & (p < n)
+    inf = torch.tensor(float('inf'), device=lo.device)
+    first = torch.where(ok, p, inf).amin(1).clamp(0, n - 1)
+    last = torch.where(ok, p, -inf).amax(1).clamp(0, n - 1)
+    first, last = first.floor().long(), (last.floor().long() + 1).clamp(
+        max=n - 1)
+    empty = ~ok.any(1)
+    return first.masked_fill(empty, 1), last.masked_fill(empty, 0)
+
+
+def roi_read_bytes(feats, rois, views, strides, sampling_ratio=0):
+    """The bytes of the levels RoIAlign must read for these RoIs: per
+    (view, level), the union of the footprints (the cells their samples
+    touch) of the RoIs routed there, each cell once."""
+    import torch
+    from mv2d_tpu_torch.ops.roi_align import roi_levels
+    rois = rois.reshape(-1, 4).float()
+    views = views.reshape(-1).long()
+    lvl = roi_levels(rois, len(feats))
+    cells = 0
+    for l, f in enumerate(feats):
+        V, H, W = f.shape[:3]
+        b = rois[lvl == l] / strides[l]
+        if not b.numel():
+            continue
+        y0, y1 = _axis_cells(b[:, 1] - 0.5, b[:, 3] - b[:, 1],
+                             sampling_ratio, H)
+        x0, x1 = _axis_cells(b[:, 0] - 0.5, b[:, 2] - b[:, 0],
+                             sampling_ratio, W)
+        keep = (y0 <= y1) & (x0 <= x1)
+        v = views[lvl == l][keep]
+        y0, y1, x0, x1 = y0[keep], y1[keep] + 1, x0[keep], x1[keep] + 1
+        # each footprint +1 on a difference grid, summed up both axes
+        d = torch.zeros((V, H + 1, W + 1), dtype=torch.int32,
+                        device=rois.device)
+        for yy, xx, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                             (y1, x1, 1)):
+            d.index_put_((v, yy, xx), torch.full_like(v, sign,
+                                                      dtype=torch.int32),
+                         accumulate=True)
+        cells += int((d.cumsum(1).cumsum(2)[:, :H, :W] > 0).sum())
+    return float(cells * feats[0].shape[-1] * feats[0].element_size())
+
+
 def kernel_cases():
     """(kernel name, case label, main-path shape?, build(dev, dtype) ->
     Case)."""
     import torch
     import torch.nn.functional as F
+    from mv2d_tpu_torch import synthetic
     from mv2d_tpu_torch.ops import attention, dcn, roi_align, stage
 
     def stage1(V=12, H=128, W=352):
@@ -678,11 +689,10 @@ def kernel_cases():
 
     def roi(edge, V=12, P=1000, img=(512, 1408), sliver=False, c64=False):
         def build(dev, dt):
-            feats, rois = roi_inputs(dev, dt, V=V, P=P, img=img, edge=edge,
-                                     sliver=sliver)
+            feats, rois = synthetic.roi_inputs(dev, dt, V=V, P=P, img=img,
+                                               edge=edge, sliver=sliver)
             strides = (4, 8, 16, 32)
-            C = feats[0].shape[-1]
-            out_bytes = V * P * 49 * C * feats[0].element_size()
+            work, whole = roi_work(feats, rois, slot_views(rois))
             # the same RoIs on 64 of the channels: a time that barely
             # moves with C says the bytes are not what paces the kernel
             f64 = [f[..., :64].contiguous() for f in feats] if c64 else None
@@ -690,51 +700,112 @@ def kernel_cases():
                 lambda: roi_align.roi_align_multilevel(feats, rois, strides),
                 lambda: roi_align.multilevel_roi_align_plain(feats, rois,
                                                              strides),
-                (nbytes(*feats, rois) + out_bytes,
-                 8.0 * C * roi_samples(rois, feats, strides)),
+                work,
                 extra={'c64_ms': lambda: roi_align.roi_align_multilevel(
-                    f64, rois, strides)} if c64 else None)
+                    f64, rois, strides)} if c64 else None,
+                note=whole_note('', whole))
         return build
 
-    def slab(edge, V=12, P=1000):
+    def slot_views(rois):
+        """The view of each RoI of rois [V, P, 4], flattened."""
+        V, P = rois.shape[:2]
+        return torch.arange(V, device=rois.device).repeat_interleave(P)
+
+    def roi_work(feats, rois, views, S=0, inputs=()):
+        """((bytes, ops), whole) of a forward RoIAlign over these RoIs: the
+        levels' cells their footprints cover, read once per (view, level),
+        the RoIs and `inputs` read and the output written once; `whole` is
+        the bound in ms with every level read whole, the count these cases
+        first used."""
+        strides = (4, 8, 16, 32)
+        C = feats[0].shape[-1]
+        moved = nbytes(rois, *inputs) + \
+            rois[..., 0].numel() * 49 * C * feats[0].element_size()
+        ops = 8.0 * C * roi_samples(rois, feats, strides, S)
+        whole = bound((moved + nbytes(*feats), ops))[0]
+        return (moved + roi_read_bytes(feats, rois, views, strides, S),
+                ops), whole
+
+    def whole_note(note, whole):
+        """`note`, and where the case is timed, its whole-level bound."""
+        return lambda ms: note + ('' if ms is None else
+                                  f'  bound with the levels read whole '
+                                  f'{whole:.3f} ms')
+
+    def stream_note(dt):
+        """B11 / B12's plan: the core's boxes, ring, blocks an SM,
+        registers and shared memory, as the kernel reports them."""
+        p = roi_align.stream_plan(dt)
+        return (f'  plan: TMA boxes of 1 row x {p["box_columns"]} columns '
+                f'into {p["stages"]} slots of {p["slot_rows"]} rows x '
+                f'{p["slot_columns"]} columns, {p["blocks_per_sm"]} blocks '
+                f'an SM, {p["registers"]} registers a thread, {p["smem"]} '
+                f'bytes of dynamic shared memory a block')
+
+    def slab(edge, V=12, P=1000, repeat=False, wide=False):
         def build(dev, dt):
-            feats, rois = roi_inputs(dev, dt, V=V, P=P, edge=edge)
+            if wide:
+                feats, rois = synthetic.wide_roi_inputs(dev, dt)
+            else:
+                feats, rois = synthetic.roi_inputs(dev, dt, V=V, P=P,
+                                                   edge=edge)
             strides = (4, 8, 16, 32)
-            C = feats[0].shape[-1]
-            out_bytes = V * P * 49 * C * feats[0].element_size()
+            work, whole = roi_work(feats, rois, slot_views(rois))
+
+            def kernel():
+                return roi_align.roi_align_slab(feats, rois, strides)
+            # `repeat`: a second run of the kernel, to be equal bit for bit
             return Case(
-                lambda: roi_align.roi_align_slab(feats, rois, strides),
+                kernel, kernel if repeat else
                 lambda: roi_align.multilevel_roi_align_plain(feats, rois,
                                                              strides),
-                (nbytes(*feats, rois) + out_bytes,
-                 8.0 * C * roi_samples(rois, feats, strides)),
+                work,
                 extra={'k3_ms': lambda: roi_align.roi_align_multilevel(
-                    feats, rois, strides)})
+                    feats, rois, strides)},
+                exact=repeat,
+                note=whole_note(stream_note(dt) if not (
+                    edge or repeat or wide) and P == 1000 else '', whole))
         return build
 
-    def flat(S, edge=False):
+    def flat(S, edge=False, repeat=False, wide=False):
         def build(dev, dt):
-            feats, rois, views = flat_roi_inputs(dev, dt, edge=edge)
+            if wide:
+                feats, vp = synthetic.wide_roi_inputs(dev, dt)
+                rois = vp.reshape(-1, 4)
+                views = torch.arange(vp.shape[0], device=dev,
+                                     dtype=torch.int32).repeat_interleave(
+                                         vp.shape[1])
+            else:
+                feats, rois, views = synthetic.flat_roi_inputs(dev, dt,
+                                                               edge=edge)
+                # context: K3 on the same RoIs, 1000 a view
+                vp = rois.reshape(feats[0].shape[0], -1, 4)
             strides = (4, 8, 16, 32)
-            R, C = rois.shape[0], feats[0].shape[-1]
-            out_bytes = R * 49 * C * feats[0].element_size()
-            # context: K3 on the same RoIs, 1000 a view
-            vp = rois.reshape(feats[0].shape[0], -1, 4)
+            work, whole = roi_work(feats, rois, views, S, inputs=(views,))
+
+            def kernel():
+                return roi_align.roi_align_flat(feats, rois, views, strides,
+                                                S)
             return Case(
-                lambda: roi_align.roi_align_flat(feats, rois, views, strides,
-                                                 S),
+                kernel, kernel if repeat else
                 lambda: roi_align.multilevel_roi_align_flat_plain(
                     feats, rois, views, strides, S),
-                (nbytes(*feats, rois, views) + out_bytes,
-                 8.0 * C * roi_samples(rois, feats, strides, S)),
+                work,
                 extra={'k3_ms': lambda: roi_align.roi_align_multilevel(
-                    feats, vp, strides)})
+                    feats, vp, strides)},
+                exact=repeat,
+                note=whole_note(stream_note(dt) if not (
+                    edge or repeat or wide) and S == 0 else '', whole))
         return build
 
     def roi_bwd(edge, V=6, P=512, img=(512, 1408), pile=False,
-                repeat=False):
+                repeat=False, wide=False):
         def build(dev, dt):
-            feats, rois = roi_inputs(dev, dt, V=V, P=P, img=img, edge=edge)
+            if wide:
+                feats, rois = synthetic.wide_roi_inputs(dev, dt)
+            else:
+                feats, rois = synthetic.roi_inputs(dev, dt, V=V, P=P,
+                                                   img=img, edge=edge)
             if pile:                    # every RoI the same box (level 1)
                 rois[:] = torch.tensor([300.0, 100.0, 420.0, 230.0],
                                        device=rois.device)
@@ -977,6 +1048,9 @@ def kernel_cases():
         ('roi_align_multilevel_backward',
          'edge: 1408x8, 6x512, empty, outside', False, roi_bwd(True)),
         ('roi_align_multilevel_backward',
+         'edge: p2 560 cells wide, slivers across it', False,
+         roi_bwd(False, wide=True)),
+        ('roi_align_multilevel_backward',
          'edge: pile-up, 512 identical rois a view', False,
          roi_bwd(False, pile=True)),
         ('roi_align_multilevel_backward',
@@ -1017,6 +1091,10 @@ def kernel_cases():
          slab(False, 6, 512)),
         ('roi_align_slab', 'edge: extreme aspect/empty/outside', False,
          slab(True)),
+        ('roi_align_slab', 'edge: p2 560 cells wide, slivers across it',
+         False, slab(False, wide=True)),
+        ('roi_align_slab', 'run to run: two kernel runs, bit for bit', False,
+         slab(False, repeat=True)),
         ('roi_align_flat', '12000 rois, random views, adaptive', True,
          flat(0)),
         ('roi_align_flat', '12000 rois, random views, S=2', True, flat(2)),
@@ -1024,6 +1102,12 @@ def kernel_cases():
          False, flat(0, edge=True)),
         ('roi_align_flat', 'edge: outside/empty/whole/slivers, S=2', False,
          flat(2, edge=True)),
+        ('roi_align_flat', 'edge: p2 560 cells wide, slivers, adaptive',
+         False, flat(0, wide=True)),
+        ('roi_align_flat', 'edge: p2 560 cells wide, slivers, S=2', False,
+         flat(2, wide=True)),
+        ('roi_align_flat', 'run to run: two kernel runs, bit for bit', False,
+         flat(0, repeat=True)),
         ('mask_bits', 'train cross [2628,16384]', True,
          bits(train_attn(False))),
         ('mask_bits', 'eval cross [900,16384]', True,

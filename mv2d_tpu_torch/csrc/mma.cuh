@@ -1,8 +1,9 @@
 // Tensor-core and async-copy helpers of the bfloat16 kernels (K1, K2, K4,
-// B8, B10, B13): cp.async into shared memory, non-coherent 16-byte loads,
-// ldmatrix, mma.sync.m16n8k16, the 128-byte swizzle, mbarriers, TMA tensor
-// copies and the host's encoders of their tensor maps, and the warpgroup
-// product wgmma (bf16 in, float32 accumulate).
+// B8, B10, B13) and of B11 / B12's streamed core: cp.async into shared
+// memory, non-coherent 16-byte loads, ldmatrix, mma.sync.m16n8k16, the
+// 128-byte swizzle, mbarriers, TMA tensor copies and the host's encoders of
+// their tensor maps, and the warpgroup product wgmma (bf16 in, float32
+// accumulate).
 #pragma once
 
 #include <cuda.h>
@@ -113,6 +114,12 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+// this thread's arrival
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 // waits until the barrier's phase `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
@@ -244,6 +251,31 @@ inline bool encode_nhwc(CUtensorMap* map, const void* p, int V, int H, int W,
                               (cuuint64_t)V};
   const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
   return encode_bf16(map, p, 4, dims, box);
+}
+
+// a [V, H, W, C] tensor of float32 (`bytes` 4) or bf16 (2), unswizzled,
+// read in (cb, bw, bh, 1) boxes that land densely in shared memory (cb
+// elements a cell, cb * bytes a multiple of 16, cb <= 256); missing
+// elements of a box arrive as zeros
+inline bool encode_nhwc_dense(CUtensorMap* map, const void* p, int bytes,
+                              int V, int H, int W, int C, int cb, int bw,
+                              int bh) {
+  TmapEncode encode = tmap_encode();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)V};
+  const cuuint64_t row = (cuuint64_t)C * bytes;
+  const cuuint64_t strides[3] = {row, row * W, row * W * H};
+  const cuuint32_t box[4] = {(cuuint32_t)cb, (cuuint32_t)bw, (cuuint32_t)bh,
+                             1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map,
+                bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---- wgmma (sm_90a): a warpgroup's asynchronous m64nNk16 product,

@@ -43,9 +43,11 @@
 // The footprints of the eval path's RoIs overlap heavily, and no block
 // reuses another's reads.  Nothing is atomic, so two runs give equal bits.
 // C must be a multiple of 8.
-#include "common.cuh"
+#include "roi_axis.cuh"
 
 namespace {
+
+using namespace mv2d::roi;
 
 constexpr int O = 7, NT = 256;
 
@@ -80,71 +82,6 @@ constexpr int KR = 2;             // rows a warp loads at once
 constexpr int KC = 2;             // cells of a row a warp loads at once
 constexpr int YT = 64;            // footprint rows a tile of bin weights
 
-// One axis of a RoI: bin i's samples sit at lo + (i + (s + 0.5) / div) *
-// bin for s < ns; a sample inside (-1, n) is clamped into [0, n - 1] and
-// weighs (1 - l) / div on its floor cell and l / div on the next (or the
-// same, at the last cell).
-struct Axis {
-  float lo, bin, div;
-  int ns, n;
-
-  __device__ __forceinline__ float at(int i, int s) const {
-    return lo + ((float)i + ((float)s + 0.5f) / div) * bin;
-  }
-  // the weight of bin i on cell c, summed in sample order
-  __device__ __forceinline__ float weight(int i, int c) const {
-    float w = 0.f;
-    for (int s = 0; s < ns; ++s) {
-      float p = at(i, s);
-      if (!(p > -1.f && p < n)) continue;
-      p = fminf(fmaxf(p, 0.f), (float)(n - 1));
-      const int c0 = (int)floorf(p), c1 = min(c0 + 1, n - 1);
-      const float l = p - c0;
-      if (c0 == c) w += 1.f - l;
-      if (c1 == c) w += l;
-    }
-    return w / div;
-  }
-  // the cells bin i touches: [*a, *b], empty (*a > *b) without a sample
-  // inside the map (inside samples are consecutive: positions grow with s)
-  __device__ __forceinline__ void range(int i, int* a, int* b) const {
-    int s0 = 0, s1 = ns - 1;
-    while (s0 < ns && !(at(i, s0) > -1.f && at(i, s0) < n)) ++s0;
-    while (s1 >= s0 && !(at(i, s1) > -1.f && at(i, s1) < n)) --s1;
-    if (s0 > s1) {
-      *a = 1 << 30;
-      *b = -1;
-      return;
-    }
-    const float top = (float)(n - 1);
-    *a = (int)floorf(fminf(fmaxf(at(i, s0), 0.f), top));
-    *b = min((int)floorf(fminf(fmaxf(at(i, s1), 0.f), top)) + 1, n - 1);
-  }
-};
-
-// mmdet's level of RoI b = (x1, y1, x2, y2), image pixels
-__device__ __forceinline__ int roi_level(const float* b) {
-  const float area = fmaxf((b[2] - b[0]) * (b[3] - b[1]), 0.f);
-  const float lv = floorf(log2f(sqrtf(area) / 56.f + 1e-6f));
-  return (int)fminf(fmaxf(lv, 0.f), 3.f);
-}
-
-// RoI b's two axes on a level of H x W cells at `scale`: adaptive
-// ceil(bin) samples a bin, no cap
-__device__ __forceinline__ void roi_axes(const float* b, float scale, int H,
-                                         int W, Axis* ay, Axis* ax) {
-  ay->lo = b[1] * scale - 0.5f;
-  ax->lo = b[0] * scale - 0.5f;
-  ay->bin = (b[3] - b[1]) * scale / O;
-  ax->bin = (b[2] - b[0]) * scale / O;
-  ay->ns = (int)fmaxf(ceilf(ay->bin), 0.f);
-  ax->ns = (int)fmaxf(ceilf(ax->bin), 0.f);
-  ay->div = fmaxf((float)ay->ns, 1.f);
-  ax->div = fmaxf((float)ax->ns, 1.f);
-  ay->n = H;
-  ax->n = W;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(KT, 2) roi_align_kernel(
     Level l0, Level l1, Level l2, Level l3, const float* __restrict__ rois,
@@ -158,7 +95,7 @@ __global__ void __launch_bounds__(KT, 2) roi_align_kernel(
   const int H = L.H, W = L.W;
   const T* f = static_cast<const T*>(L.f) + (size_t)v * H * W * C;
   Axis ay, ax;
-  roi_axes(b, L.scale, H, W, &ay, &ax);
+  roi_axes(b, L.scale, H, W, 0, &ay, &ax);
   // the bins' cells along y and x, once: [lo, hi] each, in shared memory
   __shared__ int rng[4][O];
   __shared__ float wyt[YT][8];           // a row tile's bin weights
@@ -290,9 +227,11 @@ __global__ void __launch_bounds__(KT, 2) roi_align_kernel(
 //  * the owner writes each cell once, in the features' dtype, zeros where
 //    no RoI reaches; a pile-up of RoIs on one tile is walked in full by
 //    the tile's owner.
-// Nothing is atomic on floats, so two runs give equal bits.  What holds
-// it now is the latency of each owner's walk (the dOut loads of a RoI, the
-// batch's profile entries and its block barriers), not bytes: 0.326 ms at
+// Nothing is atomic on floats, so two runs give equal bits, and nothing is
+// sized by a level's side, so it takes levels of any side (its wrapper no
+// longer checks one).  What holds it now is the latency of each owner's
+// walk (the dOut loads of a RoI, the batch's profile entries and its block
+// barriers), not bytes: 0.326 ms at
 // [6, 512], 24% of the bound (chip_smoke.py; NVIDIA H100 80GB HBM3,
 // 700 W).  Tried and dropped (the same shapes and card): loading one bin
 // row at a time, tiles in view order (the long lists of the coarse levels
@@ -327,7 +266,7 @@ __global__ void __launch_bounds__(256) roi_footprint_kernel(
   const int l = roi_level(b);
   const LevelGrad L = l == 0 ? l0 : l == 1 ? l1 : l == 2 ? l2 : l3;
   Axis ay, ax;
-  roi_axes(b, L.scale, L.H, L.W, &ay, &ax);
+  roi_axes(b, L.scale, L.H, L.W, 0, &ay, &ax);
   int4 f = make_int4(1 << 30, -1, 1 << 30, -1);
   for (int i = 0; i < O; ++i) {
     int lo, hi;
@@ -408,7 +347,7 @@ __global__ void __launch_bounds__(BNT, 2) roi_owner_kernel(
       const int at = before + __popc(bal & ((1u << lane) - 1u));
       const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
       list[at] = p;
-      roi_axes(bb, G.scale, G.H, G.W, &axes[at][0], &axes[at][1]);
+      roi_axes(bb, G.scale, G.H, G.W, 0, &axes[at][0], &axes[at][1]);
     }
     __syncthreads();
     for (int b0 = 0; b0 < n; b0 += BNB) {

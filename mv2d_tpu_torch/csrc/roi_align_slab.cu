@@ -8,7 +8,7 @@
 // from it in buckets of nr = 8 RoIs of one patch-size class, with the
 // classes and the per-view bucket compaction of _prv_geom.  Its one-hot
 // einsum scatter, HBM slab, band passes and capped overflow buckets are
-// TPU artifacts and are gone: every RoI is exact.
+// TPU artifacts and are gone: every RoI is exact, on levels of any side.
 //
 // On the H100 the counterpart of that slab is the 50 MB L2: one view's
 // four levels at C 256 in bf16 are 30.6 MB.  Two launches:
@@ -17,31 +17,45 @@
 //      _prv_geom: long side <= 13, 29, 61 cells at its routed level, or
 //      longer), and the view's RoIs grouped by class into buckets of NRB
 //      slots (a class's run padded to whole buckets with -1);
-//   2. slab_align_kernel: a block serves one bucket of one view for one
-//      64-channel chunk, RoI after RoI, with the separable core of
-//      roi_align_separable.cuh (footprint rows by cp.async, tmp = Ay .
-//      patch, out = tmp . Ax^T from shared memory).  Blocks are ordered
-//      view-major, so the blocks in flight share a view and its stack is
-//      read from device memory about once, then from L2; a bucket's RoIs
-//      are of one class, so a block's loops are of like length.
-// What bounds it: bytes, as B12 (roi_align_patch.cu).
-#include "roi_align_separable.cuh"
+//   2. the streamed core of roi_align_stream.cuh walks that list in
+//      order, view-major, a persistent block every (blocks an SM) x SMs
+//      slots; its producer skips the empty slots.  The blocks in flight
+//      share a view, so its stack is read from device memory about once,
+//      then from L2, and neighbouring slots hold RoIs of like size.
+// What bounds it: bytes, as B12 (roi_align_patch.cu): the cells its RoIs'
+// footprints cover, read once per (view, level), and the output written once,
+// 0.194 ms at [12, 1000] in bf16 (0.067 at [6, 512]; anchor-like RoIs cover
+// most of each level, so every level read whole gives 0.200 and 0.078).  Its
+// first form gave a block each (bucket, 64-channel chunk) and served the
+// bucket's RoIs one after another, each behind its own shared profiles and
+// block barriers, so the load pipeline emptied between RoIs: 1.997 and 0.585
+// ms.  On the streamed core: 0.776 and 0.248 ms, K3 on the same RoIs 0.887 and
+// 0.254 (tools/align_variants.py, NVIDIA H100 80GB HBM3, 700 W).  What holds
+// it: the consumers' row work (0.673 ms with the loads switched off: the
+// 16-byte reads, the bf16 unpacking and the products of each cell a warp owns,
+// at 14 consumer warps an SM), then the stream (0.611 with the row work
+// switched off: each RoI's footprint through L2 on its own, rows rounded up to
+// whole boxes); the two overlap to 0.776.  Tried and dropped on the same card:
+// boxes of 16 or 32 columns (0.760, 0.762 here, slower for B12), one-row slots
+// six deep (0.875), 24-column slots four deep (0.808, wide rows then take two
+// chunks), K3's direct loads in the same walk (1.259).
+#include "roi_align_stream.cuh"
 
 namespace {
-
-using namespace mv2d_sep;
 
 constexpr int NRB = 8;          // RoIs a bucket
 constexpr int NCLASS = 4;       // size classes
 
-__device__ __forceinline__ int size_class(const Levels& L, const float* b) {
-  const float sc = L.scale[route(b[0], b[1], b[2], b[3])];
+__device__ __forceinline__ int size_class(const stream::Levels& L,
+                                          const float* b) {
+  const float sc = L.scale[mv2d::roi::roi_level(b)];
   const float cells = fmaxf(b[2] - b[0], b[3] - b[1]) * sc;
   return (cells > 13.f) + (cells > 29.f) + (cells > 61.f);
 }
 
 // order [V, Pp]: per view, the RoI index of each bucket slot (-1 empty)
-__global__ void slab_worklist_kernel(Levels L, const float* __restrict__ rois,
+__global__ void slab_worklist_kernel(stream::Levels L,
+                                     const float* __restrict__ rois,
                                      int* __restrict__ order, int P,
                                      int Pp) {
   __shared__ int cnt[NCLASS], base[NCLASS];
@@ -69,31 +83,12 @@ __global__ void slab_worklist_kernel(Levels L, const float* __restrict__ rois,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) slab_align_kernel(
-    Levels L, const float* __restrict__ rois, const int* __restrict__ order,
-    T* __restrict__ out, int P, int Pp, int C) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int chunks = (C + CS - 1) / CS, buckets = Pp / NRB;
-  const int c0 = (blockIdx.x % chunks) * CS;
-  const int rest = blockIdx.x / chunks;
-  const int v = rest / buckets, b = rest % buckets;
-  const int* slots = order + (size_t)v * Pp + b * NRB;
-  for (int k = 0; k < NRB; ++k) {
-    const int p = slots[k];
-    if (p < 0) continue;
-    const size_t r = (size_t)v * P + p;
-    const Geometry g = geometry(L, rois + 4 * r, 0);
-    align_roi<T>(L, g, v, out + r * O * O * C, C, c0, smem);
-  }
-}
-
 }  // namespace
 
 // rois [V, P, 4] float32 image pixels -> out [V, P, 7, 7, C] (dtype);
 // order: int32 scratch [V, Pp], Pp >= P + 4 * (NRB - 1) a multiple of NRB
 // (each class's run padded to whole buckets); levels [V, H_l, W_l, C],
-// H_l, W_l <= 512
+// C % 8 == 0
 extern "C" int mv2d_roi_align_slab(const void* f0, const void* f1,
                                    const void* f2, const void* f3, int H0,
                                    int W0, int H1, int W1, int H2, int W2,
@@ -101,25 +96,20 @@ extern "C" int mv2d_roi_align_slab(const void* f0, const void* f1,
                                    float s2, float s3, const void* rois,
                                    void* order, void* out, int V, int P,
                                    int Pp, int C, int dtype, void* stream) {
-  const Levels L{{f0, f1, f2, f3}, {H0, H1, H2, H3}, {W0, W1, W2, W3},
-                 {s0, s1, s2, s3}};
+  const stream::Levels L{{f0, f1, f2, f3}, {H0, H1, H2, H3},
+                         {W0, W1, W2, W3}, {s0, s1, s2, s3}};
   auto s = static_cast<cudaStream_t>(stream);
   if (V == 0 || P == 0) return 0;
   if (Pp % NRB || Pp < P + NCLASS * (NRB - 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = (C + CS - 1) / CS;
   slab_worklist_kernel<<<V, 1024, 0, s>>>(
       L, static_cast<const float*>(rois), static_cast<int*>(order), P, Pp);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   MV2D_DISPATCH(dtype, T, {
-    const size_t smem = Tiling<T>::SMEM;
-    cudaFuncSetAttribute(slab_align_kernel<T>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    slab_align_kernel<T><<<V * (Pp / NRB) * chunks, NT, smem, s>>>(
-        L, static_cast<const float*>(rois),
-        static_cast<const int*>(order), static_cast<T*>(out), P, Pp, C);
+    return stream::launch<T>(L, V, C, static_cast<const float*>(rois),
+                             nullptr, static_cast<const int*>(order),
+                             static_cast<T*>(out), V * Pp, P, Pp, 0, s);
   });
-  return static_cast<int>(cudaGetLastError());
+  return 0;
 }

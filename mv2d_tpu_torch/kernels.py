@@ -46,7 +46,7 @@ SIGNATURES = {
     'mv2d_identity_block': [_P] * 8 + [_I] * 5 + [_P],
     'mv2d_dcn_conv_bwd': [_P] * 12 + [_I] * 8 + [_P],
     'mv2d_roi_align_flat': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3
-                           + [_I] * 4 + [_P],
+                           + [_I] * 5 + [_P],
     'mv2d_roi_align_slab': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3
                            + [_I] * 5 + [_P],
 }
@@ -57,6 +57,7 @@ SIZES = {
     'mv2d_dcn_conv_bwd_workspace': [_I] * 8,
     'mv2d_identity_block_tile_rows': [_I],
     'mv2d_identity_block_smem': [_I],
+    'mv2d_roi_align_stream_plan': [_I] * 2,
 }
 
 
@@ -169,9 +170,10 @@ def workspace_bytes(name: str, *args) -> int:
     return int(getattr(lib(), name)(*args))
 
 
-def launch(name: str, *args) -> None:
-    """Call a C entry point on the current stream; raise on a launch error."""
+def launch(name: str, *args, handle: ctypes.CDLL | None = None) -> None:
+    """Call a C entry point of `handle` (default: the port's library) on the
+    current stream; raise on a launch error."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+    err = getattr(handle or lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f'{name}: CUDA error {err} at launch')

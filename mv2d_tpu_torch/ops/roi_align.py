@@ -17,12 +17,17 @@ rule (`roi_levels`).  Four kernels compute the multi-level function:
   `pallas_roi_align_views_train`), with gradients to the features only.
 * `roi_align_slab` is kernel B11 (`csrc/roi_align_slab.cu`), the same
   function through a per-view work list of size-class buckets (the JAX
-  package's `MV2D_ALIGN_V2` slab kernel); `roi_align_multilevel_train`
-  with `slab` is its differentiable form (B11 forward, B9 backward).
+  package's `MV2D_ALIGN_V2` slab kernel; `slab_worklist_plain` mirrors
+  the list); `roi_align_multilevel_train` with `slab` is its
+  differentiable form (B11 forward, B9 backward).
 * `roi_align_flat` is kernel B12 (`csrc/roi_align_patch.cu`) for flat
   RoIs [R, 4] with a view index, with a fixed or adaptive S (the JAX
   package's `pallas_multilevel_roi_align`); its plain version is
   `multilevel_roi_align_flat_plain`.
+  B11 and B12 run one streamed core (`csrc/roi_align_stream.cuh`: each
+  RoI's footprint comes on chip in TMA boxes, warps own its bin columns)
+  on levels of any side; `roi_align_stream_plain` walks its boxes in
+  plain PyTorch, for the tests.
 * `separable_roi_align_views` (3D head) stays plain torch, as the JAX
   package leaves it to XLA: every RoI row/column becomes a weight vector
   and the view tile is contracted with two matmuls.
@@ -192,16 +197,13 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
 
 roi_align_multilevel.launches = 0
 
-# the separable kernels (B11, B12) hold a level's profiles in shared memory
-MAX_LEVEL_SIDE = 512
-# B11's work list: RoIs a bucket, size classes
+# B11's work list: RoIs a bucket, size classes and their long-side bounds
+# in cells of the routed level
 SLAB_BUCKET, SLAB_CLASSES = 8, 4
-
-
-def _check_side(dims):
-    if max(dims) > MAX_LEVEL_SIDE:
-        raise ValueError(f'roi_align kernel takes levels of at most '
-                         f'{MAX_LEVEL_SIDE} cells a side')
+SLAB_CLASS_CELLS = (13.0, 29.0, 61.0)
+# the streamed core's slot (rows, columns) of a RoI's footprint: two rows of
+# 32 columns, which the kernel fills with TMA boxes of one row x 8 columns
+STREAM_BOX = (2, 32)
 
 
 def roi_align_flat(feats: Sequence[torch.Tensor], rois: torch.Tensor,
@@ -209,18 +211,30 @@ def roi_align_flat(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                    sampling_ratio: int = 0) -> torch.Tensor:
     """Kernel B12: 7x7 RoIAlign over four FPN levels for flat RoIs.
     feats: 4 maps [V, H_l, W_l, C] (float32 or bfloat16, C a multiple of
-    8, sides <= 512); rois [R, 4] float32 image pixels; view_idx [R] ints
-    in [0, V) -> [R, 7, 7, C].  sampling_ratio > 0 takes that many samples
-    a bin and axis, 0 mmcv's adaptive ceil(bin).  Computes no gradient.
+    8, any side); rois [R, 4] float32 image pixels; view_idx [R] ints in
+    [0, V) -> [R, 7, 7, C].  sampling_ratio > 0 takes that many samples a
+    bin and axis, 0 mmcv's adaptive ceil(bin).  Computes no gradient.
     CPU tensors take `multilevel_roi_align_flat_plain`."""
     if rois.device.type == 'cpu':
         return multilevel_roi_align_flat_plain(feats, rois, view_idx,
                                                strides, sampling_ratio)
+    out = launch_flat(feats, rois, view_idx, strides, sampling_ratio)
+    roi_align_flat.launches += 1
+    return out
+
+
+roi_align_flat.launches = 0
+
+
+def launch_flat(feats, rois, view_idx, strides, sampling_ratio=0,
+                handle=None):
+    """B12's launch, counted nowhere: CUDA tensors, the port's library or
+    `handle`, a build of a variant of its sources."""
     R = rois.shape[0]
     if rois.shape != (R, 4) or view_idx.shape != (R,):
         raise ValueError('rois must be [R, 4] and view_idx [R]')
-    feats, dims, scales = _levels(feats, strides, feats[0].shape[0])
-    _check_side(dims)
+    V = feats[0].shape[0]
+    feats, dims, scales = _levels(feats, strides, V)
     C = feats[0].shape[-1]
     rois = rois.detach().float().contiguous()
     view_idx = view_idx.to(torch.int32).contiguous()
@@ -228,13 +242,9 @@ def roi_align_flat(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     out = torch.empty((R, 7, 7, C), dtype=feats[0].dtype, device=rois.device)
     kernels.launch('mv2d_roi_align_flat', *(f.data_ptr() for f in feats),
                    *dims, *scales, rois.data_ptr(), view_idx.data_ptr(),
-                   out.data_ptr(), R, C, max(int(sampling_ratio), 0),
-                   kernels.dtype_code(feats[0]))
-    roi_align_flat.launches += 1
+                   out.data_ptr(), R, C, max(int(sampling_ratio), 0), V,
+                   kernels.dtype_code(feats[0]), handle=handle)
     return out
-
-
-roi_align_flat.launches = 0
 
 
 def slab_slots(P: int) -> int:
@@ -252,9 +262,20 @@ def roi_align_slab(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     `multilevel_roi_align_plain`."""
     if rois.device.type == 'cpu':
         return multilevel_roi_align_plain(feats, rois, strides)
+    out, _ = launch_slab(feats, rois, strides)
+    roi_align_slab.launches += 1
+    return out
+
+
+roi_align_slab.launches = 0
+
+
+def launch_slab(feats, rois, strides, handle=None):
+    """B11's launch, counted nowhere: CUDA tensors, the port's library or
+    `handle`, a build of a variant of its sources -> (out, the work list
+    `order` [V, slab_slots(P)] the kernel built)."""
     V, P = rois.shape[:2]
     feats, dims, scales = _levels(feats, strides, V)
-    _check_side(dims)
     C = feats[0].shape[-1]
     rois = rois.detach().float().contiguous()
     kernels.check_cuda(*feats, rois)
@@ -264,12 +285,129 @@ def roi_align_slab(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                       device=rois.device)
     kernels.launch('mv2d_roi_align_slab', *(f.data_ptr() for f in feats),
                    *dims, *scales, rois.data_ptr(), order.data_ptr(),
-                   out.data_ptr(), V, P, Pp, C, kernels.dtype_code(feats[0]))
-    roi_align_slab.launches += 1
-    return out
+                   out.data_ptr(), V, P, Pp, C, kernels.dtype_code(feats[0]),
+                   handle=handle)
+    return out, order
 
 
-roi_align_slab.launches = 0
+def stream_plan(dtype: torch.dtype) -> dict:
+    """The streamed core's plan on the card for `dtype` (float32 or
+    bfloat16), from the kernel's own constants and attributes: a TMA box's
+    columns (a box is one row), a ring slot's columns and rows, ring slots,
+    dynamic shared memory a block in bytes, registers a thread, blocks an
+    SM."""
+    code = kernels.DTYPE_CODES[dtype]
+    f = [kernels.workspace_bytes('mv2d_roi_align_stream_plan', code, k)
+         for k in range(7)]
+    return dict(box_columns=f[0], slot_columns=f[1], slot_rows=f[2],
+                stages=f[3], smem=f[4], registers=f[5], blocks_per_sm=f[6])
+
+
+def slab_worklist_plain(rois: torch.Tensor, strides: Sequence[int]):
+    """B11's work list in plain PyTorch.  rois [V, P, 4] image pixels ->
+    order [V, slab_slots(P)]: per view, the RoIs grouped by size class (long
+    side in cells of the routed level above each of SLAB_CLASS_CELLS),
+    smallest class first, each class's run in RoI order and padded with -1
+    to whole buckets of SLAB_BUCKET slots (the kernel orders a class's run
+    by its threads' timing; every RoI appears once either way)."""
+    V, P = rois.shape[:2]
+    flat = rois.reshape(-1, 4).float()
+    scale = (1.0 / torch.tensor([float(s) for s in strides]))[
+        roi_levels(flat)]
+    cells = torch.maximum(flat[:, 2] - flat[:, 0],
+                          flat[:, 3] - flat[:, 1]) * scale
+    cls = sum((cells > b).long() for b in SLAB_CLASS_CELLS).reshape(V, P)
+    nb = SLAB_BUCKET
+    order = torch.full((V, slab_slots(P)), -1, dtype=torch.long)
+    for v in range(V):
+        off = 0
+        for k in range(SLAB_CLASSES):
+            idx = torch.nonzero(cls[v] == k).flatten()
+            order[v, off:off + idx.numel()] = idx
+            off += -(-idx.numel() // nb) * nb
+    return order
+
+
+def _stream_axis(lo: float, extent: float, S: int, n: int):
+    """One axis of one RoI as the streamed core computes it (Axis in
+    csrc/roi_axis.cuh), in float32: (W [7, n], cells [7, 2]): bin i's
+    weight on each cell of the map (the bilinear hats of its samples inside
+    (-1, n), clamped to [0, n - 1], summed over the samples, over div), and
+    the cells [lo, hi] its samples touch (lo > hi without a sample
+    inside)."""
+    f32 = torch.float32
+    lo = torch.tensor(lo, dtype=f32)
+    bin_ = torch.tensor(extent, dtype=f32) / 7
+    ns = S if S > 0 else max(int(torch.ceil(bin_)), 0)
+    div = torch.tensor(float(max(ns, 1)), dtype=f32)
+    s = torch.arange(ns, dtype=f32)
+    p = lo + (torch.arange(7, dtype=f32)[:, None] + (s + 0.5) / div) * bin_
+    inside = (p > -1.0) & (p < n)
+    pc = p.clamp(0.0, n - 1)
+    c0 = pc.floor()
+    c1 = (c0 + 1).clamp(max=n - 1)
+    frac = pc - c0
+    w = torch.zeros(7, n, dtype=f32)
+    w.scatter_add_(1, c0.long(), (1.0 - frac) * inside)
+    w.scatter_add_(1, c1.long(), frac * inside)
+    cells = torch.tensor([[1 << 30, -1]] * 7)
+    for i in range(7):
+        q = p[i][inside[i]]
+        if q.numel():
+            a, b = q.min().clamp(0.0, n - 1), q.max().clamp(0.0, n - 1)
+            cells[i] = torch.stack([a.floor().long(),
+                                    (b.floor().long() + 1).clamp(max=n - 1)])
+    return w / div, cells
+
+
+def roi_align_stream_plain(feats: Sequence[torch.Tensor], rois: torch.Tensor,
+                           view_idx: torch.Tensor, strides: Sequence[int],
+                           sampling_ratio: int = 0,
+                           box=STREAM_BOX) -> torch.Tensor:
+    """B11 / B12's streamed core in plain PyTorch, for the tests: rois
+    [R, 4] image pixels on views view_idx [R] -> [R, 7, 7, C] (levels'
+    dtype).  Each RoI's footprint on its routed level (the cells its bins'
+    samples touch) is walked as the producer issues it, in ring slots of
+    box = (YB rows, XB columns), column chunks outer and rows inner, zeros
+    past the map's right or bottom edge; bin column j takes only its cells
+    of each slot, contracted with its weights Wx[j, .], and each row then
+    feeds the bins whose samples come within one cell of it, in float32.
+    Never on the main path."""
+    YB, XB = box
+    C = feats[0].shape[-1]
+    rois = rois.float()
+    lvl = roi_levels(rois, len(feats))
+    out = torch.zeros((rois.shape[0], 7, 7, C), dtype=torch.float32)
+    for r in range(rois.shape[0]):
+        b = rois[r].tolist()
+        f = feats[int(lvl[r])][int(view_idx[r])].float()
+        H, W = f.shape[:2]
+        sc = 1.0 / strides[int(lvl[r])]
+        y1 = float(torch.tensor(b[1]) * sc - 0.5)
+        x1 = float(torch.tensor(b[0]) * sc - 0.5)
+        wy, ry = _stream_axis(y1, float(torch.tensor(b[3] - b[1]) * sc),
+                              sampling_ratio, H)
+        wx, rx = _stream_axis(x1, float(torch.tensor(b[2] - b[0]) * sc),
+                              sampling_ratio, W)
+        ylo, yhi = int(ry[:, 0].min()), int(ry[:, 1].max())
+        xlo, xhi = int(rx[:, 0].min()), int(rx[:, 1].max())
+        if ylo > yhi or xlo > xhi:      # no sample inside the map
+            continue
+        for x0 in range(xlo, xhi + 1, XB):
+            for y0 in range(ylo, yhi + 1, YB):
+                tile = torch.zeros(YB, XB, C)
+                h, w = min(YB, H - y0), min(XB, W - x0)
+                tile[:h, :w] = f[y0:y0 + h, x0:x0 + w]
+                rows = min(YB, yhi - y0 + 1)
+                for j in range(7):
+                    ca, cb = max(int(rx[j, 0]), x0), min(int(rx[j, 1]),
+                                                          x0 + XB - 1)
+                    if ca > cb:
+                        continue
+                    t = torch.einsum('x,yxc->yc', wx[j, ca:cb + 1],
+                                     tile[:rows, ca - x0:cb - x0 + 1])
+                    out[r, :, j] += wy[:, y0:y0 + rows] @ t
+    return out.to(feats[0].dtype)
 
 
 # B9's owners: tiles of OWNER_TILE x OWNER_TILE cells of each (view, level)
@@ -441,8 +579,8 @@ def roi_align_multilevel_backward(feats: Sequence[torch.Tensor],
     reach it in RoI order, so two runs give equal bits.  It is the
     backward of K3 and of B11, which compute the same function.  CPU
     tensors take `roi_align_backward_plain`; CUDA tensors launch the
-    kernels (float32 or bfloat16, C % 8 == 0, sides <= 512; any other
-    input raises)."""
+    kernels (float32 or bfloat16, C % 8 == 0, levels of any side; any
+    other input raises)."""
     if rois.device.type == 'cpu':
         return roi_align_backward_plain(feats, rois, dout, strides)
     V, P = rois.shape[:2]
@@ -451,7 +589,6 @@ def roi_align_multilevel_backward(feats: Sequence[torch.Tensor],
     if dout.shape != (V, P, 7, 7, C) or dout.dtype != feats[0].dtype:
         raise ValueError('dout must be [V, P, 7, 7, C] in the levels\' '
                          'dtype')
-    _check_side(dims)
     rois = rois.float().contiguous()
     dout = dout.contiguous()
     kernels.check_cuda(rois, dout)

@@ -1,5 +1,7 @@
 """Synthetic inputs for runs without a dataset: a camera rig, seeded
-random weights under the bench fixture rules, and a seeded training scene.
+random weights under the bench fixture rules, a seeded training scene, and
+the RoIAlign kernels' seeded levels and RoIs (`roi_inputs`,
+`flat_roi_inputs`, `wide_roi_inputs`).
 
 `camera_rig` is the ring of outward-looking cameras the JAX package's
 bench uses (`__graft_entry__._rig`).  `init_random_weights` fills a model
@@ -98,3 +100,86 @@ def synthetic_train_batch(cfg, seed: int = 0, device='cuda'):
         img_shapes=t(np.asarray([[H, W]] * V)),
         gt2d=GroundTruth2D(t(g2b), t(g2l), t(g2v)),
         gt3d=GroundTruth3D(t(g3b), t(g3l), t(np.arange(G) < ngt)))
+
+
+# RoIAlign inputs at the eval path's and the micro-bench's shapes, for the
+# kernel checks and timings (chip_smoke.py, tools/align_variants.py)
+
+
+def roi_inputs(dev, dtype, V=12, P=1000, img=(512, 1408), C=256, seed=0,
+               edge=False, sliver=False):
+    """p2..p5 maps and anchor-like RoIs over all levels; with `edge`,
+    extreme-aspect, zero-area and partly outside RoIs are mixed in; with
+    `sliver`, every RoI is a sliver: across the image 8 pixels tall, or
+    6 pixels wide from top to bottom, at random places (level 0)."""
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(V, img[0] // s, img[1] // s, C, generator=g)
+             .to(dev, dtype) for s in (4, 8, 16, 32)]
+    side = 32 * 2 ** torch.randint(0, 5, (V, P), generator=g).float() \
+        * (0.7 + 0.7 * torch.rand(V, P, generator=g))
+    ratio = 2.0 ** torch.randint(-1, 2, (V, P), generator=g).float()
+    w, h = side / ratio.sqrt(), side * ratio.sqrt()
+    cx = torch.rand(V, P, generator=g) * img[1]
+    cy = torch.rand(V, P, generator=g) * img[0]
+    rois = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+    rois[..., 0::2] = rois[..., 0::2].clamp(0, img[1])
+    rois[..., 1::2] = rois[..., 1::2].clamp(0, img[0])
+    if sliver:
+        across = torch.rand(V, P, generator=g) < 0.5
+        rois = torch.where(across[..., None], torch.stack(
+            [torch.zeros_like(cy), cy - 4, torch.full_like(cy, img[1]),
+             cy + 4], -1), torch.stack(
+            [cx - 3, torch.zeros_like(cx), cx + 3,
+             torch.full_like(cx, img[0])], -1))
+    if edge:
+        rois[:, 0] = torch.tensor([0.0, 200.0, img[1], 208.0])   # 1408 x 8
+        rois[:, 1] = torch.tensor([700.0, 0.0, 706.0, img[0]])   # 6 x 512
+        rois[:, 2] = torch.tensor([300.0, 300.0, 300.0, 300.0])  # empty
+        rois[:, 3] = torch.tensor([-40.0, -30.0, 60.0, 50.0])    # outside
+        rois[:, 4] = torch.tensor([0.0, 0.0, img[1], img[0]])    # level 3
+    return feats, rois.to(dev)
+
+
+def flat_roi_inputs(dev, dtype, R=12000, V=12, img=(512, 1408), C=256,
+                    seed=0, edge=False):
+    """The JAX package's micro-bench of its flat RoIAlign
+    (tools/micro_bench.py 'palign'): p2..p5 maps, R RoIs with corners
+    ~ U(0, 1000) and sides ~ U(100, 400) on random views; with `edge`,
+    RoIs outside the image, zero-area, whole-image and > 61-cell slivers
+    are mixed in."""
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(V, img[0] // s, img[1] // s, C, generator=g)
+             .to(dev, dtype) for s in (4, 8, 16, 32)]
+    xy = torch.rand(R, 2, generator=g) * 1000
+    rois = torch.cat([xy, xy + 100 + 300 * torch.rand(R, 2, generator=g)],
+                     1)
+    views = torch.randint(0, V, (R,), generator=g, dtype=torch.int32)
+    if edge:
+        rois[:6] = torch.tensor([
+            [-300.0, -200.0, -40.0, -10.0],       # outside the image
+            [500.0, 300.0, 500.0, 300.0],         # zero area
+            [0.0, 0.0, img[1], img[0]],           # whole image
+            [0.0, 100.0, img[1], 110.0],          # 352 x 2.5 cells at p2
+            [900.0, 0.0, 907.0, img[0]],          # 1.75 x 128 cells
+            [-50.0, 400.0, 300.0, 700.0]])        # across the bottom edge
+    return feats, rois.to(dev), views.to(dev)
+
+
+def wide_roi_inputs(dev, dtype, V=2, P=96, img=(64, 2240), C=256, seed=0):
+    """p2..p5 maps whose finest level is wider than 512 cells (560 at an
+    image 2240 pixels wide), and RoIs [V, P, 4]: half slivers 4 pixels
+    tall across the whole image (560 x 1 cells at p2), half anchor-like
+    boxes on every level."""
+    g = torch.Generator().manual_seed(seed)
+    feats = [torch.randn(V, img[0] // s, img[1] // s, C, generator=g)
+             .to(dev, dtype) for s in (4, 8, 16, 32)]
+    side = 24 * 2 ** torch.randint(0, 5, (V, P), generator=g).float()
+    cx = torch.rand(V, P, generator=g) * img[1]
+    cy = torch.rand(V, P, generator=g) * img[0]
+    rois = torch.stack([cx - side, cy - side / 4, cx + side, cy + side / 4],
+                       -1).clamp(min=0)
+    y = torch.rand(V, P, generator=g) * (img[0] - 4)
+    across = torch.stack([torch.zeros_like(y), y,
+                          torch.full_like(y, img[1]), y + 4], -1)
+    rois[:, ::2] = across[:, ::2]
+    return feats, rois.to(dev)

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip('torch')
 
 import chip_smoke as smoke                               # noqa: E402
+from mv2d_tpu_torch import synthetic                    # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -136,8 +137,8 @@ def test_dcn_kernel_shapes(dev, dtype, tol, V, H, W, C, F, stride, far,
 @pytest.mark.parametrize('dtype,tol', DTYPES)
 def test_roi_align_kernel(dev, dtype, tol):
     from mv2d_tpu_torch.ops import roi_align
-    feats, rois = smoke.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
-                                   img=(256, 512), C=32, edge=True)
+    feats, rois = synthetic.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
+                                       img=(256, 512), C=32, edge=True)
     strides = (4, 8, 16, 32)
     check(roi_align.roi_align_multilevel(feats, rois, strides),
           roi_align.multilevel_roi_align_plain(feats, rois, strides), tol)
@@ -155,9 +156,9 @@ def test_roi_align_kernel_shapes(dev, dtype, tol, img, C, P, kind):
     """K3 against its plain version at the edge RoIs, R101's level sizes
     and slivers; one launch a call."""
     from mv2d_tpu_torch.ops import roi_align
-    feats, rois = smoke.roi_inputs(dev, getattr(torch, dtype), V=2, P=P,
-                                   img=img, C=C, edge=kind == 'edge',
-                                   sliver=kind == 'sliver')
+    feats, rois = synthetic.roi_inputs(dev, getattr(torch, dtype), V=2, P=P,
+                                       img=img, C=C, edge=kind == 'edge',
+                                       sliver=kind == 'sliver')
     strides = (4, 8, 16, 32)
     n3 = roi_align.roi_align_multilevel.launches
     got = roi_align.roi_align_multilevel(feats, rois, strides)
@@ -168,8 +169,8 @@ def test_roi_align_kernel_shapes(dev, dtype, tol, img, C, P, kind):
 
 def test_roi_align_bf16_runs_are_bit_equal(dev):
     from mv2d_tpu_torch.ops import roi_align
-    feats, rois = smoke.roi_inputs(dev, torch.bfloat16, V=12, P=300,
-                                   edge=True)
+    feats, rois = synthetic.roi_inputs(dev, torch.bfloat16, V=12, P=300,
+                                       edge=True)
     a = roi_align.roi_align_multilevel(feats, rois, (4, 8, 16, 32))
     b = roi_align.roi_align_multilevel(feats, rois, (4, 8, 16, 32))
     torch.cuda.synchronize()
@@ -179,8 +180,8 @@ def test_roi_align_bf16_runs_are_bit_equal(dev):
 def test_roi_align_kernel_refuses_what_it_does_not_take(dev):
     """C % 8, three levels, float16: ValueError or TypeError."""
     from mv2d_tpu_torch.ops import roi_align
-    feats, rois = smoke.roi_inputs(dev, torch.bfloat16, V=1, P=5,
-                                   img=(64, 128), C=16)
+    feats, rois = synthetic.roi_inputs(dev, torch.bfloat16, V=1, P=5,
+                                       img=(64, 128), C=16)
     strides = (4, 8, 16, 32)
     with pytest.raises(ValueError):
         roi_align.roi_align_multilevel([f[..., :12].contiguous()
@@ -336,8 +337,8 @@ def test_attention_lse_and_backward_kernels(dev, dtype, tol, self_attn):
 @pytest.mark.parametrize('dtype,tol', DTYPES)
 def test_roi_align_backward_kernel(dev, dtype, tol):
     from mv2d_tpu_torch.ops import roi_align
-    feats, rois = smoke.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
-                                   img=(256, 512), C=32, edge=True)
+    feats, rois = synthetic.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
+                                       img=(256, 512), C=32, edge=True)
     strides = (4, 8, 16, 32)
 
     def plain(*fs):
@@ -359,12 +360,16 @@ def test_roi_align_backward_kernel(dev, dtype, tol):
 
 
 def b9_case(dev, dt, V=2, P=60, img=(256, 512), C=32, edge=True,
-            pile=False):
+            pile=False, wide=False):
     """B9's inputs, the plain version's autograd and a cotangent; `pile`
-    puts every RoI on one box."""
+    puts every RoI on one box; `wide` takes `wide_roi_inputs` (a finest
+    level 560 cells wide, slivers across it) instead."""
     from mv2d_tpu_torch.ops import roi_align
-    feats, rois = smoke.roi_inputs(dev, dt, V=V, P=P, img=img, C=C,
-                                   edge=edge)
+    if wide:
+        feats, rois = synthetic.wide_roi_inputs(dev, dt, V=V, P=P, C=C)
+    else:
+        feats, rois = synthetic.roi_inputs(dev, dt, V=V, P=P, img=img, C=C,
+                                           edge=edge)
     if pile:
         rois[:] = torch.tensor([100.0, 50.0, 220.0, 170.0], device=dev)
     strides = (4, 8, 16, 32)
@@ -412,6 +417,22 @@ def test_roi_align_backward_dtype_and_zeros(dev, dtype, tol):
             cover[r // P, y0:y1 + 1, x0:x1 + 1] = True
         assert bool((gl.cpu()[~cover] == 0).all())
         assert bool(cover.any()) == bool((gl != 0).any())
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+def test_roi_align_backward_on_a_wide_level(dev, dtype, tol):
+    """B9 takes levels of any side: on a finest level 560 cells wide, with
+    slivers across all of it, against the plain version's autograd and its
+    owner scheme in plain PyTorch (`roi_align_backward_plain`)."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois, strides, g, want = b9_case(
+        dev, getattr(torch, dtype), V=2, P=40, C=72, wide=True)
+    assert feats[0].shape[2] == 560
+    got = roi_align.roi_align_multilevel_backward(feats, rois, g, strides)
+    check_all(got, want, tol)
+    owners = roi_align.roi_align_backward_plain(
+        [f.cpu() for f in feats], rois.cpu(), g.cpu(), strides)
+    check_all([x.cpu() for x in got], owners, tol)
 
 
 @pytest.mark.parametrize('dtype,tol', DTYPES)
@@ -648,7 +669,7 @@ def test_roi_align_flat_kernel(dev, dtype, tol, sampling_ratio):
     """B12 on random views with the edge RoIs (outside, empty, whole
     image, slivers), C 40: a ragged channel chunk."""
     from mv2d_tpu_torch.ops import roi_align
-    feats, rois, views = smoke.flat_roi_inputs(
+    feats, rois, views = synthetic.flat_roi_inputs(
         dev, getattr(torch, dtype), R=300, V=3, img=(256, 512), C=40,
         edge=True)
     strides = (4, 8, 16, 32)
@@ -667,8 +688,8 @@ def test_roi_align_slab_kernels(dev, dtype, tol):
     (roi_align_multilevel_train with slab) against the plain version's
     autograd; K3 not launched."""
     from mv2d_tpu_torch.ops import roi_align
-    feats, rois = smoke.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
-                                   img=(256, 512), C=40, edge=True)
+    feats, rois = synthetic.roi_inputs(dev, getattr(torch, dtype), V=2, P=60,
+                                       img=(256, 512), C=40, edge=True)
     strides = (4, 8, 16, 32)
     n3, n11 = roi_align.roi_align_multilevel.launches, \
         roi_align.roi_align_slab.launches
@@ -693,15 +714,21 @@ def test_roi_align_slab_kernels(dev, dtype, tol):
 
 
 def test_separable_roi_kernels_refuse_what_they_do_not_take(dev):
-    """B11 and B12 launch or raise: a level over 512 cells a side, a view
-    index of another length, channels not a multiple of 8."""
+    """B11 and B12 launch or raise: a level over 512 cells a side launches
+    (the streamed core has no limit on a level's side) and matches the
+    plain version; a view index of another length and channels not a
+    multiple of 8 raise."""
     from mv2d_tpu_torch.ops import roi_align
     strides = (4, 8, 16, 32)
     rois = torch.tensor([[0.0, 0.0, 64.0, 64.0]], device=dev)
-    wide = [torch.zeros(1, 8, 520, 8, device=dev)] * 4
-    with pytest.raises(ValueError):
-        roi_align.roi_align_flat(wide, rois, torch.zeros(1, device=dev),
-                                 strides)
+    g = torch.Generator().manual_seed(0)
+    wide = [torch.randn(1, 8, 520, 8, generator=g).to(dev)] * 4
+    views = torch.zeros(1, device=dev)
+    n12 = roi_align.roi_align_flat.launches
+    got = roi_align.roi_align_flat(wide, rois, views, strides)
+    assert roi_align.roi_align_flat.launches == n12 + 1
+    check(got, roi_align.multilevel_roi_align_flat_plain(wide, rois, views,
+                                                         strides), 1e-4)
     ok = [torch.zeros(1, 8, 8, 8, device=dev)] * 4
     with pytest.raises(ValueError):
         roi_align.roi_align_flat(ok, rois, torch.zeros(2, device=dev),
@@ -709,6 +736,93 @@ def test_separable_roi_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         roi_align.roi_align_slab([torch.zeros(1, 8, 8, 12, device=dev)] * 4,
                                  rois[None], strides)
+
+
+@pytest.mark.parametrize('dtype,tol', DTYPES)
+@pytest.mark.parametrize('sampling_ratio', [0, 2])
+def test_roi_align_stream_kernels_on_a_wide_level(dev, dtype, tol,
+                                                  sampling_ratio):
+    """B11 (adaptive) and B12 on a finest level 560 cells wide, with
+    slivers across all of it, against their plain versions."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois = synthetic.wide_roi_inputs(dev, getattr(torch, dtype), V=2,
+                                            P=40, C=72)
+    strides = (4, 8, 16, 32)
+    assert feats[0].shape[2] == 560
+    flat = rois.reshape(-1, 4)
+    views = torch.arange(2, device=dev).repeat_interleave(40)
+    check(roi_align.roi_align_flat(feats, flat, views, strides,
+                                   sampling_ratio),
+          roi_align.multilevel_roi_align_flat_plain(feats, flat, views,
+                                                    strides, sampling_ratio),
+          tol)
+    if sampling_ratio == 0:
+        check(roi_align.roi_align_slab(feats, rois, strides),
+              roi_align.multilevel_roi_align_plain(feats, rois, strides), tol)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_roi_align_stream_runs_are_bit_equal(dev, dtype):
+    """Two runs of B11 and of B12 give equal bits (sums in a fixed order,
+    nothing atomic), at C 256: one channel pass in bfloat16, two in
+    float32."""
+    from mv2d_tpu_torch.ops import roi_align
+    dt = getattr(torch, dtype)
+    strides = (4, 8, 16, 32)
+    feats, rois = synthetic.roi_inputs(dev, dt, V=2, P=200, img=(256, 512),
+                                       edge=True)
+    a = roi_align.roi_align_slab(feats, rois, strides)
+    b = roi_align.roi_align_slab(feats, rois, strides)
+    feats, flat, views = synthetic.flat_roi_inputs(dev, dt, R=600, V=3,
+                                                   img=(256, 512), edge=True)
+    c = roi_align.roi_align_flat(feats, flat, views, strides, 2)
+    d = roi_align.roi_align_flat(feats, flat, views, strides, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_stream_plan_is_the_plain_mirror_box(dev, dtype):
+    """The slot `roi_align_stream_plain` walks by default (STREAM_BOX) is the
+    one the kernel reports, a whole number of its boxes wide."""
+    from mv2d_tpu_torch.ops import roi_align
+    plan = roi_align.stream_plan(getattr(torch, dtype))
+    assert (plan['slot_rows'], plan['slot_columns']) == roi_align.STREAM_BOX
+    assert plan['slot_columns'] % plan['box_columns'] == 0
+    assert plan['blocks_per_sm'] >= 1
+
+
+@pytest.mark.parametrize('P', [37, 1000])
+def test_slab_worklist_kernel_is_the_plain_mirror(dev, P):
+    """B11's device work list against `slab_worklist_plain`: per view, each
+    size class's run holds the same RoIs (the kernel orders a run by its
+    threads' timing) and the same padding, so the class bounds
+    (SLAB_CLASS_CELLS) are the kernel's; the output is B11's."""
+    from mv2d_tpu_torch.ops import roi_align
+    feats, rois = synthetic.roi_inputs(dev, torch.bfloat16, V=3, P=P,
+                                       img=(256, 704), C=8, edge=True)
+    strides = (4, 8, 16, 32)
+    out, order = roi_align.launch_slab(feats, rois, strides)
+    want = roi_align.slab_worklist_plain(rois.cpu(), strides)
+    order = order.long().cpu()
+    assert order.shape == want.shape
+    nb = roi_align.SLAB_BUCKET
+    for v in range(rois.shape[0]):
+        # each class's run: its RoIs in the mirror, padded to whole buckets
+        b = rois[v].cpu().float()
+        sc = 1.0 / torch.tensor([float(s) for s in strides])[
+            roi_align.roi_levels(b)]
+        cells = torch.maximum(b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]) * sc
+        cls = sum((cells > c).long() for c in roi_align.SLAB_CLASS_CELLS)
+        off = 0
+        for k in range(roi_align.SLAB_CLASSES):
+            run = slice(off, off + -(-int((cls == k).sum()) // nb) * nb)
+            assert sorted(order[v, run].tolist()) == \
+                sorted(want[v, run].tolist())
+            off = run.stop
+        assert bool((order[v, off:] == -1).all())
+    check(out, roi_align.multilevel_roi_align_plain(feats, rois, strides),
+          3e-2)
 
 
 # --------------------- K4 and B8 on the packed mask, and the packing kernel
