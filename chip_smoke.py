@@ -73,13 +73,29 @@ Phases, in order; any failure exits non-zero without the final line:
      levels and flattened proposals, its RoI features against K3's and
      B11's; then one request to a server built from the R101 1600x640
      file (k_max 24576);
-  8. train: four full-width MV2D-T R50 training steps (bf16 mixed
+  8. eval: the eval path from disk to metrics.  Renders 8 val scenes of
+     the port's synthetic fixture (`tools.make_synth_fixture`: 1600x900
+     JPEGs of six cameras, 14 objects a scene), saves the serve phase's
+     seeded weights as a .pth and runs the port's `tools/test.py` `main`
+     on the R50 file, data.val pointed at the fixture by --cfg-options
+     (two frames from an empty sweep list: 12 views, the C++ pool to
+     512x1408, bf16 forwards, nuScenes metrics, a submission json); then
+     `tools.eval_e2e_bench.run` on the same fixture, 3 repeats of 16
+     scenes.  Checks: the submission has one entry per scene with the
+     devkit's keys; mAP, NDS and the ten class APs are finite; launches
+     are the forwards times K1 3, K2 9, K3 1, K4 12 and mask_bits 2, every
+     other kernel 0; the C++ pool ran once a scene; scene 0's records
+     equal a direct forward on its `to_eval_inputs` within 3e-2 of max;
+     its pool images within 0.05 mean abs of the numpy path.  Logs
+     samples/s and the ms a scene of the bench's parts (sample, wait,
+     h2d, forward, convert) with the card's name and power limit;
+  9. train: four full-width MV2D-T R50 training steps (bf16 mixed
      precision, synthetic_train_batch(seed=0), seeded weights; the first
      is warm-up): finite losses, total and grad norm, trained parameters
      moved and frozen ones not, each training kernel's launches per step,
      ms per step and peak memory, and the inputs each training kernel saw
      first replayed through its plain version;
-  9. routes_tiny: the routes that the JAX package's switches select
+  10. routes_tiny: the routes that the JAX package's switches select
      (`mv2d_tpu_torch.routes.Routes`), float32 with TF32 off, GPU against
      CPU: a ResNet-50 backbone with MV2D-T's DCN layout on 2 views at
      256x704 with fused_stages='all' (MV2D_FUSED_STAGES=all; B10 on
@@ -90,15 +106,17 @@ Phases, in order; any failure exits non-zero without the final line:
      B6's walk inside its own C entry), and one with align_v2
      (MV2D_ALIGN_V2=1; B11 and B9, K3 not launched), every loss and
      gradient;
-  10. routes: at full width, two bf16 eval forwards with fused_stages='all'
+  11. routes: at full width, two bf16 eval forwards with fused_stages='all'
      and three training steps with the three training routes (B13, B8
      on the sparse attention route, and B11 with B9 for the R-CNN RoIAlign): finite outputs,
      launches, ms and peak memory beside the default route's from phases
-     6 and 8, and the first inputs of each new kernel replayed through its
+     6 and 9, and the first inputs of each new kernel replayed through its
      plain version.
-The default phases (3-6, 8) build their models with the default routes
+The default phases (3-6, 9) build their models with the default routes
 (`Routes()`), whatever the environment holds; phase 7 sets align_v2 for
-its R50 server and the default routes for its R101 server.  Each path's launch
+its R50 server and the default routes for its R101 server; phase 8's
+`tools/test.py` reads the routes from the environment, as a user's run
+does, and expects none set.  Each path's launch
 counters are set to 0 just before it and read just after.  Then one JSON
 line with the kernels' results, the card's name and power limit, and the
 last line
@@ -113,6 +131,8 @@ import numpy as np
 
 F32_TOL = 1e-4
 BF16_TOL = 3e-2
+# the port against itself on the same inputs: float32 rounding of records
+SELF_TOL = 1e-6
 
 KERNELS = {
     'fused_stage1': dict(
@@ -1654,6 +1674,155 @@ def phase_http(dev, results, options=(), options_r101=()):
             and bad_ok and rf_ok and r101_ok)
 
 
+R50_FILE = 'configs/mv2d/mv2d_r50_frcnn_two_frames_1408x512_ep24.py'
+# launches per eval forward on the default routes (K1: layer1's three
+# bottlenecks; K2: the nine DCN convs; K3: the R-CNN RoIs; K4: the decoder's
+# six layers x self- and cross-attention)
+EVAL_PER_FORWARD = {'fused_stage1': 3, 'dcn_conv': 9,
+                    'roi_align_multilevel': 1, 'masked_attention': 12,
+                    'mask_bits': MASKS_PER_PASS}
+SUBMISSION_KEYS = {'sample_token', 'translation', 'size', 'rotation',
+                   'velocity', 'detection_name', 'detection_score',
+                   'attribute_name'}
+
+
+def _records_close(got, want):
+    """Two scenes' submission records: the same count and classes, the
+    worst score and box error (translation, size, rotation, velocity)
+    relative to the largest magnitude -> (same, error)."""
+    if len(got) != len(want) or not got or [r['detection_name'] for r in got] \
+            != [r['detection_name'] for r in want]:
+        return False, float('nan')
+
+    def arrays(recs):
+        return (np.asarray([r['detection_score'] for r in recs]),
+                np.asarray([r['translation'] + r['size'] + r['rotation']
+                            + r['velocity'] for r in recs]))
+    errs = [np.abs(a - b).max() / max(np.abs(b).max(), 1e-6)
+            for a, b in zip(arrays(got), arrays(want))]
+    return True, float(max(errs))
+
+
+def phase_eval(dev, results, n_scenes=8, options=(), image_hw=(900, 1600),
+               e2e_samples=16):
+    """The eval path from disk to metrics: render `n_scenes` val scenes of
+    the synthetic fixture (1600x900 JPEGs, 14 objects a scene), save the
+    serve phase's seeded weights as a .pth, run the port's tools/test.py
+    `main` on the R50 file with data.val pointed at the fixture, then
+    `eval_e2e_bench.run` on the same fixture, 3 repeats.  `options`
+    (--cfg-options) shrink the config for a rehearsal."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from mv2d_tpu_torch.data import pipeline
+    from mv2d_tpu_torch.data.nuscenes import to_eval_inputs
+    from mv2d_tpu_torch.eval import results as res
+    from mv2d_tpu_torch.routes import Routes
+    from mv2d_tpu_torch.synthetic import init_random_weights
+    from mv2d_tpu_torch.tools import eval_e2e_bench
+    from mv2d_tpu_torch.tools import test as test_cli
+    from mv2d_tpu_torch.tools.common import (build_dataset, build_model,
+                                             load_cli_config)
+    from mv2d_tpu_torch.tools.make_synth_fixture import make_fixture
+
+    smi = results.get('_smi', '')
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_eval_')
+    try:
+        t0 = time.perf_counter()
+        paths = make_fixture(tmp, scenes=0, val_scenes=n_scenes,
+                             objects=14, image_h=image_hw[0],
+                             image_w=image_hw[1])
+        opts = [f"data.val.info_path={paths['val_info']!r}",
+                f"data.val.ann2d_path={paths['val_coco']!r}", *options]
+        cfg = load_cli_config(R50_FILE, opts)
+        model = init_random_weights(build_model(cfg, Routes()), seed=0)
+        pth = os.path.join(tmp, 'weights.pth')
+        torch.save(model.state_dict(), pth)
+        out = os.path.join(tmp, 'submission.json')
+        log(f'  fixture: {n_scenes} scenes x 6 cameras at {image_hw[1]}x'
+            f'{image_hw[0]} rendered in {time.perf_counter() - t0:.1f} s')
+
+        fns = counters()
+        for fn in fns.values():
+            fn.launches = 0
+        pool0 = pipeline.native_preprocess.calls
+        t1 = time.perf_counter()
+        metrics = test_cli.main([R50_FILE, pth, '--out', out, '--device',
+                                 dev, '--cfg-options', *opts])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t1
+        launches = {n: fn.launches for n, fn in fns.items()}
+        pool_calls = pipeline.native_preprocess.calls - pool0
+        for name, n in launches.items():
+            results[name]['launches_by_path']['eval'] = n
+        want = {n: EVAL_PER_FORWARD.get(n, 0) * n_scenes for n in fns}
+        launch_ok = launches == want
+        log(f'  tools.test: {cli_s:.1f} s for {n_scenes} scenes; launches '
+            f'{launches} (want {want}) {"ok" if launch_ok else "FAIL"}; '
+            f'C++ pool calls {pool_calls} (want {n_scenes})')
+
+        with open(out) as f:
+            sub = json.load(f)
+        dataset = build_dataset(cfg, 'val')
+        tokens = [dataset.get_info(i)['token'] for i in range(n_scenes)]
+        recs = sub.get('results', {})
+        sub_ok = (set(sub) == {'meta', 'results'} and set(recs) == set(tokens)
+                  and all(set(r) == SUBMISSION_KEYS
+                          for rs in recs.values() for r in rs))
+        classes = [k for k in metrics if k.endswith('_AP')]
+        metrics_ok = (len(classes) == 10 and all(
+            np.isfinite(metrics[k]) for k in ['mAP', 'NDS', *classes]))
+        log(f'  submission: {len(recs)} scenes, '
+            f'{sum(map(len, recs.values()))} boxes, devkit keys '
+            f'{"ok" if sub_ok else "FAIL"}; mAP {metrics.get("mAP")} NDS '
+            f'{metrics.get("NDS")}, {len(classes)} class APs finite '
+            f'{"ok" if metrics_ok else "FAIL"}')
+
+        # one scene of the run against a direct forward on its inputs: the
+        # same weights, inputs and code, so only the records' float32
+        # rounding may differ
+        dtype = torch.bfloat16 if dev == 'cuda' else torch.float32
+        model = model.eval().to(dev, dtype)
+        s0 = dataset.get_sample(0)
+        with torch.inference_mode():
+            det = model(*to_eval_inputs(s0, dev, dtype))
+        info = dataset.get_info(0)
+        direct = res.to_nuscenes_submission(
+            [info['token']], [res.boxes_to_pred_dict(
+                *res.detections_numpy(det), info=info)],
+            {info['token']: info})['results'][info['token']]
+        same, err = _records_close(recs.get(info['token'], []), direct)
+        match_ok = same and err <= SELF_TOL
+        log(f'  scene 0 of the run vs a direct forward: same boxes and '
+            f'classes {same}, worst score / box error {err:.2e} of max '
+            f'(tol {SELF_TOL:.0e}) {"ok" if match_ok else "FAIL"}')
+
+        # the pool against its plain numpy version on that scene
+        dataset.native = False
+        plain = dataset.get_sample(0)['imgs']
+        dataset.native = True
+        pool_err = float(np.abs(s0['imgs'] - plain).mean())
+        pool_ok = pool_calls == n_scenes and pool_err < 0.05
+        log(f'  C++ pool vs numpy on scene 0: mean abs {pool_err:.3e} (tol '
+            f'0.05) {"ok" if pool_ok else "FAIL"}')
+
+        bench = eval_e2e_bench.run(model, dataset, dev, samples=e2e_samples,
+                                   repeat=3)
+        log(f'  e2e eval: {bench["samples_per_s"]:.3f} samples/s (best of '
+            f'3, {e2e_samples} scenes a repeat); ms/scene '
+            + ', '.join(f'{k} {v:.2f}' for k, v in bench['ms'].items())
+            + '; one sample alone: '
+            + ', '.join(f'{k} {v:.2f} ms' for k, v in bench['alone'].items())
+            + f'; {smi}')
+        results['_eval'] = dict(cli_s=cli_s, **bench)
+        del model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launch_ok and sub_ok and metrics_ok and match_ok and pool_ok
+
+
 def phase_train(dev, results, n_steps=4, cfg=None):
     """Full-width training steps (bf16 mixed precision) on the synthetic
     scene; the first step is warm-up."""
@@ -2009,6 +2178,7 @@ def main():
                           plain_ms=None, bound_ms=None, bound_by=None,
                           library_ms=None)
                for name, info in KERNELS.items()}
+    results['_smi'] = smi
 
     failed = []
     t0 = time.perf_counter()
@@ -2022,6 +2192,7 @@ def main():
             ('tiny_train', lambda: phase_tiny_train(dev)),
             ('serve', lambda: phase_serve(dev, results)),
             ('http', lambda: phase_http(dev, results)),
+            ('eval', lambda: phase_eval(dev, results)),
             ('train', lambda: phase_train(dev, results)),
             ('routes_tiny', lambda: phase_routes_tiny(dev)),
             ('routes', lambda: phase_routes(dev, results))):

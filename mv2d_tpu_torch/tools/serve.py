@@ -47,8 +47,9 @@ import torch
 
 from ..core.geometry import prepare_camera_params
 from ..routes import Routes
-from ..synthetic import camera_rig, init_random_weights
-from .common import build_model, load_cli_config
+from ..synthetic import camera_rig
+from .common import (build_model, device_and_dtype, load_cli_config,
+                     load_weights)
 
 
 class _Request:
@@ -68,20 +69,8 @@ class ModelRunner:
     def __init__(self, cfg: dict, checkpoint: Optional[str], max_batch: int,
                  batch_timeout_ms: float, warmup: bool = True,
                  device: str = 'cuda', routes: Optional[Routes] = None):
-        if torch.device(device).type == 'cuda' and \
-                not torch.cuda.is_available():
-            raise RuntimeError('ModelRunner: no CUDA device; pass '
-                               "device='cpu' to serve on the CPU")
-        self.device = torch.device(device)
-        self.dtype = (torch.bfloat16 if self.device.type == 'cuda'
-                      else torch.float32)
-        model = build_model(cfg, routes)
-        if checkpoint:
-            sd = torch.load(checkpoint, map_location='cpu')
-            sd = sd.get('state_dict', sd)
-            model.load_state_dict(sd, strict=True)
-        else:
-            init_random_weights(model, seed=0)
+        self.device, self.dtype = device_and_dtype(device)
+        model = load_weights(build_model(cfg, routes), checkpoint)
         self.model = model.eval().to(self.device, self.dtype)
         mc = self.mc = model.cfg
         V = mc.total_views

@@ -944,3 +944,99 @@ def test_tiny_dcn_training_step_equals_cpu(dev):
     versions): every loss and every gradient (`chip_smoke.phase_tiny_train`
     states the tolerances)."""
     assert smoke.phase_tiny_train(dev)
+
+
+# --------------------------------------------- data pipeline and eval loop
+
+@pytest.fixture(scope='module')
+def rendered(tmp_path_factory):
+    """Three scenes of the synthetic fixture at 160x90, with its tiny
+    dataset (6 views, 64x96, one frame)."""
+    from mv2d_tpu_torch.data import nuscenes, pipeline
+    from mv2d_tpu_torch.tools.make_synth_fixture import make_fixture
+    paths = make_fixture(str(tmp_path_factory.mktemp('rendered')),
+                         scenes=0, val_scenes=3, objects=8, image_h=90,
+                         image_w=160)
+    return nuscenes.NuScenesDataset(
+        info_path=paths['val_info'], ann2d_path=paths['val_coco'],
+        num_frames=1, test_mode=True, final_dim=(64, 96),
+        ida=pipeline.IdaAugConfig(final_dim=(64, 96), H=90, W=160))
+
+
+def test_eval_inputs_on_the_card_equal_the_cpu_copy(dev, rendered):
+    from mv2d_tpu_torch.data.nuscenes import to_eval_inputs
+    s = rendered.get_sample(0)
+    ci, cc, cs = to_eval_inputs(s, 'cpu')
+    gi, gc, gs = to_eval_inputs(s, dev, torch.bfloat16)
+    assert gi.is_cuda and gi.dtype == torch.bfloat16
+    assert torch.equal(gi.cpu(), ci.to(torch.bfloat16))
+    assert torch.equal(gs.cpu(), cs)
+    for name in ('intrinsics', 'extrinsics', 'lidar2img', 'img2lidar',
+                 'ext_t_inv', 'trans_mats', 'timestamps'):
+        assert torch.equal(getattr(gc, name).cpu(), getattr(cc, name))
+
+
+def test_run_eval_on_the_card_matches_the_cpu(dev, rendered, monkeypatch):
+    """run_eval of the tiny+DCN model (float32) on the GPU, through the
+    kernels, against the CPU (plain versions): per scene the same valid
+    slots and labels and scores within 1e-4.  Boxes: the GPU's within
+    1e-3 (the tiny phase's tolerance of chip_smoke.py) of a float64
+    forward of the same scene on the CPU, and within 1e-3 of the CPU's
+    float32 boxes plus twice the CPU's own error against that float64
+    forward, the widening at most 1e-4 of the scene's largest box value
+    (one rendered scene's box moves 1.7e-3 between float32 and float64 on
+    the CPU; the largest widening is printed).  The metrics within
+    1e-3."""
+    import dataclasses
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.data.nuscenes import to_eval_inputs
+    from mv2d_tpu_torch.eval import results
+    from mv2d_tpu_torch.eval.runner import run_eval
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.routes import Routes
+    cfg = configs.tiny(num_views=6, stage_with_dcn=(False, False, True,
+                                                    True))
+    model = synthetic.init_random_weights(MV2D(cfg, Routes()).eval(),
+                                          seed=3)
+    fn = results.boxes_to_pred_dict
+    seen = {}
+    out = {}
+    for d in ('cpu', dev):
+        seen[d] = {}
+
+        def rec(boxes, scores, labels, valid, info=None, _d=d):
+            seen[_d][info['token']] = (boxes, scores, labels, valid)
+            return fn(boxes, scores, labels, valid, info=info)
+        monkeypatch.setattr(results, 'boxes_to_pred_dict', rec)
+        out[d] = run_eval(model.to(d), rendered, d, verbose=False,
+                          collect_submission=True)
+    model64 = model.to('cpu', torch.float64)
+    f64 = {}
+    for i in range(len(rendered)):
+        imgs, cam, shapes = to_eval_inputs(rendered.get_sample(i), 'cpu',
+                                           torch.float64)
+        cam = dataclasses.replace(cam, **{
+            f.name: getattr(cam, f.name).double()
+            for f in dataclasses.fields(cam)})
+        with torch.no_grad():
+            f64[rendered.get_info(i)['token']] = model64(
+                imgs, cam, shapes).boxes.numpy()
+    assert set(seen['cpu']) == set(seen[dev]) == set(f64)
+    widest = 0.0
+    for tok, (cb, cs, cl, cv) in seen['cpu'].items():
+        gb, gs, gl, gv = seen[dev][tok]
+        assert cv.any() and (cv == gv).all()
+        assert (cl[cv] == gl[cv]).all()
+        ref = f64[tok][cv]
+        assert (abs(gb[cv] - ref) <= 1e-3).all(), abs(gb[cv] - ref).max()
+        widen = (2 * abs(cb[cv] - ref)).clip(max=1e-4 * abs(ref).max())
+        widest = max(widest, float(widen.max()))
+        assert (abs(cb[cv] - gb[cv]) <= 1e-3 + widen).all(), \
+            abs(cb[cv] - gb[cv]).max()
+        assert abs(cs[cv] - gs[cv]).max() < 1e-4
+    print(f'largest widening of the 1e-3 box tolerance: {widest:.3e}')
+    (cm, csub), (gm, gsub) = out['cpu'], out[dev]
+    assert list(cm) == list(gm)
+    for k in cm:
+        assert cm[k] == pytest.approx(gm[k], abs=1e-3, nan_ok=True), k
+    assert set(csub['results']) == set(gsub['results'])

@@ -178,5 +178,9 @@ def test_port_imports_without_jax():
     for m in ('train.train_step', 'train.optim', 'train.losses',
               'train.detector2d_loss', 'core.matching', 'ops.grid_mask',
               'ops.focal_loss', 'tools.common', 'tools.serve',
-              'utils.config'):
+              'utils.config', 'data.padding', 'data.pipeline',
+              'data.nuscenes', 'data.converter', 'eval.runner',
+              'eval.nuscenes_eval', 'eval.results', 'tools.test',
+              'tools.create_data', 'tools.make_synth_fixture',
+              'tools.eval_e2e_bench', 'utils.native_build'):
         assert f'mv2d_tpu_torch.{m}' in names, m
