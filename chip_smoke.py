@@ -111,7 +111,22 @@ Phases, in order; any failure exits non-zero without the final line:
      on the sparse attention route, and B11 with B9 for the R-CNN RoIAlign): finite outputs,
      launches, ms and peak memory beside the default route's from phases
      6 and 9, and the first inputs of each new kernel replayed through its
-     plain version.
+     plain version;
+  12. train_cli: the training CLI (`mv2d_tpu_torch.tools.train` `main`)
+     on 4 train and 2 val scenes of the rendered fixture (1600x900, two
+     epochs, the eval hook after each), MV2D-T R50 from the model's own
+     initialisation under seed 0: leg A stops at --max-steps 4 (epoch 1),
+     leg B runs --auto-resume with RANK=0 WORLD_SIZE=1 set (an NCCL group
+     of one: the dp step's all-reduces on the card).  Checks: 8 log lines
+     with every key of the JAX CLI's soak log, finite; the lr of step 5 is
+     cosine_schedule(4, ...); the AdamW state that leg B restored equals
+     epoch_1.pth's bit for bit; the frozen parameters of epoch_2.pth equal
+     the initial ones and the trained ones moved; launches are 8 steps x
+     the train phase's per-step counts (K3 2) plus 4 eval scenes x K1 3,
+     K2 9, K3 1, K4 12, mask_bits 2, B10-B13 0; `tools.test` on
+     epoch_2.pth (strict load) gives the hook's last mAP and NDS, and its
+     scene-0 records equal a forward of the hook's bf16 copy within 1e-6.
+     Logs ms a step in the CLI loop (1000 / sps) and peak memory.
 The default phases (3-6, 9) build their models with the default routes
 (`Routes()`), whatever the environment holds; phase 7 sets align_v2 for
 its R50 server and the default routes for its R101 server; phase 8's
@@ -1260,7 +1275,8 @@ def phase_tiny_train(dev, need=DEFAULT_TRAIN_NEED, absent=ROUTED_KERNELS,
     from mv2d_tpu_torch.routes import Routes
     from mv2d_tpu_torch.synthetic import (init_random_weights,
                                           synthetic_train_batch)
-    from mv2d_tpu_torch.train.train_step import draw_train, forward_backward
+    from mv2d_tpu_torch.parallel.dist import dp_objective
+    from mv2d_tpu_torch.train.train_step import draw_train
     cfg = configs.tiny(stage_with_dcn=(False, False, True, True),
                        num_frames=2, dropout=0.0, use_flash_attention=True)
     batch = synthetic_train_batch(cfg, seed=0, device='cpu')
@@ -1273,9 +1289,10 @@ def phase_tiny_train(dev, need=DEFAULT_TRAIN_NEED, absent=ROUTED_KERNELS,
         m = copy.deepcopy(model).to(d)
         for fn in fns.values():
             fn.launches = 0
-        _, metrics = forward_backward(m, to_device(batch, d),
-                                      to_device(draws, d),
+        local, metrics = dp_objective(m, [to_device(batch, d)],
+                                      [to_device(draws, d)],
                                       mixed_precision=False)
+        local.backward()
         runs[d] = ({k: float(v) for k, v in metrics.items()},
                    {n: p.grad.detach().cpu() for n, p in
                     m.named_parameters() if p.grad is not None})
@@ -1835,8 +1852,8 @@ def phase_train(dev, results, n_steps=4, cfg=None):
     from mv2d_tpu_torch.routes import Routes
     from mv2d_tpu_torch.synthetic import (init_random_weights,
                                           synthetic_train_batch)
+    from mv2d_tpu_torch.parallel.dist import dp_train_step
     from mv2d_tpu_torch.train.optim import make_optimizer
-    from mv2d_tpu_torch.train.train_step import train_step
 
     cfg = cfg or configs.mv2d_t_r50()
     model = init_random_weights(MV2D(cfg, Routes()), seed=0).to(dev)
@@ -1868,7 +1885,7 @@ def phase_train(dev, results, n_steps=4, cfg=None):
         for _ in range(n_steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            metrics = train_step(model, opt, batch, gen)
+            metrics = dp_train_step(model, opt, [batch], [gen])
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             steps.append({k: float(v) for k, v in metrics.items()})
@@ -2032,8 +2049,8 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     from mv2d_tpu_torch.routes import Routes
     from mv2d_tpu_torch.synthetic import (camera_rig, init_random_weights,
                                           synthetic_train_batch)
+    from mv2d_tpu_torch.parallel.dist import dp_train_step
     from mv2d_tpu_torch.train.optim import make_optimizer
-    from mv2d_tpu_torch.train.train_step import train_step
 
     cfg = cfg or configs.mv2d_t_r50()
     V, (H, W) = cfg.total_views, cfg.image_size
@@ -2105,7 +2122,7 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     steps = []
 
     def step():
-        metrics = train_step(model, opt, batch, gen)
+        metrics = dp_train_step(model, opt, [batch], [gen])
         steps.append({k: float(v) for k, v in metrics.items()})
 
     def cross(args):
@@ -2158,6 +2175,194 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     return _replay(seen, plain, kern, 'routes') and serve_ok and train_ok
 
 
+# the train_cli phase: 4 train scenes an epoch, 2 epochs, 2 val scenes
+TRAIN_CLI_SCENES, TRAIN_CLI_VAL = 4, 2
+SOAK_LOG = 'docs/soak/train_log_r5.jsonl'
+
+
+def _same_tree(a, b):
+    """Equal bit for bit: tensors (on any device) by dtype and value."""
+    import torch
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and \
+            torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            _same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    return a == b
+
+
+def phase_train_cli(dev, results):
+    """The training CLI as a user runs it (`tools.train.main`): render
+    TRAIN_CLI_SCENES train and TRAIN_CLI_VAL val scenes of the synthetic
+    fixture (2 epochs, the eval hook after each), train MV2D-T R50 from
+    the model's own seeded initialisation with --max-steps one epoch
+    (leg A), then --auto-resume in a process group of one
+    (RANK=0 WORLD_SIZE=1: NCCL, the dp step's all-reduces; leg B), then
+    `tools.test` on the last checkpoint."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from mv2d_tpu_torch.data.nuscenes import to_eval_inputs
+    from mv2d_tpu_torch.eval import results as res
+    from mv2d_tpu_torch.parallel.dist import free_port
+    from mv2d_tpu_torch.tools import test as test_cli
+    from mv2d_tpu_torch.tools import train as train_cli
+    from mv2d_tpu_torch.tools.common import (build_dataset, build_model,
+                                             load_cli_config)
+    from mv2d_tpu_torch.tools.make_synth_fixture import make_fixture
+    from mv2d_tpu_torch.train import checkpoint
+    from mv2d_tpu_torch.train.optim import cosine_schedule
+
+    smi = results.get('_smi', '')
+    n, epochs = TRAIN_CLI_SCENES, 2
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_train_cli_')
+    restore = checkpoint.restore_checkpoint
+    env_keys = ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                'MASTER_PORT')
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    try:
+        t0 = time.perf_counter()
+        paths = make_fixture(tmp, scenes=n, val_scenes=TRAIN_CLI_VAL,
+                             epochs=epochs, eval_interval=1)
+        opts = ['log_interval=1']
+        cfg = load_cli_config(paths['config'], opts)
+        torch.manual_seed(0)                    # the CLI's own init, seed 0
+        init = build_model(cfg)
+        frozen = [k for k, p in init.named_parameters() if not p.requires_grad]
+        work = os.path.join(tmp, 'work')
+        argv = [paths['config'], '--work-dir', work, '--device', dev]
+        log(f'  fixture: {n} + {TRAIN_CLI_VAL} scenes at 1600x900 in '
+            f'{time.perf_counter() - t0:.1f} s')
+
+        restored = {}
+
+        def recording_restore(path, model, optimizer=None):
+            meta = restore(path, model, optimizer)
+            restored['optimizer'] = _clone(optimizer.state_dict())
+            return meta
+        checkpoint.restore_checkpoint = recording_restore
+        fns = counters()
+        for fn in fns.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        leg_a = train_cli.main(argv + ['--max-steps', str(n),
+                                       '--cfg-options', *opts])
+        t2 = time.perf_counter()
+        os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0',
+                          MASTER_ADDR='127.0.0.1',
+                          MASTER_PORT=str(free_port()))
+        leg_b = train_cli.main(argv + ['--auto-resume', '--cfg-options',
+                                       *opts])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = {k: fn.launches for k, fn in fns.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        for name, k in launches.items():
+            results[name]['launches_by_path']['train_cli'] = k
+        steps, scenes = n * epochs, TRAIN_CLI_VAL * epochs
+        want = {k: steps * TRAIN_PER_STEP.get(k, 0)
+                + scenes * EVAL_PER_FORWARD.get(k, 0) for k in fns}
+        want['roi_align_multilevel'] = 2 * steps + scenes
+        launch_ok = launches == want
+        log(f'  leg A {t2 - t1:.1f} s (to step {leg_a["step"]}), leg B '
+            f'{t3 - t2:.1f} s (resumed from '
+            f'{os.path.basename(str(leg_b["resumed_from"]))}, to step '
+            f'{leg_b["step"]}); launches {launches} (want {want}) '
+            f'{"ok" if launch_ok else "FAIL"}')
+
+        with open(os.path.join(work, 'train_log.jsonl')) as f:
+            lines = [json.loads(line) for line in f]
+        step_lines = [r for r in lines if 'step' in r]
+        vals = [r for r in lines if 'val_mAP' in r]
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               SOAK_LOG)) as f:
+            jax_keys = set(json.loads(f.readline()))
+        base_lr = cfg['optimizer']['lr']
+        log_ok = (leg_a['step'] == n and leg_b['step'] == steps
+                  and leg_b['resumed_from'] == os.path.join(work,
+                                                            'epoch_1.pth')
+                  and [r['step'] for r in step_lines] == list(
+                      range(1, steps + 1))
+                  and [r['epoch'] for r in vals] == [1, 2]
+                  and all(jax_keys <= set(r) for r in step_lines)
+                  and all(np.isfinite(v) for r in step_lines
+                          for v in r.values())
+                  and step_lines[n]['lr'] == cosine_schedule(n, base_lr,
+                                                             steps))
+        ck1 = torch.load(os.path.join(work, 'epoch_1.pth'), weights_only=True)
+        ck2 = torch.load(os.path.join(work, 'epoch_2.pth'), weights_only=True)
+        resume_ok = _same_tree(restored.get('optimizer'), ck1['optimizer'])
+        init_sd = init.state_dict()
+        frozen_ok = all(torch.equal(ck2['state_dict'][k], init_sd[k])
+                        for k in frozen)
+        trainable = [k for k, p in init.named_parameters() if p.requires_grad]
+        moved = sum(not torch.equal(ck2['state_dict'][k], init_sd[k])
+                    for k in trainable)
+        ms = [1e3 / r['sps'] for r in step_lines]
+        log(f'  {len(step_lines)} log lines, JAX soak keys, finite, lr of '
+            f'step {n + 1} {step_lines[n]["lr"]:.6e} = cosine_schedule('
+            f'{n}) {"ok" if log_ok else "FAIL"}; restored AdamW state equal '
+            f'to epoch_1.pth {"ok" if resume_ok else "FAIL"}; frozen '
+            f'unchanged {frozen_ok}, trained moved {moved}/{len(trainable)}')
+        log('  ms/step in the CLI loop (1000 / sps; steps 1 and 5 start an '
+            'epoch): ' + ', '.join(f'{t:.1f}' for t in ms)
+            + f'; peak memory {peak_gb:.2f} GiB; {smi}')
+        for r in step_lines:
+            log(f'  step {r["step"]}: total_loss={r["total_loss"]:.4f} '
+                f'grad_norm={r["grad_norm"]:.4f} '
+                f'key_active={r["key_active"]:.0f} '
+                f'key_overflow={r["key_overflow"]:.0f}')
+
+        # tools.test on the last checkpoint (strict=True) against the hook
+        out = os.path.join(tmp, 'submission.json')
+        ckpt2 = os.path.join(work, 'epoch_2.pth')
+        metrics = test_cli.main([paths['config'], ckpt2, '--out', out,
+                                 '--device', dev, '--cfg-options', *opts])
+        hook = vals[-1]
+        line = train_cli.val_line(metrics, epochs)
+        hook_ok = all(line[k] == hook[k] for k in ('val_mAP', 'val_NDS'))
+        model = build_model(cfg)
+        restore(ckpt2, model)
+        ev = train_cli.eval_copy(model, cfg, dev)
+        dataset = build_dataset(cfg, 'val')
+        info = dataset.get_info(0)
+        with torch.inference_mode():
+            det = ev(*to_eval_inputs(dataset.get_sample(0), dev,
+                                     next(ev.parameters()).dtype))
+        direct = res.to_nuscenes_submission(
+            [info['token']], [res.boxes_to_pred_dict(
+                *res.detections_numpy(det), info=info)],
+            {info['token']: info})['results'][info['token']]
+        with open(out) as f:
+            recs = json.load(f)['results'].get(info['token'], [])
+        same, err = _records_close(recs, direct)
+        match_ok = same and err <= SELF_TOL
+        log(f'  tools.test on epoch_2.pth: mAP {line["val_mAP"]} NDS '
+            f'{line["val_NDS"]} vs the hook\'s {hook["val_mAP"]} '
+            f'{hook["val_NDS"]} {"ok" if hook_ok else "FAIL"} (whole val '
+            f'line equal: {line == hook}); scene 0 vs a forward of the '
+            f'hook\'s copy: same boxes {same}, error {err:.2e} (tol '
+            f'{SELF_TOL:.0e}) {"ok" if match_ok else "FAIL"}')
+        results['_train_cli'] = dict(ms=ms, peak_gb=peak_gb)
+        del ev, model
+    finally:
+        checkpoint.restore_checkpoint = restore
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return (launch_ok and log_ok and resume_ok and frozen_ok
+            and moved >= 0.9 * len(trainable) and hook_ok and match_ok)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2195,7 +2400,8 @@ def main():
             ('eval', lambda: phase_eval(dev, results)),
             ('train', lambda: phase_train(dev, results)),
             ('routes_tiny', lambda: phase_routes_tiny(dev)),
-            ('routes', lambda: phase_routes(dev, results))):
+            ('routes', lambda: phase_routes(dev, results)),
+            ('train_cli', lambda: phase_train_cli(dev, results))):
         log(f'[{phase}]')
         t1 = time.perf_counter()
         try:

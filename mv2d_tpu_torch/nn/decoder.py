@@ -187,6 +187,8 @@ class CrossAttentionBoxHead(tnn.Module):
             tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),
             tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),
             tnn.Linear(C, num_classes)) for _ in range(num_layers)])
+        for branch in self.cls_branches:      # the focal-loss prior, p 0.01
+            tnn.init.constant_(branch[-1].bias, -4.595)
         self.reg_branches = tnn.ModuleList([tnn.Sequential(
             tnn.Linear(C, C), tnn.ReLU(), tnn.Linear(C, C), tnn.ReLU(),
             tnn.Linear(C, code_size)) for _ in range(num_layers)])

@@ -32,6 +32,8 @@ class QueryGenerator(tnn.Module):
             tnn.Linear(fc_out_channels + 16, e0), tnn.ReLU(),
             tnn.Linear(e0, e1), tnn.ReLU())
         self.fc_center = tnn.Linear(e1, 3)
+        tnn.init.normal_(self.fc_center.weight, std=0.001)
+        tnn.init.zeros_(self.fc_center.bias)
 
     def forward(self, roi_feats, virtual_K, ext_t_inv, intrins_valid):
         """roi_feats [R, 7, 7, C]; virtual_K, ext_t_inv [R, 4, 4];

@@ -31,6 +31,7 @@ def _step_parts(model, opt, batch, gen):
     """One training step with a synchronisation after each part ->
     (forward + losses ms, backward ms, update ms)."""
     from .nn.decoder import Dropout
+    from .parallel.dist import dp_objective
     from .train import train_step as ts
     from .train.optim import apply_update
     cfg = model.cfg
@@ -39,10 +40,11 @@ def _step_parts(model, opt, batch, gen):
     t0 = time.perf_counter()
     draws = ts.draw_train(cfg, batch.gt2d.boxes.shape[1], gen)
     opt.zero_grad(set_to_none=True)
-    total, _ = ts.step_losses(model, batch, draws, Dropout(cfg.dropout, gen))
+    local, _ = dp_objective(model, [batch], [draws],
+                            [Dropout(cfg.dropout, gen)])
     sync()
     t1 = time.perf_counter()
-    total.backward()
+    local.backward()
     sync()
     t2 = time.perf_counter()
     apply_update(opt)
@@ -95,8 +97,8 @@ def main(argv=None):
     from . import configs
     from .models.mv2d import MV2D
     from .synthetic import init_random_weights, synthetic_train_batch
+    from .parallel.dist import dp_train_step
     from .train.optim import make_optimizer
-    from .train.train_step import train_step
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--steps', type=int, default=3)
@@ -119,7 +121,7 @@ def main(argv=None):
         gen = torch.Generator(device=dev).manual_seed(0)
 
         def step():
-            train_step(model, opt, batch, gen)
+            dp_train_step(model, opt, [batch], [gen])
     for _ in range(args.warmup):
         step()
 

@@ -20,6 +20,7 @@ real geometric signal -
 
   python -m mv2d_tpu_torch.tools.make_synth_fixture --out /tmp/synth_fix \
       --scenes 48 --val-scenes 8
+  python -m mv2d_tpu_torch.tools.train /tmp/synth_fix/soak_cfg.py
   python -m mv2d_tpu_torch.tools.test /tmp/synth_fix/soak_cfg.py
 """
 from __future__ import annotations
@@ -235,15 +236,20 @@ data = dict(
              num_frames=2, final_dim=(512, 1408), test_mode=True),
 )
 model = dict(preset='mv2d_t_r50', overrides=dict())
+total_epochs = {epochs}
+evaluation = dict(interval={eval_interval})
+log_interval = 10
 """
 
 
 def make_fixture(out: str, scenes: int = 48, val_scenes: int = 8,
                  objects: int = 14, image_h: int = 900, image_w: int = 1600,
-                 seed: int = 0) -> dict:
+                 seed: int = 0, epochs: int = 10,
+                 eval_interval: int = 5) -> dict:
     """Writes the fixture under `out`; returns the paths of its infos pkls,
     COCO files and config (train_info, train_coco, val_info, val_coco,
-    config)."""
+    config).  The config trains for `epochs` and evaluates every
+    `eval_interval` epochs."""
     os.makedirs(out, exist_ok=True)
     rng = np.random.default_rng(seed)
     rigs = make_rig(image_h, image_w)
@@ -258,7 +264,7 @@ def make_fixture(out: str, scenes: int = 48, val_scenes: int = 8,
     with open(cfg, 'w') as f:
         f.write(CFG_TEMPLATE.format(
             base=base, train_info=ti, train_coco=tc, val_info=vi,
-            val_coco=vc))
+            val_coco=vc, epochs=epochs, eval_interval=eval_interval))
     return dict(train_info=ti, train_coco=tc, val_info=vi, val_coco=vc,
                 config=cfg)
 
@@ -271,10 +277,13 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument('--objects', type=int, default=14)
     p.add_argument('--image-h', type=int, default=900)
     p.add_argument('--image-w', type=int, default=1600)
+    p.add_argument('--epochs', type=int, default=10)
+    p.add_argument('--eval-interval', type=int, default=5)
     p.add_argument('--seed', type=int, default=0)
     args = p.parse_args(argv)
     paths = make_fixture(args.out, args.scenes, args.val_scenes,
-                         args.objects, args.image_h, args.image_w, args.seed)
+                         args.objects, args.image_h, args.image_w, args.seed,
+                         args.epochs, args.eval_interval)
     n_imgs = (args.scenes + args.val_scenes) * 6
     print(f'fixture: {args.scenes}+{args.val_scenes} scenes, {n_imgs} '
           f'images @ {args.image_w}x{args.image_h} -> {args.out}')

@@ -31,10 +31,12 @@ def cosine_schedule(step: int, base_lr: float, total_steps: int,
 
 def make_optimizer(model: torch.nn.Module, base_lr: float = 2e-4,
                    total_steps: int = 100000, weight_decay: float = 0.01,
-                   backbone_lr_mult: float = 0.25) -> torch.optim.AdamW:
+                   backbone_lr_mult: float = 0.25,
+                   clip_norm: float = 35.0) -> torch.optim.AdamW:
     """AdamW over the trainable parameters in two groups: the backbone
     (names under `base_detector.backbone`) at lr x backbone_lr_mult, and
-    everything else.  `set_lr` applies the schedule before each step."""
+    everything else.  `set_lr` applies the schedule before each step;
+    `apply_update` clips the gradients' global norm at `clip_norm`."""
     default, backbone = [], []
     for name, p in model.named_parameters():
         if p.requires_grad:
@@ -46,6 +48,7 @@ def make_optimizer(model: torch.nn.Module, base_lr: float = 2e-4,
         weight_decay=weight_decay)
     opt.base_lr = base_lr
     opt.total_steps = total_steps
+    opt.clip_norm = clip_norm
     return opt
 
 
@@ -67,9 +70,6 @@ def set_lr(optimizer: torch.optim.Optimizer, step: int) -> float:
     return lr
 
 
-CLIP_NORM = 35.0
-
-
 def clip_by_global_norm(params: Iterable[torch.Tensor],
                         max_norm: float) -> torch.Tensor:
     """Scale every gradient by max_norm / norm when the global norm
@@ -86,10 +86,11 @@ def clip_by_global_norm(params: Iterable[torch.Tensor],
 
 
 def apply_update(optimizer: torch.optim.Optimizer):
-    """Clip the gradients at CLIP_NORM, set the scheduled lr and step ->
-    (gradient norm before clipping, the default group's lr)."""
+    """Clip the gradients at the optimizer's clip_norm, set the scheduled
+    lr and step -> (gradient norm before clipping, the default group's
+    lr)."""
     params = [p for grp in optimizer.param_groups for p in grp['params']]
-    norm = clip_by_global_norm(params, CLIP_NORM)
+    norm = clip_by_global_norm(params, optimizer.clip_norm)
     lr = set_lr(optimizer, updates_done(optimizer))
     optimizer.step()
     return norm, lr

@@ -1,10 +1,11 @@
-"""One MV2D training step: the full loss and the clipped AdamW update.
+"""One scene's MV2D training losses.
 
-Port of `mv2d_tpu/train/train_step.py` (`compute_losses`,
-`make_train_step`): grid mask, backbone and FPN, RPN and R-CNN losses on
-the current frame's views, detections without gradients plus missed GT,
-the 3D head with DN, per-layer Hungarian matching on the host, and the
-update.  Mixed precision is the JAX package's: float32 master parameters,
+Port of `mv2d_tpu/train/train_step.py` (`compute_losses`): grid mask,
+backbone and FPN, RPN and R-CNN losses on the current frame's views,
+detections without gradients plus missed GT, the 3D head with DN, and
+per-layer Hungarian matching on the host.  The step that combines
+scenes' losses and updates the model is `parallel.dist.dp_train_step`,
+on one GPU as on many.  Mixed precision is the JAX package's: float32 master parameters,
 a bfloat16 forward through bfloat16 copies of them (their gradients reach
 the masters through the casts), losses in float32.
 
@@ -14,7 +15,7 @@ step's generator, so a test can pin them all.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,7 +29,6 @@ from ..nn.rpn import grid_anchors, rpn_proposals
 from ..ops.grid_mask import GridMaskDraws, draw_grid_mask
 from . import detector2d_loss as d2l
 from .losses import mv2d_head_loss
-from .optim import apply_update
 
 
 class TrainBatch(NamedTuple):
@@ -60,6 +60,17 @@ def current_views(cfg: MV2DConfig) -> int:
     return cfg.num_views if cfg.num_frames > 1 else cfg.total_views
 
 
+def step_generator(seed: int, step: int, scene: int = 0,
+                   device='cuda') -> torch.Generator:
+    """The generator of a step's draws for one scene: seeded from (seed,
+    global step, the scene's index in the global batch), so a resumed run
+    and a run on any number of ranks draw what an uninterrupted one-rank
+    run draws."""
+    key = np.random.SeedSequence([seed, step, scene]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(key))
+
+
 def draw_train(cfg: MV2DConfig, num_gt2d: int,
                generator: torch.Generator) -> TrainDraws:
     """A step's draws, on the generator's device."""
@@ -77,14 +88,17 @@ def draw_train(cfg: MV2DConfig, num_gt2d: int,
 
 
 def compute_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
-                   drop: Dropout = NO_DROPOUT
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(total loss, metrics) of one scene, in float32."""
+                   drop: Dropout = NO_DROPOUT):
+    """(total, metrics, deferred) of one scene, in float32: the 3D bbox
+    losses are left out of `total` and `metrics` and come back as
+    deferred[key] = (weighted sum, num_pos) (`mv2d_head_loss` with
+    sync_bbox_norm), for the step to normalise over its batch."""
     cfg = model.cfg
     out, det = model.forward_train(batch.imgs, batch.cam, batch.img_shapes,
                                    batch.gt2d, batch.gt3d, draws.grid,
                                    draws.dn_noise, drop)
-    losses = mv2d_head_loss(out, batch.gt3d, cfg)
+    losses, deferred = mv2d_head_loss(out, batch.gt3d, cfg,
+                                      sync_bbox_norm=True)
 
     Vc = current_views(cfg)
     gt2d = batch.gt2d
@@ -124,7 +138,7 @@ def compute_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
     metrics['num_queries'] = out.query_valid.sum()
     metrics['key_active'] = out.diagnostics['key_active']
     metrics['key_overflow'] = out.diagnostics['key_overflow']
-    return total, metrics
+    return total, metrics, deferred
 
 
 class _LossModule(tnn.Module):
@@ -140,8 +154,7 @@ class _LossModule(tnn.Module):
 
 
 def step_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
-                drop: Dropout = NO_DROPOUT, mixed_precision: bool = True
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                drop: Dropout = NO_DROPOUT, mixed_precision: bool = True):
     """compute_losses; mixed_precision runs the forward in bfloat16
     through bfloat16 copies of the float32 parameters and images, so the
     gradients reach the float32 masters through the casts."""
@@ -153,35 +166,3 @@ def step_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
     batch = batch._replace(imgs=batch.imgs.to(torch.bfloat16))
     return torch.func.functional_call(_LossModule(model), params,
                                       (batch, draws, drop), strict=False)
-
-
-def forward_backward(model: MV2D, batch: TrainBatch, draws: TrainDraws,
-                     drop: Dropout = NO_DROPOUT,
-                     mixed_precision: bool = True
-                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Losses of one scene and their gradients in the parameters' .grad
-    (float32 masters)."""
-    total, metrics = step_losses(model, batch, draws, drop, mixed_precision)
-    total.backward()
-    return total.detach(), {k: v.detach() for k, v in metrics.items()}
-
-
-def train_step(model: MV2D, optimizer: torch.optim.Optimizer,
-               batch: TrainBatch,
-               generator: Optional[torch.Generator] = None,
-               mixed_precision: bool = True) -> Dict[str, torch.Tensor]:
-    """One update of `model` on `batch` -> metrics (the loss terms,
-    rpn_num_pos, rcnn_num_pos, num_queries, key_active, key_overflow,
-    total_loss, grad_norm, lr).  The draws come from `generator`, by
-    default a seeded one on the card."""
-    cfg = model.cfg
-    g = generator if generator is not None else \
-        torch.Generator(device='cuda').manual_seed(0)
-    draws = draw_train(cfg, batch.gt2d.boxes.shape[1], g)
-    optimizer.zero_grad(set_to_none=True)
-    total, metrics = forward_backward(model, batch, draws,
-                                      Dropout(cfg.dropout, g),
-                                      mixed_precision)
-    norm, lr = apply_update(optimizer)
-    metrics.update(grad_norm=norm, lr=torch.tensor(lr), total_loss=total)
-    return metrics

@@ -38,8 +38,8 @@ from mv2d_tpu_torch.synthetic import (camera_rig,        # noqa: E402
                                       init_random_weights,
                                       synthetic_train_batch)
 from mv2d_tpu_torch.core.geometry import prepare_camera_params  # noqa
-from mv2d_tpu_torch.train.train_step import (draw_train,  # noqa: E402
-                                             forward_backward)
+from mv2d_tpu_torch.parallel.dist import dp_objective   # noqa: E402
+from mv2d_tpu_torch.train.train_step import draw_train   # noqa: E402
 from tests.test_torch_port_slice import build            # noqa: E402
 
 STRIDES = (4, 8, 16, 32)
@@ -263,7 +263,9 @@ def test_align_v2_forward_and_step_equal_default(monkeypatch):
         with torch.no_grad():
             det = m.eval()(imgs, cam, shapes)
         m.train()
-        _, metrics = forward_backward(m, batch, draws, mixed_precision=False)
+        local, metrics = dp_objective(m, [batch], [draws],
+                                      mixed_precision=False)
+        local.backward()
         runs.append((det, {k: float(v) for k, v in metrics.items()},
                      {n: p.grad.detach() for n, p in m.named_parameters()
                       if p.grad is not None}))

@@ -52,8 +52,8 @@ from mv2d_tpu_torch.nn import resnet                     # noqa: E402
 from mv2d_tpu_torch.ops import attention, dcn, stage     # noqa: E402
 from mv2d_tpu_torch.synthetic import (init_random_weights,  # noqa: E402
                                       synthetic_train_batch)
-from mv2d_tpu_torch.train.train_step import (draw_train,  # noqa: E402
-                                             forward_backward)
+from mv2d_tpu_torch.parallel.dist import dp_objective   # noqa: E402
+from mv2d_tpu_torch.train.train_step import draw_train   # noqa: E402
 
 REL = 1e-4
 SWITCHES = ('MV2D_FUSED_STAGES', 'MV2D_DCN_TRAIN_FUSED', 'MV2D_FLASH_SPARSE',
@@ -381,7 +381,9 @@ def test_routed_train_step_equals_default(monkeypatch):
     runs = []
     for route in (Routes(), Routes(dcn_train_fused=True, flash_sparse=True)):
         m = init_random_weights(MV2D(cfg, route), seed=3)
-        _, metrics = forward_backward(m, batch, draws, mixed_precision=False)
+        local, metrics = dp_objective(m, [batch], [draws],
+                                      mixed_precision=False)
+        local.backward()
         runs.append(({k: float(val) for k, val in metrics.items()},
                      {n: p.grad.detach() for n, p in m.named_parameters()
                       if p.grad is not None}))

@@ -42,6 +42,7 @@ from mv2d_tpu_torch.core import matching as tmatch       # noqa: E402
 from mv2d_tpu_torch.models.mv2d import MV2D as TMV2D     # noqa: E402
 from mv2d_tpu_torch.ops import focal_loss as tfl         # noqa: E402
 from mv2d_tpu_torch.ops import grid_mask as tgm          # noqa: E402
+from mv2d_tpu_torch.parallel import dist as tdist        # noqa: E402
 from mv2d_tpu_torch.synthetic import camera_rig, synthetic_train_batch  # noqa
 from mv2d_tpu_torch.train import detector2d_loss as td2l  # noqa: E402
 from mv2d_tpu_torch.train import losses as tlosses       # noqa: E402
@@ -428,7 +429,7 @@ def test_optimizer_matches_optax():
             if p.requires_grad:
                 p.grad = t(grads[n]).clone()
         norm, lr = toptim.apply_update(opt)
-        assert (float(norm) > toptim.CLIP_NORM) == (step == 0)
+        assert (float(norm) > opt.clip_norm) == (step == 0)
         assert lr == pytest.approx(toptim.cosine_schedule(step, 2e-4, 50))
         for n, p in model.named_parameters():
             want = np.asarray(get(params, jpath[n]))
@@ -542,8 +543,10 @@ def step_pair():
     tdraws = tts.TrainDraws(torch_grid_draws(draws['grid']),
                             t(draws['dn_noise']), t(draws['rpn_u']),
                             t(draws['rcnn_u']))
-    total, metrics = tts.forward_backward(tm, batch, tdraws,
-                                          mixed_precision=False)
+    local, metrics = tdist.dp_objective(tm, [batch], [tdraws],
+                                        mixed_precision=False)
+    local.backward()
+    total = metrics.pop('total_loss')
     zeros = jax.tree.map(np.zeros_like, variables['constants'])
     jgrad_sd = state_dict_from_jax(jax.tree.map(np.asarray, jgrads), zeros)
     return dict(jtotal=float(jtotal), jmetrics=jmetrics, jgrads=jgrad_sd,
