@@ -54,15 +54,26 @@ Phases, in order; any failure exits non-zero without the final line:
      are checked on a finest level 560 cells wide and for equal bits in
      two runs;
   4. tiny: the tiny config with DCN, eval forward, GPU (kernels) against
-     CPU (plain versions), same seeded weights;
+     CPU (plain versions), same seeded weights, the GPU launching exactly
+     the path's kernels (`path_kernels`);
   5. tiny_train: one tiny+DCN training step (float32, TF32 off, dropout
      0), GPU against CPU with the same weights and draws: every loss and
      every parameter's gradient;
+     variants_tiny: the same two checks on the other model families:
+     the roi key mode (MV2D-S) forward and, with DN, a step; the
+     single-stage (RetinaNet) detector's forward and step; the VoVNet-19
+     backbone's forward (its boxes held against the CPU's boxes of the
+     same label and score: near-tied queries may swap slots);
   6. serve: three full-width MV2D-T R50 forwards (12 x 512 x 1408, k_max
      16384) in bfloat16 with seeded weights (bench fixture rules): finite
-     outputs of the expected shapes, the eval kernels' launch counters
-     above zero, ms per forward, and the inputs each kernel saw first
-     replayed through its plain version;
+     outputs of the expected shapes, exactly the path's kernels launched
+     (K4 and `mask_bits` as many times as the decoder has shared-key
+     masks), ms per forward and peak memory, and the inputs each kernel
+     saw first replayed through its plain version; serve_s: the same on
+     three MV2D-S R50 forwards (roi key mode, 6 x 512 x 1408, no DCN: K1,
+     K3, K4 on the self-attention, `mask_bits` once a forward; the
+     cross-attention is per query, in batched matmuls); serve_v99: two
+     MV2D-T forwards on the VoVNet-99 backbone (K3, K4, no K1 or K2);
   7. http: the port's HTTP server (`mv2d_tpu_torch.tools.serve`) in
      process on 127.0.0.1, built from the R50 file of configs/mv2d/ with
      align_v2 (the JAX package's MV2D_ALIGN_V2=1: kernel B11), max
@@ -72,7 +83,8 @@ Phases, in order; any failure exits non-zero without the final line:
      answered 400; then `roi_forward` (kernel B12) on that scene's FPN
      levels and flattened proposals, its RoI features against K3's and
      B11's; then one request to a server built from the R101 1600x640
-     file (k_max 24576);
+     file (k_max 24576); then one to a server built from the MV2D-S file
+     (roi key mode), its answer equal to a direct forward;
   8. eval: the eval path from disk to metrics.  Renders 8 val scenes of
      the port's synthetic fixture (`tools.make_synth_fixture`: 1600x900
      JPEGs of six cameras, 14 objects a scene), saves the serve phase's
@@ -94,7 +106,13 @@ Phases, in order; any failure exits non-zero without the final line:
      is warm-up): finite losses, total and grad norm, trained parameters
      moved and frozen ones not, each training kernel's launches per step,
      ms per step and peak memory, and the inputs each training kernel saw
-     first replayed through its plain version;
+     first replayed through its plain version; train_s: four full-width
+     MV2D-S R50 steps (roi key mode, no DN: keys [834, 343, 256] a query
+     set each; K3, B9, K4 and B8 on the self-attention), then two with
+     DN (40866 shared keys, 1794 queries: K4 and B8 on the cross-
+     attention too): finite losses, the DN terms in the second leg only,
+     each leg's launches, ms a step and peak memory, the DN cross-
+     attention's first inputs replayed;
   10. routes_tiny: the routes that the JAX package's switches select
      (`mv2d_tpu_torch.routes.Routes`), float32 with TF32 off, GPU against
      CPU: a ResNet-50 backbone with MV2D-T's DCN layout on 2 views at
@@ -197,8 +215,6 @@ KERNELS = {
 # none on the default paths
 ROUTED_KERNELS = ('fused_identity_chain', 'dcn_conv_backward',
                   'roi_align_slab', 'roi_align_flat')
-SERVE_KERNELS = ('fused_stage1', 'dcn_conv', 'roi_align_multilevel',
-                 'masked_attention', 'mask_bits')
 # the decoder packs its self- and cross-attention masks once a pass
 MASKS_PER_PASS = 2
 # launches per training step (K1: 3 bottlenecks; K3: at least the no-grad
@@ -1201,41 +1217,91 @@ def phase_kernels(dev, results):
     return ok
 
 
-def phase_tiny_parity(dev):
-    """Tiny config with DCN: GPU (kernels, float32) vs CPU (plain)."""
+def path_kernels(cfg, training=False, dn=False):
+    """(the kernels that a forward of `cfg` on the default routes launches
+    (training: a step's, with DN queries if `dn`), the masks its decoder
+    packs a pass): K4 (with B8 in training) for every shared-key
+    attention, K1 for a DCN-free ResNet layer1, K2 (B5 and B6 in
+    training) for a ResNet with DCN, K3 (and B9) for the two-stage
+    detector's R-CNN; the self-attention mask, and the cross-attention
+    mask where the keys are shared (the pixel key mode, or roi with
+    DN)."""
+    need = ['masked_attention', 'mask_bits']
+    resnet = cfg.backbone_type == 'resnet'
+    if resnet and not cfg.stage_with_dcn[0]:
+        need.append('fused_stage1')
+    if resnet and any(cfg.stage_with_dcn):
+        need += (['dcn_samples', 'dcn_samples_backward'] if training
+                 else ['dcn_conv'])
+    if cfg.detector_type == 'two_stage':
+        need.append('roi_align_multilevel')
+        if training:
+            need.append('roi_align_multilevel_backward')
+    if training:
+        need.append('masked_attention_backward')
+    shared_cross = cfg.key_mode == 'pixel' or dn
+    return tuple(need), 1 + shared_cross
+
+
+def _launch_check(launched, need):
+    """Every kernel in `need` launched, every other kernel not."""
+    return all((launched[n] > 0) == (n in need) for n in launched)
+
+
+def phase_tiny_parity(dev, cfg=None, label='tiny+DCN', matched=False):
+    """A tiny config's eval forward (default: with DCN, two frames),
+    GPU (kernels, float32) vs CPU (plain): valid slots and labels equal,
+    scores within 1e-4 and boxes within 1e-3 on valid slots; the GPU
+    launching exactly `path_kernels(cfg)`.  With `matched`, each box is
+    held against the other side's boxes of its label and score (two
+    queries whose scores tie within float32 rounding may swap slots)."""
     import torch
     from mv2d_tpu_torch import configs
     from mv2d_tpu_torch.core.geometry import prepare_camera_params
     from mv2d_tpu_torch.models.mv2d import MV2D
     from mv2d_tpu_torch.routes import Routes
     from mv2d_tpu_torch.synthetic import camera_rig, init_random_weights
-    cfg = configs.tiny(stage_with_dcn=(False, False, True, True),
-                       num_frames=2, k_max=48)
+    cfg = cfg or configs.tiny(stage_with_dcn=(False, False, True, True),
+                              num_frames=2, k_max=48)
     V = cfg.total_views
     K, E = camera_rig(V, cfg.image_size)
-    ts = [0.0] * cfg.num_views + [0.5] * cfg.num_views
+    ts = [0.0] * cfg.num_views + [0.5] * (V - cfg.num_views)
     imgs = torch.from_numpy(np.random.default_rng(1).normal(
         size=(V, *cfg.image_size, 3)).astype(np.float32))
     shapes = torch.tensor([list(cfg.image_size)] * V)
     model = init_random_weights(MV2D(cfg, Routes()).eval(), seed=3)
+    fns = counters()
     outs = {}
     for d in ('cpu', dev):
         m = model.to(d)
         cam = prepare_camera_params(K, E, ts, device=d)
+        for fn in fns.values():
+            fn.launches = 0
         outs[d] = [t.cpu() if torch.is_tensor(t) else t
                    for t in m(imgs.to(d), cam, shapes.to(d))]
+    launched = {n: fn.launches for n, fn in fns.items()}
     c, g = outs['cpu'], outs[dev]
     valid_same = torch.equal(c[3], g[3])
     v = c[3]
     n = int(v.sum())
     box_err = (c[0][v] - g[0][v]).abs().max().item() if n else 0.0
+    if matched and n:
+        box_err = 0.0
+        for i in torch.nonzero(v)[:, 0]:
+            peers = v & (c[2] == g[2][i]) & ((c[1] - g[1][i]).abs() < 1e-4)
+            box_err = max(box_err, (c[0][peers] - g[0][i]).abs().amax(-1)
+                          .min().item() if peers.any() else float('inf'))
     score_err = (c[1][v] - g[1][v]).abs().max().item() if n else 0.0
     labels_same = torch.equal(c[2][v], g[2][v])
+    need, _ = path_kernels(cfg)
+    launch_ok = _launch_check(launched, need)
     ok = valid_same and labels_same and box_err < 1e-3 and \
-        score_err < 1e-4 and n > 0
-    log(f'  tiny+DCN GPU vs CPU: valid={n} same_valid={valid_same} '
+        score_err < 1e-4 and n > 0 and launch_ok
+    log(f'  {label} GPU vs CPU: valid={n} same_valid={valid_same} '
         f'same_labels={labels_same} box_err={box_err:.3e} '
-        f'score_err={score_err:.3e} {"ok" if ok else "FAIL"}')
+        f'score_err={score_err:.3e}; GPU launches '
+        f'{ {k: x for k, x in launched.items() if x} } '
+        f'(expected {sorted(need)}) {"ok" if ok else "FAIL"}')
     return ok
 
 
@@ -1261,13 +1327,14 @@ DEFAULT_TRAIN_NEED = ('dcn_samples', 'dcn_samples_backward',
 
 
 def phase_tiny_train(dev, need=DEFAULT_TRAIN_NEED, absent=ROUTED_KERNELS,
-                     routes=None):
-    """One tiny+DCN training step (float32, dropout 0) on the GPU (kernels)
-    and on the CPU (plain versions), same weights and draws, the model
-    built with `routes` (default: `Routes()`): every loss term within 1e-4
-    relative, every parameter's gradient within 1e-3 of its max magnitude
-    (floored at 1e-5 of the largest gradient), the discrete counts equal;
-    the kernels in `need` launched on the GPU, those in `absent` not."""
+                     routes=None, cfg=None, label='tiny+DCN'):
+    """One training step of a tiny config (default: with DCN, two frames;
+    float32, dropout 0) on the GPU (kernels) and on the CPU (plain
+    versions), same weights and draws, the model built with `routes`
+    (default: `Routes()`): every loss term within 1e-4 relative, every
+    parameter's gradient within 1e-3 of its max magnitude (floored at
+    1e-5 of the largest gradient), the discrete counts equal; the kernels
+    in `need` launched on the GPU, those in `absent` not."""
     import copy
     import torch
     from mv2d_tpu_torch import configs
@@ -1277,8 +1344,9 @@ def phase_tiny_train(dev, need=DEFAULT_TRAIN_NEED, absent=ROUTED_KERNELS,
                                           synthetic_train_batch)
     from mv2d_tpu_torch.parallel.dist import dp_objective
     from mv2d_tpu_torch.train.train_step import draw_train
-    cfg = configs.tiny(stage_with_dcn=(False, False, True, True),
-                       num_frames=2, dropout=0.0, use_flash_attention=True)
+    cfg = cfg or configs.tiny(stage_with_dcn=(False, False, True, True),
+                              num_frames=2, dropout=0.0,
+                              use_flash_attention=True)
     batch = synthetic_train_batch(cfg, seed=0, device='cpu')
     draws = draw_train(cfg, batch.gt2d.boxes.shape[1],
                        torch.Generator().manual_seed(1))
@@ -1307,10 +1375,35 @@ def phase_tiny_train(dev, need=DEFAULT_TRAIN_NEED, absent=ROUTED_KERNELS,
     ok = (loss_err <= 1e-4 and grad_err <= 1e-3 and counts_same
           and set(gg) == set(gc) and all(launched[n] > 0 for n in need)
           and all(launched[n] == 0 for n in absent))
-    log(f'  tiny+DCN train step GPU vs CPU: {len(gc)} gradients, '
+    log(f'  {label} train step GPU vs CPU: {len(gc)} gradients, '
         f'worst loss rel err {loss_err:.2e} (tol 1e-4), worst grad err '
         f'{grad_err:.2e} of max (tol 1e-3), counts_same={counts_same}, '
         f'GPU launches {launched} {"ok" if ok else "FAIL"}')
+    return ok
+
+
+def phase_variants_tiny(dev):
+    """The model families besides MV2D-T at tiny size, float32 with TF32
+    off, GPU (kernels) against CPU (plain versions) to phase_tiny_parity's
+    and phase_tiny_train's tolerances and launch checks: the roi key mode
+    (MV2D-S) forward and, with DN, a training step; the single-stage
+    (RetinaNet) detector's forward and step; the VoVNet-19 backbone's
+    forward."""
+    from mv2d_tpu_torch import configs
+    roi = configs.tiny(key_mode='roi')
+    roi_dn = configs.tiny(key_mode='roi', use_denoise=True, dropout=0.0)
+    single = configs.tiny(detector_type='single_stage')
+    vov = configs.tiny(backbone_type='vovnet', depth=19)
+    ok = phase_tiny_parity(dev, roi, 'tiny roi')
+    need, _ = path_kernels(roi_dn, training=True, dn=True)
+    ok &= phase_tiny_train(dev, need, tuple(set(KERNELS) - set(need)),
+                           cfg=roi_dn, label='tiny roi+DN')
+    ok &= phase_tiny_parity(dev, single, 'tiny single-stage')
+    need, _ = path_kernels(single, training=True)
+    ok &= phase_tiny_train(dev, need, tuple(set(KERNELS) - set(need)),
+                           cfg=single._replace(dropout=0.0),
+                           label='tiny single-stage')
+    ok &= phase_tiny_parity(dev, vov, 'tiny VoVNet-19', matched=True)
     return ok
 
 
@@ -1378,7 +1471,13 @@ def _replay(seen, plain, kernels, label):
     return ok
 
 
-def phase_serve(dev, results, n_requests=3, cfg=None):
+def phase_serve(dev, results, n_requests=3, cfg=None, label='serve'):
+    """n_requests bf16 forwards of `cfg` (default MV2D-T R50) at full
+    width on seeded weights: finite outputs of the expected shapes, the
+    launches of exactly `path_kernels(cfg)` (the decoder's masks packed
+    once a pass, K4 on its layers' shared-key attentions), ms a forward
+    and peak memory, and each kernel's first inputs replayed through its
+    plain version.  Launches go under `label` in launches_by_path."""
     import torch
     import mv2d_tpu_torch.models.detector2d as det2d
     import mv2d_tpu_torch.nn.decoder as decoder
@@ -1392,9 +1491,12 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
     from mv2d_tpu_torch.synthetic import camera_rig, init_random_weights
 
     cfg = cfg or configs.mv2d_t_r50()
+    need, masks = path_kernels(cfg)
     V, (H, W) = cfg.total_views, cfg.image_size
     K, E = camera_rig(V, cfg.image_size)
-    cam = prepare_camera_params(K, E, [0.0] * 6 + [0.5] * 6, device=dev)
+    cam = prepare_camera_params(
+        K, E, [0.0] * cfg.num_views + [0.5] * (V - cfg.num_views),
+        device=dev)
     imgs = torch.from_numpy(np.random.default_rng(0).normal(
         size=(V, H, W, 3)).astype(np.float32)).to(dev, torch.bfloat16)
     shapes = torch.tensor([[H, W]] * V, device=dev)
@@ -1403,27 +1505,34 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
 
     # record the inputs each kernel wrapper sees first on the main path:
     # wrap the callers' references (a wrapper's own module stays as it is,
-    # its launch counter lives there); attention records a cross-attention
-    # call (layer 0's self-attention has all-zero values); the DCN
-    # wrapper's caller is in its own module, so the first DCN module's
-    # input is recorded by a hook and the kernel's inputs derived from it
+    # its launch counter lives there); attention records the first call
+    # whose values are not all zero (layer 0's self-attention has zero
+    # values: the pixel mode's first record is a cross-attention, the roi
+    # mode's a later layer's self-attention); the DCN wrapper's caller is
+    # in its own module, so the first DCN module's input is recorded by a
+    # hook and the kernel's inputs derived from it
     seen = {}
-    originals = _record_first(seen, [
-        (resnet, 'fused_stage1', 'fused_stage1', lambda a: True),
-        (det2d, 'roi_align_multilevel', 'roi_align_multilevel',
-         lambda a: True),
-        (decoder, 'masked_attention', 'masked_attention',
-         lambda a: a[1].shape[0] != a[0].shape[0])])
-    first_dcn = next(m for m in model.modules()
-                     if isinstance(m, dcn.ModulatedDeformConv))
+    patches = [(decoder, 'masked_attention', 'masked_attention',
+                lambda a: bool(a[2].abs().amax() > 0))]
+    if 'fused_stage1' in need:
+        patches.append((resnet, 'fused_stage1', 'fused_stage1',
+                        lambda a: True))
+    if 'roi_align_multilevel' in need:
+        patches.append((det2d, 'roi_align_multilevel',
+                        'roi_align_multilevel', lambda a: True))
+    originals = _record_first(seen, patches)
+    handle = None
+    if 'dcn_conv' in need:
+        first_dcn = next(m for m in model.modules()
+                         if isinstance(m, dcn.ModulatedDeformConv))
 
-    def dcn_hook(m, inputs):
-        if 'dcn_conv' not in seen:
-            x = inputs[0].detach().clone()
-            sy, sx, mask = m.sample_coords(x)
-            seen['dcn_conv'] = (x, sy.contiguous(), sx.contiguous(), mask,
-                                m.tap_weights(x.dtype))
-    handle = first_dcn.register_forward_pre_hook(dcn_hook)
+        def dcn_hook(m, inputs):
+            if 'dcn_conv' not in seen:
+                x = inputs[0].detach().clone()
+                sy, sx, mask = m.sample_coords(x)
+                seen['dcn_conv'] = (x, sy.contiguous(), sx.contiguous(),
+                                    mask, m.tap_weights(x.dtype))
+        handle = first_dcn.register_forward_pre_hook(dcn_hook)
 
     fns = counters()
     for fn in fns.values():
@@ -1438,31 +1547,40 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
     finally:
-        handle.remove()
+        if handle is not None:
+            handle.remove()
         for (mod, name), fn in originals.items():
             setattr(mod, name, fn)
     launches = {n: fn.launches for n, fn in fns.items()}
     for name, n in launches.items():
-        results[name]['launches_by_path']['serve'] = n
+        results[name]['launches_by_path'][label] = n
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     boxes, scores, labels, valid, diag = out
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (boxes, scores))
     shapes_ok = (tuple(boxes.shape) == (cfg.max_per_scene, 9)
                  and tuple(scores.shape) == (cfg.max_per_scene,))
-    ok = finite and shapes_ok and all(
-        launches[n] > 0 for n in SERVE_KERNELS) and all(
-        launches[n] == 0 for n in ROUTED_KERNELS) and \
-        launches['mask_bits'] == MASKS_PER_PASS * n_requests
-    log(f'  forward ms (bf16, {H}x{W} x {V} views): '
-        + ', '.join(f'{t:.1f}' for t in ms))
+    per_forward = {'mask_bits': masks,
+                   'masked_attention': masks * cfg.num_decoder_layers}
+    launch_ok = _launch_check(launches, need) and all(
+        launches[n] == k * n_requests for n, k in per_forward.items())
+    ok = finite and shapes_ok and launch_ok
+    log(f'  forward ms ({cfg.backbone_type}{cfg.depth}, {cfg.key_mode} '
+        f'keys, bf16, {H}x{W} x {V} views): '
+        + ', '.join(f'{t:.1f}' for t in ms) + f'; peak memory '
+        f'{peak_gb:.2f} GiB')
     log(f'  valid detections={int(valid.sum())} '
-        f'key_active={int(diag["key_active"])} '
-        f'key_overflow={int(diag["key_overflow"])} '
-        f'num_queries={int(diag["num_queries"])} finite={finite} '
-        f'shapes_ok={shapes_ok}')
-    log(f'  launches per {n_requests} forwards: {launches}')
-    results['_forward_ms'] = ms
-    results['_serve_peak_gb'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        + ' '.join(f'{k}={int(v)}' for k, v in diag.items())
+        + f' finite={finite} shapes_ok={shapes_ok}')
+    log(f'  launches per {n_requests} forwards: {launches} (expected '
+        f'{sorted(need)}, per forward {per_forward}) '
+        f'{"ok" if launch_ok else "FAIL"}')
+    if label == 'serve':
+        results['_forward_ms'] = ms
+        results['_serve_peak_gb'] = peak_gb
+    else:
+        results[f'_{label}_ms'] = ms
+        results[f'_{label}_peak_gb'] = peak_gb
 
     def attn_plain(q, k, v, a, H, tiles=None):
         return attention.masked_attention_plain(q, k, v, a, H)
@@ -1471,7 +1589,8 @@ def phase_serve(dev, results, n_requests=3, cfg=None):
              'dcn_conv': dcn.dcn_conv_plain,
              'roi_align_multilevel': roi_align.multilevel_roi_align_plain,
              'masked_attention': attn_plain}
-    return _replay(seen, plain, {n: fns[n] for n in plain}, 'serve') and ok
+    plain = {n: f for n, f in plain.items() if n in need}
+    return _replay(seen, plain, {n: fns[n] for n in plain}, label) and ok
 
 
 def _scene(mc, seed=0):
@@ -1548,11 +1667,16 @@ def _response_ok(out, mc):
             and bool(np.isfinite(out['scores_3d'][v]).all()))
 
 
-def phase_http(dev, results, options=(), options_r101=()):
+ROI_FILE = 'configs/mv2d/mv2d_r50_frcnn_single_frame_roi_1408x512_ep24.py'
+
+
+def phase_http(dev, results, options=(), options_r101=(), options_roi=()):
     """The port's server, as a user reaches the eval forward: the R50
     config file with align_v2 (B11), max batch 2, batch timeout 200 ms;
-    then roi_forward (B12) on one scene's proposals; then the R101 file.
-    `options` (--cfg-options) shrink the configs for a rehearsal."""
+    then roi_forward (B12) on one scene's proposals; then the R101 file;
+    then the MV2D-S file (roi key mode), one request whose answer must
+    equal a direct forward.  `options` (--cfg-options) shrink the configs
+    for a rehearsal."""
     import threading
     import torch
     from mv2d_tpu_torch.ops import roi_align
@@ -1589,7 +1713,7 @@ def phase_http(dev, results, options=(), options_r101=()):
                  and launches['mask_bits'] == MASKS_PER_PASS * 4
                  and launches['roi_align_multilevel'] == 0
                  and launches['roi_align_flat'] == 0
-                 and all(launches[n] > 0 for n in SERVE_KERNELS
+                 and all(launches[n] > 0 for n in path_kernels(mc)[0]
                          if n != 'roi_align_multilevel'))
     metrics_ok = (metrics['requests'] == 4 and metrics['errors'] == 0
                   and metrics['batches'] < 4)
@@ -1677,7 +1801,7 @@ def phase_http(dev, results, options=(), options_r101=()):
         results[name]['launches_by_path']['http_r101'] = n
     r101_ok = (code == 200 and _response_ok(out, mc101)
                and (mc101.depth, mc101.k_max) == (101, 24576)
-               and all(l101[n] > 0 for n in SERVE_KERNELS)
+               and _launch_check(l101, path_kernels(mc101)[0])
                and l101['mask_bits'] == MASKS_PER_PASS)
     log(f'  R101 {mc101.image_size[1]}x{mc101.image_size[0]} k_max '
         f'{mc101.k_max}: status {code}, client ms '
@@ -1687,8 +1811,44 @@ def phase_http(dev, results, options=(), options_r101=()):
     srv.close()
     del srv
     torch.cuda.empty_cache()
+
+    # one request to a server of the MV2D-S file (roi key mode, one
+    # frame), its answer against a direct forward of the same model
+    srv = _Server(ROI_FILE, Routes(), 1, 8.0, dev, list(options_roi))
+    mcs = srv.runner.mc
+    scene = _scene(mcs, 9)
+    for fn in fns.values():
+        fn.launches = 0
+    code, out, ms = _post(srv.url, scene)
+    torch.cuda.synchronize()
+    lroi = {n: fn.launches for n, fn in fns.items()}
+    for name, n in lroi.items():
+        results[name]['launches_by_path']['http_roi'] = n
+    with torch.inference_mode():
+        det = srv.runner.model(*srv.runner.inputs(scene))
+    need, masks = path_kernels(mcs)
+    roi_same = code == 200 and _response_ok(out, mcs) and all(
+        np.array_equal(out[k], getattr(det, a).cpu().numpy())
+        for k, a in (('valid', 'valid'), ('labels_3d', 'labels')))
+    if roi_same:
+        v = out['valid'].astype(bool)
+        roi_same = max(compare(torch.from_numpy(out[k][v]),
+                               getattr(det, a).float().cpu()[v])[1]
+                       for k, a in (('scores_3d', 'scores'),
+                                    ('boxes_3d', 'boxes'))) <= SELF_TOL
+    roi_ok = (roi_same and mcs.key_mode == 'roi' and mcs.total_views == 6
+              and _launch_check(lroi, need) and lroi['mask_bits'] == masks)
+    log(f'  MV2D-S {mcs.image_size[1]}x{mcs.image_size[0]} x '
+        f'{mcs.total_views} views (roi keys): status {code}, client ms '
+        f'{ms:.1f}, valid {int(out["valid"].sum()) if code == 200 else 0}, '
+        f'equal to a direct forward {roi_same}, launches {lroi} '
+        f'{"ok" if roi_ok else "FAIL"}')
+    results['_http_roi_ms'] = ms
+    srv.close()
+    del srv, det
+    torch.cuda.empty_cache()
     return (ok and shapes_ok and launch_ok and metrics_ok and match_ok
-            and bad_ok and rf_ok and r101_ok)
+            and bad_ok and rf_ok and r101_ok and roi_ok)
 
 
 R50_FILE = 'configs/mv2d/mv2d_r50_frcnn_two_frames_1408x512_ep24.py'
@@ -1840,6 +2000,31 @@ def phase_eval(dev, results, n_scenes=8, options=(), image_hw=(900, 1600),
     return launch_ok and sub_ok and metrics_ok and match_ok and pool_ok
 
 
+def _attn_fwd_plain(q, k, v, a, H, tiles=None):
+    """K4's training outputs (out, lse) by the plain versions."""
+    from mv2d_tpu_torch.ops import attention
+    return (attention.masked_attention_plain(q, k, v, a, H),
+            attention.attention_lse_plain(q, k, a, H))
+
+
+def _attn_bwd_plain(q, k, v, a, out, lse, dout, H, tiles=None):
+    """B8's outputs by autograd of the plain attention."""
+    from mv2d_tpu_torch.ops import attention
+    if a is None:         # the autograd Function keeps MaskTiles only
+        a = attention.mask_from_bits(tiles.bits, k.shape[0])
+    return plain_grads(attention.masked_attention_plain, (q, k, v, a, H),
+                       range(3), dout)[1]
+
+
+def _roi_bwd_plain(feats, rois, dout, strides):
+    """B9's outputs by autograd of the plain RoIAlign."""
+    from mv2d_tpu_torch.ops import roi_align
+
+    def fwd(*fs):
+        return roi_align.multilevel_roi_align_plain(fs, rois, strides)
+    return plain_grads(fwd, feats, range(len(feats)), dout)[1]
+
+
 def phase_train(dev, results, n_steps=4, cfg=None):
     """Full-width training steps (bf16 mixed precision) on the synthetic
     scene; the first step is warm-up."""
@@ -1931,31 +2116,16 @@ def phase_train(dev, results, n_steps=4, cfg=None):
     results['_train_ms'] = ms
     results['_train_peak_gb'] = peak_gb
 
-    def attn_bwd_plain(q, k, v, a, out, lse, dout, H, tiles=None):
-        if a is None:         # the autograd Function keeps MaskTiles only
-            a = attention.mask_from_bits(tiles.bits, k.shape[0])
-        return plain_grads(attention.masked_attention_plain, (q, k, v, a, H),
-                           range(3), dout)[1]
-
     def dcn_bwd_plain(x, sy, sx, m, ds):
         return plain_grads(dcn.dcn_samples_plain, (x, sy, sx, m), range(4),
                            ds)[1]
 
-    def roi_bwd_plain(feats, rois, dout, strides):
-        def fwd(*fs):
-            return roi_align.multilevel_roi_align_plain(fs, rois, strides)
-        return plain_grads(fwd, feats, range(len(feats)), dout)[1]
-
-    def attn_fwd_plain(q, k, v, a, H, tiles=None):
-        return (attention.masked_attention_plain(q, k, v, a, H),
-                attention.attention_lse_plain(q, k, a, H))
-
     plain = {'dcn_samples': dcn.dcn_samples_plain,
              'dcn_samples_backward': dcn_bwd_plain,
-             'masked_attention': attn_fwd_plain,
-             'masked_attention_backward': attn_bwd_plain,
+             'masked_attention': _attn_fwd_plain,
+             'masked_attention_backward': _attn_bwd_plain,
              'roi_align_multilevel': roi_align.multilevel_roi_align_plain,
-             'roi_align_multilevel_backward': roi_bwd_plain}
+             'roi_align_multilevel_backward': _roi_bwd_plain}
     kern = {'dcn_samples': dcn.dcn_samples_forward,
             'dcn_samples_backward': dcn.dcn_samples_backward,
             'masked_attention': attention.masked_attention_forward,
@@ -1964,6 +2134,128 @@ def phase_train(dev, results, n_steps=4, cfg=None):
             'roi_align_multilevel_backward':
                 roi_align.roi_align_multilevel_backward}
     return _replay(seen, plain, kern, 'train') and ok
+
+
+def phase_train_s(dev, results, n_steps=4, n_dn_steps=2, cfg=None):
+    """Full-width MV2D-S (roi key mode) training steps, bf16 mixed
+    precision, synthetic_train_batch(seed=0), seeded weights: n_steps as
+    configured (no DN: each query's own keys [834, 343, 256], per-query
+    attention in batched matmuls, K4 and B8 on the self-attention; the
+    first step is warm-up), then n_dn_steps with use_denoise=True (one
+    shared key set of 834 x 49 = 40866 cells, 960 DN queries; K4 and B8
+    on the cross-attention too).  Checks: finite losses, the DN loss terms
+    in the second leg only, trained parameters moved and frozen ones not,
+    each leg's launches (exactly `path_kernels`, K4 / B8 once a decoder
+    layer for each shared-key mask, the masks packed once a step), ms a
+    step and peak memory; each kernel's first inputs (the DN cross-
+    attention's for K4 / B8) replayed through its plain version."""
+    import torch
+    import mv2d_tpu_torch.ops.attention as attention
+    import mv2d_tpu_torch.ops.roi_align as roi_align
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.routes import Routes
+    from mv2d_tpu_torch.synthetic import (init_random_weights,
+                                          synthetic_train_batch)
+    from mv2d_tpu_torch.parallel.dist import dp_train_step
+    from mv2d_tpu_torch.train.optim import make_optimizer
+
+    cfg = cfg or configs.mv2d_s_r50()
+    model = init_random_weights(MV2D(cfg, Routes()), seed=0).to(dev)
+    opt = make_optimizer(model)
+    batch = synthetic_train_batch(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    def cross(args):
+        return args[1].shape[0] != args[0].shape[0]
+    fns = counters()
+    seen = {}
+    originals = _record_first(seen, [
+        (attention, 'masked_attention_forward', 'masked_attention', cross),
+        (attention, 'masked_attention_backward',
+         'masked_attention_backward', cross),
+        (roi_align, 'roi_align_multilevel', 'roi_align_multilevel',
+         lambda a: True),
+        (roi_align, 'roi_align_multilevel_backward',
+         'roi_align_multilevel_backward', lambda a: True)])
+    ok = True
+    try:
+        for label, n, dn in (('train_s', n_steps, False),
+                             ('train_s_dn', n_dn_steps, True)):
+            # the model reads use_denoise at each forward
+            model.cfg = cfg._replace(use_denoise=dn)
+            need, masks = path_kernels(model.cfg, training=True, dn=dn)
+            for fn in fns.values():
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            ms, steps = [], []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = dp_train_step(model, opt, [batch], [gen])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                steps.append({k: float(v) for k, v in metrics.items()})
+            launches = {k: fn.launches for k, fn in fns.items()}
+            for name, k in launches.items():
+                results[name]['launches_by_path'][label] = k
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            per_step = {'fused_stage1': 3, 'mask_bits': masks,
+                        'masked_attention': masks * cfg.num_decoder_layers,
+                        'masked_attention_backward':
+                            masks * cfg.num_decoder_layers,
+                        'roi_align_multilevel_backward': 1}
+            launch_ok = _launch_check(launches, need) and all(
+                launches[k] == c * n for k, c in per_step.items()) and \
+                launches['roi_align_multilevel'] >= 2 * n
+            finite = all(np.isfinite(v) for st in steps for v in st.values())
+            dn_keys = [k for k in steps[0] if '.dn_loss' in k]
+            dn_ok = bool(dn_keys) == dn and 'key_active' not in steps[0]
+            ok &= launch_ok and finite and dn_ok
+            log(f'  {label}: train ms/step (bf16 mixed precision, '
+                f'{cfg.total_views} views {cfg.image_size[0]}x'
+                f'{cfg.image_size[1]}, roi keys, DN {dn}) '
+                + ', '.join(f'{t:.1f}' for t in ms)
+                + f'; peak memory {peak:.2f} GiB; finite={finite}; '
+                f'{len(dn_keys)} DN loss terms {"ok" if dn_ok else "FAIL"}')
+            for i, st in enumerate(steps):
+                log(f'  step {i}: total_loss={st["total_loss"]:.4f} '
+                    f'grad_norm={st["grad_norm"]:.4f} '
+                    f'num_queries={st["num_queries"]:.0f} '
+                    f'rcnn_num_pos={st["rcnn_num_pos"]:.0f}')
+            log(f'  launches per {n} steps: {launches} (expected '
+                f'{sorted(need)}, per step {per_step}, K3 >= 2) '
+                f'{"ok" if launch_ok else "FAIL"}')
+            results[f'_{label}_ms'] = ms
+            results[f'_{label}_peak_gb'] = peak
+    finally:
+        model.cfg = cfg
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+    frozen_still, moved, trainable = True, 0, 0
+    for n, p in model.named_parameters():
+        same = torch.equal(p.detach(), before[n])
+        if p.requires_grad:
+            trainable += 1
+            moved += not same
+        else:
+            frozen_still &= same
+    ok &= frozen_still and moved >= 0.9 * trainable
+    log(f'  frozen_unchanged={frozen_still} trained_moved={moved}/'
+        f'{trainable}')
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    plain = {'masked_attention': _attn_fwd_plain,
+             'masked_attention_backward': _attn_bwd_plain,
+             'roi_align_multilevel': roi_align.multilevel_roi_align_plain,
+             'roi_align_multilevel_backward': _roi_bwd_plain}
+    kern = {'masked_attention': attention.masked_attention_forward,
+            'masked_attention_backward': attention.masked_attention_backward,
+            'roi_align_multilevel': roi_align.roi_align_multilevel,
+            'roi_align_multilevel_backward':
+                roi_align.roi_align_multilevel_backward}
+    return _replay(seen, plain, kern, 'train_s') and ok
 
 
 def phase_routes_tiny(dev):
@@ -2158,15 +2450,9 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
         return plain_grads(dcn.dcn_conv_plain, (x, sy, sx, m, w), range(5),
                            dy)[1]
 
-    def attn_bwd_plain(q, k, v, a, out, lse, dout, H, tiles=None):
-        if a is None:         # the autograd Function keeps MaskTiles only
-            a = attention.mask_from_bits(tiles.bits, k.shape[0])
-        return plain_grads(attention.masked_attention_plain, (q, k, v, a, H),
-                           range(3), dout)[1]
-
     plain = {'fused_identity_chain': stage.fused_identity_chain_plain,
              'dcn_conv_backward': dcn_bwd_plain,
-             'masked_attention_backward': attn_bwd_plain,
+             'masked_attention_backward': _attn_bwd_plain,
              'roi_align_slab': roi_align.multilevel_roi_align_plain}
     kern = {'fused_identity_chain': stage.fused_identity_chain,
             'dcn_conv_backward': dcn.dcn_conv_backward,
@@ -2367,7 +2653,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: torch.cuda.is_available() is False')
-    from mv2d_tpu_torch import kernels
+    from mv2d_tpu_torch import configs, kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2395,10 +2681,16 @@ def main():
             ('kernels', lambda: phase_kernels(dev, results)),
             ('tiny', lambda: phase_tiny_parity(dev)),
             ('tiny_train', lambda: phase_tiny_train(dev)),
+            ('variants_tiny', lambda: phase_variants_tiny(dev)),
             ('serve', lambda: phase_serve(dev, results)),
+            ('serve_s', lambda: phase_serve(
+                dev, results, cfg=configs.mv2d_s_r50(), label='serve_s')),
+            ('serve_v99', lambda: phase_serve(
+                dev, results, 2, configs.mv2d_t_v99(), 'serve_v99')),
             ('http', lambda: phase_http(dev, results)),
             ('eval', lambda: phase_eval(dev, results)),
             ('train', lambda: phase_train(dev, results)),
+            ('train_s', lambda: phase_train_s(dev, results)),
             ('routes_tiny', lambda: phase_routes_tiny(dev)),
             ('routes', lambda: phase_routes(dev, results)),
             ('train_cli', lambda: phase_train_cli(dev, results))):

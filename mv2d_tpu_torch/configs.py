@@ -5,9 +5,10 @@ imported where JAX is absent.  These tuples carry the same fields and
 defaults as `mv2d_tpu.models.mv2d.MV2DConfig`,
 `mv2d_tpu.models.correlation.CorrelationConfig` and
 `mv2d_tpu.models.detector2d.DetectionProposalCfg`; the presets mirror
-`mv2d_tpu.configs.mv2d_t_r50`, `mv2d_t_r101`, `mv2d_s_r50` and `tiny`
-(the port's model runs the two-stage ResNet detector in pixel key mode,
-so `mv2d_s_r50`, in roi key mode, builds a config that `MV2D` refuses).
+`mv2d_tpu.configs.mv2d_t_r50`, `mv2d_t_r101`, `mv2d_s_r50`, `mv2d_t_v99`
+and `tiny`.  `use_flash_attention` is kept for parity with the JAX
+presets: it routes the TPU's attention, and the port reads it nowhere
+(its shared-key attention runs kernel K4 on every CUDA config).
 """
 from __future__ import annotations
 
@@ -144,6 +145,14 @@ def mv2d_t_r101(**overrides) -> MV2DConfig:
     (configs/mv2d/detectors/maskrcnn_r101.py) at the higher resolution;
     the same head recipe as mv2d_t_r50."""
     cfg = mv2d_t_r50(depth=101, image_size=(640, 1600), k_max=24576)
+    return cfg._replace(**overrides)
+
+
+def mv2d_t_v99(**overrides) -> MV2DConfig:
+    """MV2D-T on a VoVNet-99 backbone (the reference's VoVNetCP) at the
+    two-frame recipe, without DCN."""
+    cfg = mv2d_t_r50(backbone_type='vovnet', depth=99,
+                     stage_with_dcn=(False,) * 4)
     return cfg._replace(**overrides)
 
 

@@ -1,6 +1,6 @@
 """Epipolar box correlation and the k_max pixel-key gather (fixed shapes).
 
-Port of `mv2d_tpu/models/correlation.py` (pixel mode).  Geometry on
+Port of `mv2d_tpu/models/correlation.py`.  Geometry on
 detached inputs: proposals live in [V, P] slots, the correlation is a
 [R, 1 + V*topk] table of global RoI ids with validity (R = V*P), and the
 active attention keys are a stable gather capped at k_max.
@@ -126,6 +126,18 @@ def in_roi_pixel_masks(boxes: torch.Tensor, valid: torch.Tensor,
     mask = in_y[:, :, :, None] & in_x[:, :, None, :]
     mask &= valid[..., None, None]
     return mask.reshape(*boxes.shape[:2], h * w)
+
+
+def query_pixel_masks(adjacency: torch.Tensor, in_roi: torch.Tensor
+                      ) -> torch.Tensor:
+    """adjacency [R, R] (R = V*P), in_roi [V, P, hw] -> [R, V*hw] bool:
+    a pixel is allowed for a query iff it lies in a RoI of its view that
+    the query correlates to."""
+    V, P, hw = in_roi.shape
+    R = adjacency.shape[0]
+    M = torch.einsum('rvp,vph->rvh', adjacency.reshape(R, V, P).float(),
+                     in_roi.float())
+    return (M > 0.5).reshape(R, V * hw)
 
 
 def gather_active_keys(union_mask: torch.Tensor, k_max: int):

@@ -1,7 +1,10 @@
-"""Two-stage 2D detector (Faster R-CNN).
+"""The 2D detectors: two-stage (Faster R-CNN) and single-stage
+(RetinaNet).
 
-Port of `mv2d_tpu/models/detector2d.py:TwoStageDetector` with mmdet keys
-(backbone, neck, rpn_head, roi_head.bbox_head).  The R-CNN RoIAlign runs
+Port of `mv2d_tpu/models/detector2d.py` with mmdet keys (backbone, neck,
+rpn_head, roi_head.bbox_head; bbox_head for the single-stage head).  The
+backbone is a ResNet or a VoVNet (`backbone_type`); the FPN takes its
+stage widths.  The R-CNN RoIAlign runs
 through `ops.roi_align.roi_align_multilevel` (kernel K3 on CUDA) in the
 natural [V, P] slot order; the training RoIs through its differentiable
 form `roi_align_multilevel_train` (K3 forward, B9 backward).  With
@@ -23,7 +26,9 @@ from ..core.nms import multiclass_nms_2d
 from ..nn.fpn import FPN
 from ..nn.rcnn import Shared2FCBBoxHead, decode_detections
 from ..nn.resnet import ResNet
+from ..nn.retina import RetinaHead, single_stage_detections
 from ..nn.rpn import RPNHead, rpn_proposals
+from ..nn.vovnet import VoVNet
 from ..ops.roi_align import (roi_align_flat, roi_align_multilevel,
                              roi_align_multilevel_train, roi_align_slab)
 from ..routes import Routes
@@ -42,18 +47,64 @@ class _RoIHead(tnn.Module):
         self.bbox_head = bbox_head
 
 
+def make_backbone(backbone_type: str, depth: int,
+                  stage_with_dcn: Tuple[bool, ...], routes: Routes):
+    """A ResNet (its `out_channels` 256..2048) or a VoVNet (256..1024)."""
+    if backbone_type == 'vovnet':
+        return VoVNet(depth)
+    if backbone_type != 'resnet':
+        raise ValueError(f'backbone_type {backbone_type!r}')
+    return ResNet(depth, stage_with_dcn, routes)
+
+
+class SingleStageDetector(tnn.Module):
+    """Backbone + FPN p2..p6 + RetinaHead, decoding into the padded
+    `Proposals` the 3D head takes."""
+    fpn_strides = (4, 8, 16, 32, 64)
+
+    def __init__(self, depth: int = 50, num_classes: int = 10,
+                 backbone_type: str = 'resnet',
+                 stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
+                 fpn_channels: int = 256, routes: Routes = Routes()):
+        super().__init__()
+        self.num_classes = num_classes
+        self.backbone = make_backbone(backbone_type, depth, stage_with_dcn,
+                                      routes)
+        self.neck = FPN(self.backbone.out_channels, fpn_channels,
+                        num_outs=5)
+        self.bbox_head = RetinaHead(num_classes, fpn_channels)
+
+    def extract_feat(self, imgs: torch.Tensor):
+        """[V, H, W, 3] -> FPN levels p2..p6, channels-last."""
+        return self.neck(self.backbone(imgs))
+
+    def detect(self, feats: Sequence[torch.Tensor],
+               image_shape: Tuple[int, int],
+               cfg: DetectionProposalCfg) -> Proposals:
+        scores, deltas = self.bbox_head(feats)
+        b, s, l, v = single_stage_detections(
+            scores, deltas, self.fpn_strides, image_shape, self.num_classes,
+            score_thr=cfg.score_thr, nms_pre=cfg.nms_pre,
+            iou_threshold=cfg.iou_threshold, max_per_img=cfg.max_per_img,
+            min_bbox_size=cfg.min_bbox_size)
+        return Proposals(boxes=b, scores=s, labels=l, valid=v)
+
+
 class TwoStageDetector(tnn.Module):
     fpn_strides = (4, 8, 16, 32, 64)
 
     def __init__(self, depth: int = 50, num_classes: int = 10,
+                 backbone_type: str = 'resnet',
                  stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
                  fpn_channels: int = 256, rcnn_fc_channels: int = 1024,
                  routes: Routes = Routes()):
         super().__init__()
         self.num_classes = num_classes
         self.align_v2 = routes.align_v2
-        self.backbone = ResNet(depth, stage_with_dcn, routes)
-        self.neck = FPN([256, 512, 1024, 2048], fpn_channels, num_outs=5)
+        self.backbone = make_backbone(backbone_type, depth, stage_with_dcn,
+                                      routes)
+        self.neck = FPN(self.backbone.out_channels, fpn_channels,
+                        num_outs=5)
         self.rpn_head = RPNHead(fpn_channels)
         self.roi_head = _RoIHead(Shared2FCBBoxHead(
             fpn_channels, rcnn_fc_channels, num_classes))

@@ -1,5 +1,7 @@
-"""MV2D / MV2D-T (pixel key mode): the eval forward and the training
-forward, each one fixed-shape pass.
+"""MV2D (two-stage detector, pixel key mode), MV2D-T (two frames) and
+MV2D-S (roi key mode): the eval forward and the training forward, each
+one fixed-shape pass, on a ResNet or VoVNet backbone with the two-stage
+or the single-stage (RetinaNet) 2D detector.
 
 Port of `mv2d_tpu/models/mv2d.py:MV2D.__call__`, `forward_train` and
 `roi_head_forward` (with the training branches: DN queries, their block
@@ -7,9 +9,14 @@ self-attention mask, and the fake key of queries without pixels):
 
   2D detector -> padded per-view proposals (+ missed GT in training) ->
   per-RoI virtual intrinsics -> separable RoIAlign(p4 ++ 3D PE) -> query
-  generator -> epipolar correlation -> k_max pixel-key gather -> masked
-  decoder -> NMS-free decode + cross-view BEV merge (eval) or per-layer
-  outputs for the losses (training).
+  generator -> epipolar correlation -> attention keys -> masked decoder
+  -> NMS-free decode + cross-view BEV merge (eval) or per-layer outputs
+  for the losses (training).
+
+The keys: in pixel key mode the k_max gathered p4 pixels that lie in a
+correlated RoI, one shared set; in roi key mode each query's correlated
+RoIs' 7x7 aligned cells, a set of its own ([R, Cc*49, C]), or with DN
+every RoI's cells as one shared set.
 
 Keys follow the reference checkpoint (base_detector.*, neck.*,
 roi_head.{position_encoding, query_generator, bbox_head}.*), so
@@ -40,9 +47,34 @@ from ..ops.roi_align import separable_roi_align_views
 from ..routes import Routes, from_env
 from .correlation import (adjacency_from_correlation, epipolar_in_box,
                           gather_active_keys, in_roi_pixel_masks)
-from .detector2d import Proposals, TwoStageDetector
+from .detector2d import Proposals, SingleStageDetector, TwoStageDetector
 
 DUMMY_BOX = (50.0, 50.0, 100.0, 100.0)
+
+
+class _GatherRows(torch.autograd.Function):
+    """table[ids] whose backward sums each row's cotangents by a one-hot
+    matmul (the same sum in the same order on every run; an index_put
+    with accumulate adds them in the order its atomics land)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, dout):
+        ids, = ctx.saved_tensors
+        onehot = ids.reshape(1, -1) == torch.arange(
+            ctx.rows, device=ids.device)[:, None]          # [rows, n]
+        return onehot.to(dout.dtype) @ dout.reshape(ids.numel(), -1), None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table [N, D], ids [...] -> table[ids] [..., D], with a deterministic
+    backward."""
+    return _GatherRows.apply(table, ids)
 
 
 class GroundTruth3D(NamedTuple):
@@ -72,7 +104,8 @@ class HeadOutputs(NamedTuple):
     all_cls_scores: torch.Tensor   # [L, R, num_classes]
     all_bbox_preds: torch.Tensor   # [L, R, 10]
     query_valid: torch.Tensor      # [R]
-    diagnostics: dict              # key_active, key_overflow, num_queries
+    diagnostics: dict              # num_queries; pixel key mode also
+                                   # key_active, key_overflow
     # training with DN: the DN rows' outputs [L, DN_PAD, .] and their info
     dn_cls_scores: Optional[torch.Tensor] = None
     dn_bbox_preds: Optional[torch.Tensor] = None
@@ -102,8 +135,7 @@ class _RoIHead3D(tnn.Module):
             num_classes=c.num_classes, embed_dims=C,
             num_layers=c.num_decoder_layers, num_heads=c.num_heads,
             feedforward_channels=c.feedforward_channels,
-            pc_range=c.pc_range, use_flash=c.use_flash_attention,
-            flash_sparse=flash_sparse)
+            pc_range=c.pc_range, flash_sparse=flash_sparse)
 
 
 class MV2D(tnn.Module):
@@ -111,17 +143,25 @@ class MV2D(tnn.Module):
         """`routes` picks the optional kernel routes; by default they are
         read from the JAX package's switches (`routes.from_env`)."""
         super().__init__()
-        if cfg.detector_type != 'two_stage' or cfg.backbone_type != 'resnet' \
-                or cfg.key_mode != 'pixel':
-            raise NotImplementedError(
-                'the port runs the two-stage ResNet detector in pixel mode')
+        if cfg.key_mode not in ('pixel', 'roi'):
+            raise ValueError(f'key_mode {cfg.key_mode!r}')
         self.cfg = cfg
         self.routes = routes = from_env() if routes is None else routes
-        self.base_detector = TwoStageDetector(
-            depth=cfg.depth, num_classes=cfg.num_classes,
-            stage_with_dcn=cfg.stage_with_dcn,
-            fpn_channels=cfg.fpn_channels,
-            rcnn_fc_channels=cfg.rcnn_fc_channels, routes=routes)
+        if cfg.detector_type == 'single_stage':
+            self.base_detector = SingleStageDetector(
+                depth=cfg.depth, num_classes=cfg.num_classes,
+                backbone_type=cfg.backbone_type,
+                stage_with_dcn=cfg.stage_with_dcn,
+                fpn_channels=cfg.fpn_channels, routes=routes)
+        elif cfg.detector_type == 'two_stage':
+            self.base_detector = TwoStageDetector(
+                depth=cfg.depth, num_classes=cfg.num_classes,
+                backbone_type=cfg.backbone_type,
+                stage_with_dcn=cfg.stage_with_dcn,
+                fpn_channels=cfg.fpn_channels,
+                rcnn_fc_channels=cfg.rcnn_fc_channels, routes=routes)
+        else:
+            raise ValueError(f'detector_type {cfg.detector_type!r}')
         self.neck = FPN([cfg.fpn_channels] * 5, cfg.embed_dims, num_outs=1,
                         start_level=2, end_level=2)
         self.roi_head = _RoIHead3D(cfg, routes.flash_sparse)
@@ -175,6 +215,70 @@ class MV2D(tnn.Module):
         allowed &= torch.cat([dn_valid, match_valid])[None, :]
         return allowed | torch.eye(Q, dtype=torch.bool, device=dev)
 
+    def _pixel_keys(self, p4, pos, boxes, valid, corr_ids, corr_mask,
+                    img_shapes, training: bool):
+        """The pixel key mode's keys: (keys [K, C], key_pos [K, C], cross
+        [R, K], the DN rows' cross row [K], diagnostics).  In training a
+        query with no correlated pixel attends to pixel 0 instead of
+        nothing, which also puts that pixel into the union."""
+        c = self.cfg
+        V, h, w, C = p4.shape
+        P = boxes.shape[1]
+        R = V * P
+        dev = p4.device
+        pad_mask = padding_mask_at_feature_res(img_shapes, c.image_size,
+                                               (h, w))
+        in_roi = in_roi_pixel_masks(boxes, valid, (h, w), c.stride,
+                                    c.correlation.expand_stride)
+        A = adjacency_from_correlation(corr_ids, corr_mask, R)
+        # pixel (v, i) is a key iff it lies in a roi some query correlates to
+        qact = A.any(0).reshape(V, P)
+        union = (in_roi & qact[:, :, None]).any(1).reshape(-1)
+        if training:
+            roi_has_pix = in_roi.any(-1).reshape(R)
+            empty_q = ~(A & roi_has_pix[None]).any(-1)            # [R]
+            union = torch.cat([union[:1] | empty_q.any(), union[1:]])
+        n_active = union.sum()
+        key_overflow = (n_active - c.k_max).clamp(min=0)
+        key_idx, key_active = gather_active_keys(union, c.k_max)
+        key_ok = key_active & ~pad_mask.reshape(-1)[key_idx]
+        keys = p4.reshape(V * h * w, C)[key_idx]
+        key_pos = pos.to(p4.dtype).reshape(V * h * w, C)[key_idx]
+        vk = key_idx // (h * w)
+        ik = key_idx % (h * w)
+        G = in_roi[:, :, ik] & (torch.arange(V, device=dev)[:, None, None]
+                                == vk[None, None, :])           # [V, P, K]
+        hits = A.reshape(R, V * P).float() @ G.reshape(V * P, -1).float()
+        cross = (hits > 0.5) & key_ok[None]                      # [R, K]
+        if training:
+            fake_col = (key_idx == 0) & key_active
+            cross = cross | (empty_q[:, None] & fake_col[None])
+        diagnostics = {'key_active': n_active, 'key_overflow': key_overflow}
+        return keys, key_pos, cross, union[key_idx] & key_ok, diagnostics
+
+    def _roi_keys(self, roi_feats, corr_ids, corr_mask, valid, shared: bool):
+        """The roi key mode's keys from the aligned cells roi_feats
+        [R, 7, 7, 2C] (features ++ PE).  Shared (with DN): every RoI's
+        cells [R*49, C], a query seeing its correlated RoIs' cells, a DN
+        row every valid RoI's.  Otherwise each query's correlated RoIs'
+        cells [R, Cc*49, C] through corr_ids (a RoI correlated twice
+        counts twice, as in the JAX package), masked by corr_mask.
+        -> (keys, key_pos, cross, the DN rows' cross row or None)."""
+        R, s1, s2, C2 = roi_feats.shape
+        C, area = C2 // 2, s1 * s2
+        cells = roi_feats.reshape(R, area, C2)
+        if shared:
+            A = adjacency_from_correlation(corr_ids, corr_mask, R)
+            flat = cells.reshape(R * area, C2)
+            return (flat[:, :C], flat[:, C:],
+                    A.repeat_interleave(area, 1),
+                    valid.repeat_interleave(area))
+        Cc = corr_ids.shape[1]
+        kf = gather_rows(cells.reshape(R, area * C2), corr_ids)
+        kf = kf.reshape(R, Cc * area, C2)                      # [R, Cc*A, 2C]
+        return (kf[..., :C], kf[..., C:],
+                corr_mask.repeat_interleave(area, 1), None)
+
     def roi_head_forward(self, p4: torch.Tensor, pos: torch.Tensor,
                          proposals: Proposals, cam: CameraParams,
                          img_shapes: torch.Tensor,
@@ -182,9 +286,9 @@ class MV2D(tnn.Module):
                          gt: Optional[GroundTruth3D] = None,
                          dn_noise: Optional[torch.Tensor] = None,
                          drop: Dropout = NO_DROPOUT) -> HeadOutputs:
-        """The 3D head.  With `gt` (training): queries whose RoI has no
-        correlated pixel attend to the fake key pixel (view 0, 0, 0), and
-        with `dn_noise` the DN queries run first."""
+        """The 3D head.  With `gt` (training) and the pixel key mode,
+        queries whose RoI has no correlated pixel attend to the fake key
+        pixel (view 0, 0, 0); with `dn_noise` the DN queries run first."""
         c = self.cfg
         training = gt is not None
         head = self.roi_head
@@ -218,42 +322,22 @@ class MV2D(tnn.Module):
         corr_ids, corr_mask = epipolar_in_box(
             boxes, proposals.valid, cam.trans_mats.float(), c.image_size,
             c.correlation)
-        pad_mask = padding_mask_at_feature_res(img_shapes, c.image_size,
-                                               (h, w))
-        in_roi = in_roi_pixel_masks(boxes, proposals.valid, (h, w),
-                                    c.stride, c.correlation.expand_stride)
-        A = adjacency_from_correlation(corr_ids, corr_mask, R)
-        # pixel (v, i) is a key iff it lies in a roi some query correlates to
-        qact = A.any(0).reshape(V, P)
-        union = (in_roi & qact[:, :, None]).any(1).reshape(-1)
-        if training:
-            # a query with no correlated pixel attends to pixel 0 instead
-            # of nothing, which also puts that pixel into the union
-            roi_has_pix = in_roi.any(-1).reshape(R)
-            empty_q = ~(A & roi_has_pix[None]).any(-1)            # [R]
-            union = torch.cat([union[:1] | empty_q.any(), union[1:]])
-        n_active = union.sum()
-        key_overflow = (n_active - c.k_max).clamp(min=0)
-        key_idx, key_active = gather_active_keys(union, c.k_max)
-        key_ok = key_active & ~pad_mask.reshape(-1)[key_idx]
-        keys = p4.reshape(V * h * w, C)[key_idx]
-        key_pos = pos.to(p4.dtype).reshape(V * h * w, C)[key_idx]
-        vk = key_idx // (h * w)
-        ik = key_idx % (h * w)
-        G = in_roi[:, :, ik] & (torch.arange(V, device=dev)[:, None, None]
-                                == vk[None, None, :])           # [V, P, K]
-        hits = A.reshape(R, V * P).float() @ G.reshape(V * P, -1).float()
-        cross = (hits > 0.5) & key_ok[None]                      # [R, K]
-        if training:
-            fake_col = (key_idx == 0) & key_active
-            cross = cross | (empty_q[:, None] & fake_col[None])
+        use_dn = training and c.use_denoise and dn_noise is not None
+        if c.key_mode == 'pixel':
+            keys, key_pos, cross, dn_row, diagnostics = self._pixel_keys(
+                p4, pos, boxes, proposals.valid, corr_ids, corr_mask,
+                img_shapes, training)
+        else:
+            keys, key_pos, cross, dn_row = self._roi_keys(
+                roi_feats, corr_ids, corr_mask, flat_valid, use_dn)
+            diagnostics = {}
+        diagnostics['num_queries'] = flat_valid.sum()
         dn_info = None
-        if training and c.use_denoise and dn_noise is not None:
+        if use_dn:
             noisy_refs, dn_info = self._prepare_dn(gt, dn_noise)
             refs = torch.cat([noisy_refs.to(ref_pts.dtype), ref_pts])
             self_allowed = self._dn_self_mask(flat_valid, dn_info.valid)
-            dn_cross = (union[key_idx] & key_ok)[None].expand(c.dn_pad, -1)
-            cross = torch.cat([dn_cross, cross])
+            cross = torch.cat([dn_row[None].expand(c.dn_pad, -1), cross])
         else:
             # self-attention keys: valid queries only; diagonal kept
             refs = ref_pts
@@ -266,8 +350,6 @@ class MV2D(tnn.Module):
             all_box = torch.cat([all_box[..., :8],
                                  all_box[..., 8:10] / mean_time_delta,
                                  all_box[..., 10:]], dim=-1)
-        diagnostics = {'key_active': n_active, 'key_overflow': key_overflow,
-                       'num_queries': flat_valid.sum()}
         if dn_info is None:
             return HeadOutputs(all_cls, all_box, flat_valid, diagnostics)
         n = c.dn_pad
@@ -340,7 +422,8 @@ class MV2D(tnn.Module):
                       gt3d: GroundTruth3D, grid: GridMaskDraws,
                       dn_noise: torch.Tensor, drop: Dropout = NO_DROPOUT):
         """Training forward (the reference's MV2D(T).forward_train): grid
-        mask -> features -> RPN outputs of the current frame's views ->
+        mask -> features -> RPN (or RetinaHead) outputs of the current
+        frame's views ->
         detections without gradients, complemented with missed 2D GT ->
         the 3D head with DN.  Returns (HeadOutputs, {'fpn_feats',
         'rpn_scores', 'rpn_deltas', 'proposals'}); the losses are built in
@@ -353,8 +436,12 @@ class MV2D(tnn.Module):
             fpn_feats = tuple(torch.cat([f[:Vc], f[Vc:].detach()])
                               for f in fpn_feats)
             p4 = torch.cat([p4[:Vc], p4[Vc:].detach()])
-        rpn_scores, rpn_deltas = self.base_detector.rpn_head(
-            [f[:Vc] for f in fpn_feats])
+        # the 2D head's raw outputs on the current frame's views: the RPN's,
+        # or the single-stage detector's RetinaHead's
+        dense_head = self.base_detector.bbox_head \
+            if c.detector_type == 'single_stage' \
+            else self.base_detector.rpn_head
+        rpn_scores, rpn_deltas = dense_head([f[:Vc] for f in fpn_feats])
         with torch.no_grad():
             proposals = self.base_detector.detect(
                 [f.detach() for f in fpn_feats], c.image_size,

@@ -1,18 +1,27 @@
 """PETR-style decoder with masked self/cross-attention and the box head.
 
-Port of `mv2d_tpu/nn/decoder.py` (eval path, pixel mode) with the
-reference's keys: transformer.decoder.layers.{i}.attentions.{0,1}.attn
-(torch MultiheadAttention layout: packed in_proj, out_proj),
+Port of `mv2d_tpu/nn/decoder.py` with the reference's keys:
+transformer.decoder.layers.{i}.attentions.{0,1}.attn (torch
+MultiheadAttention layout: packed in_proj, out_proj),
 ffns.0.layers.{0.0,1}, norms.{0,1,2}; transformer.decoder.post_norm;
 query_embedding.{0,2}; cls_branches / reg_branches.  Post-norm layer order
 ('self_attn', 'norm', 'cross_attn', 'norm', 'ffn', 'norm').  LayerNorms use
 eps 1e-6, the JAX package's value.
 
-With use_flash, both attentions go through `ops.attention.masked_attention`
-(kernel K4 on CUDA), or `masked_attention_train` (K4 and its backward B8,
-with or without flash_sparse) while gradients are recorded; on the GPU the
-decoder packs each of its two masks once per pass (`mask_tiles`, the
-tiles every layer's kernels read).  Training applies
+Two key layouts, as in the JAX package: a shared key set [K, C] with a
+mask [Q, K] (the pixel key mode, and the roi key mode with DN), or a key
+set of each query's own [Q, Kq, C] with a mask [Q, Kq] (the roi key
+mode).  Attention over shared keys (the self-attention, and the
+cross-attention of the first layout) goes through
+`ops.attention.masked_attention` (kernel K4 on CUDA), or
+`masked_attention_train` (K4 and its backward B8, with or without
+flash_sparse) while gradients are recorded, whatever the config's
+use_flash_attention (a TPU routing field: the function is the same); on
+the GPU the decoder packs each of its shared-key masks once per pass
+(`mask_tiles`, the tiles every layer's kernels read).  CPU tensors take
+the plain versions.  Per-query keys go through
+`ops.attention.per_query_attention` (batched matmuls: XLA in the JAX
+package, no kernel there either).  Training applies
 the reference's dropout (p = cfg.dropout) after each attention's output
 projection and inside the FFN; the masks come from the step's
 torch.Generator (`Dropout`).
@@ -27,7 +36,7 @@ import torch.nn.functional as F
 
 from ..core.geometry import inverse_sigmoid
 from ..ops.attention import (MaskTiles, mask_tiles, masked_attention,
-                             masked_attention_plain, masked_attention_train)
+                             masked_attention_train, per_query_attention)
 from .layers import linear
 from .pe import pos2posemb3d
 
@@ -56,7 +65,8 @@ NO_DROPOUT = Dropout(0.0, None)
 
 class MultiheadAttention(tnn.Module):
     """Parameter layout of torch.nn.MultiheadAttention; the attention
-    itself is `masked_attention_plain` or the K4 kernel."""
+    itself is K4 (with B8 under grad; plain versions on the CPU) over
+    shared keys, `per_query_attention` over per-query keys."""
 
     def __init__(self, embed_dims: int, num_heads: int):
         super().__init__()
@@ -67,19 +77,20 @@ class MultiheadAttention(tnn.Module):
         self.out_proj = tnn.Linear(embed_dims, embed_dims)
         tnn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q, k, v, allowed, use_kernel: bool = False,
-                drop: Dropout = NO_DROPOUT, flash_sparse: bool = False,
+    def forward(self, q, k, v, allowed, drop: Dropout = NO_DROPOUT,
+                flash_sparse: bool = False,
                 tiles: Optional[MaskTiles] = None):
-        """q [Q, C], k/v [K, C], allowed [Q, K] bool -> [Q, C]; `tiles`:
-        `mask_tiles(allowed)` for the kernels (built by them if None)."""
+        """q [Q, C], k/v [K, C] with allowed [Q, K] bool, or k/v [Q, Kq, C]
+        with allowed [Q, Kq] -> [Q, C]; `tiles`: `mask_tiles(allowed)` of
+        a shared-key mask for the kernels (built by them if None)."""
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         dt = wq.dtype
         qp = F.linear(q.to(dt), wq, bq)
         kp = F.linear(k.to(dt), wk, bk)
         vp = F.linear(v.to(dt), wv, bv)
-        if not use_kernel:
-            out = masked_attention_plain(qp, kp, vp, allowed, self.num_heads)
+        if kp.dim() == 3:
+            out = per_query_attention(qp, kp, vp, allowed, self.num_heads)
         elif torch.is_grad_enabled():
             out = masked_attention_train(qp, kp, vp, allowed, self.num_heads,
                                          flash_sparse, tiles)
@@ -108,9 +119,8 @@ class FFN(tnn.Module):
 
 class PETRDecoderLayer(tnn.Module):
     def __init__(self, embed_dims=256, num_heads=8, feedforward_channels=2048,
-                 use_flash: bool = False, flash_sparse: bool = False):
+                 flash_sparse: bool = False):
         super().__init__()
-        self.use_flash = use_flash
         self.flash_sparse = flash_sparse
         self.attentions = tnn.ModuleList(
             [_Attention(embed_dims, num_heads) for _ in range(2)])
@@ -123,35 +133,35 @@ class PETRDecoderLayer(tnn.Module):
                 self_tiles: Optional[MaskTiles] = None,
                 cross_tiles: Optional[MaskTiles] = None):
         qs = query + query_pos
-        sa = self.attentions[0].attn(qs, qs, query, self_allowed,
-                                     self.use_flash, drop, self.flash_sparse,
-                                     self_tiles)
+        sa = self.attentions[0].attn(qs, qs, query, self_allowed, drop,
+                                     self.flash_sparse, self_tiles)
         query = self.norms[0](query + sa)
         ca = self.attentions[1].attn(query + query_pos, keys + key_pos, keys,
-                                     cross_allowed, self.use_flash, drop,
-                                     self.flash_sparse, cross_tiles)
+                                     cross_allowed, drop, self.flash_sparse,
+                                     cross_tiles)
         query = self.norms[1](query + ca)
         return self.norms[2](query + self.ffns[0](query, drop))
 
 
 class PETRDecoder(tnn.Module):
     def __init__(self, num_layers=6, embed_dims=256, num_heads=8,
-                 feedforward_channels=2048, use_flash: bool = False,
-                 flash_sparse: bool = False):
+                 feedforward_channels=2048, flash_sparse: bool = False):
         super().__init__()
         self.layers = tnn.ModuleList([
             PETRDecoderLayer(embed_dims, num_heads, feedforward_channels,
-                             use_flash, flash_sparse)
+                             flash_sparse)
             for _ in range(num_layers)])
         self.post_norm = tnn.LayerNorm(embed_dims, eps=LN_EPS)
 
     def forward(self, query, query_pos, keys, key_pos, self_allowed,
                 cross_allowed, drop: Dropout = NO_DROPOUT):
         outs = []
-        # the kernels read each mask as MaskTiles: packed once per pass
+        # the kernels read each shared-key mask as MaskTiles: packed once
+        # per pass (per-query keys take no kernel)
         tiles = (None, None)
-        if self.layers[0].use_flash and query.device.type != 'cpu':
-            tiles = (mask_tiles(self_allowed), mask_tiles(cross_allowed))
+        if query.device.type != 'cpu':
+            tiles = (mask_tiles(self_allowed), None if keys.dim() == 3
+                     else mask_tiles(cross_allowed))
         for layer in self.layers:
             query = layer(query, query_pos, keys, key_pos, self_allowed,
                           cross_allowed, drop, *tiles)
@@ -173,7 +183,7 @@ class CrossAttentionBoxHead(tnn.Module):
                  num_layers=6, num_heads=8, feedforward_channels=2048,
                  pc_range: Sequence[float] = (-51.2, -51.2, -5.0, 51.2, 51.2,
                                               3.0),
-                 use_flash: bool = False, flash_sparse: bool = False):
+                 flash_sparse: bool = False):
         super().__init__()
         C = embed_dims
         self.embed_dims = C
@@ -181,8 +191,7 @@ class CrossAttentionBoxHead(tnn.Module):
         self.query_embedding = tnn.Sequential(
             tnn.Linear(C * 3 // 2, C), tnn.ReLU(), tnn.Linear(C, C))
         self.transformer = _Transformer(PETRDecoder(
-            num_layers, C, num_heads, feedforward_channels, use_flash,
-            flash_sparse))
+            num_layers, C, num_heads, feedforward_channels, flash_sparse))
         self.cls_branches = tnn.ModuleList([tnn.Sequential(
             tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),
             tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),
@@ -196,7 +205,10 @@ class CrossAttentionBoxHead(tnn.Module):
     def forward(self, reference_points, keys, key_pos, self_allowed,
                 cross_allowed, drop: Dropout = NO_DROPOUT):
         """reference_points [Q, 3] normalized to pc_range; keys/key_pos
-        [K, C]; self_allowed [Q, Q]; cross_allowed [Q, K]."""
+        [K, C] shared by every query with cross_allowed [Q, K] (the pixel
+        key mode; the roi key mode with DN), or [Q, Kq, C], a key set per
+        query, with cross_allowed [Q, Kq] (the roi key mode);
+        self_allowed [Q, Q]."""
         emb = pos2posemb3d(reference_points, self.embed_dims // 2)
         query_pos = linear(emb, self.query_embedding[0])
         query_pos = self.query_embedding[2](F.relu(query_pos))

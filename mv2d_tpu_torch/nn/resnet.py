@@ -111,6 +111,7 @@ class ResNet(tnn.Module):
         super().__init__()
         self.stage_with_dcn = tuple(stage_with_dcn)
         self.fused_stages = routes.fused_stages
+        self.out_channels = (256, 512, 1024, 2048)
         self.conv1 = tnn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         inplanes, planes = 64, 64

@@ -2,6 +2,8 @@
 
 Port of `mv2d_tpu/ops/attention.py`.  Masks are "allowed" masks (True =
 may attend); a query row with no allowed key yields a zero output.
+`per_query_attention` takes a key set per query (the roi key mode),
+in batched matmuls, as the JAX package does.
 `masked_attention` is kernel K4 (`csrc/attention.cu`), replacing
 `mv2d_tpu/ops/pallas_attention.py: masked_flash_attention(sparse=True)`.
 With gradients on, `masked_attention_train` runs `MaskedAttentionFn`: K4
@@ -64,6 +66,16 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def masked_attention_plain(q, k, v, allowed, num_heads: int):
     return multi_head_attention(q[None], k[None], v[None], num_heads,
                                 allowed[None])[0]
+
+
+def per_query_attention(q, k, v, allowed, num_heads: int):
+    """Attention over a key set of each query's own (the roi key mode):
+    q [Q, C], k/v [Q, Kq, C], allowed [Q, Kq] -> [Q, C];
+    `multi_head_attention` with one batch row per query.  The JAX package
+    runs this form in XLA (no Pallas kernel), so batched matmuls are its
+    port on every device."""
+    return multi_head_attention(q[:, None], k, v, num_heads,
+                                allowed[:, None])[:, 0]
 
 
 def attention_lse_plain(q, k, allowed, num_heads: int) -> torch.Tensor:

@@ -8,8 +8,10 @@ bench uses (`__graft_entry__._rig`).  `init_random_weights` fills a model
 from a torch.Generator: frozen-BN statistics stay at mean 0 / var 1 (a
 random variance can go negative and NaN the forward), convolution and
 linear weights are N(0, 1/fan_in), the box-delta heads rpn_reg / fc_reg
-are zero so proposals are exactly anchor-shaped, and the DCN offset
-branches get small random offsets.
+are zero so proposals are exactly anchor-shaped, the DCN offset
+branches get small random offsets, and every other bias is zero (the
+RetinaHead's class bias too: at its focal prior, -log 99, random weights
+leave no anchor above the score threshold).
 """
 from __future__ import annotations
 

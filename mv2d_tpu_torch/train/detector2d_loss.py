@@ -5,7 +5,10 @@ the reference's Faster R-CNN):
   * RPN: MaxIoUAssigner(pos 0.7 / neg 0.3 / min_pos 0.3, low-quality
     matches) + RandomSampler(256, pos_fraction 0.5), BCE + L1 losses;
   * R-CNN: MaxIoUAssigner(0.5 / 0.5 / 0.5) + RandomSampler(512,
-    pos_fraction 0.25, GT added as proposals), softmax CE + per-class L1.
+    pos_fraction 0.25, GT added as proposals), softmax CE + per-class L1;
+  * the single-stage (RetinaNet) head: MaxIoUAssigner(0.5 / 0.4 / 0) over
+    every anchor, sigmoid focal loss and L1 on the positives, both
+    averaged by the positives' count.
 
 Random sampling of k from a candidate set is "rank the candidates by a
 uniform key, keep the k smallest", with the keys an argument (`u_pos`,
@@ -21,8 +24,8 @@ import torch
 from ..core.boxes import box_iou_xyxy
 from ..core.nms import topk
 from ..nn.rpn import bbox2delta
-from ..ops.focal_loss import (sigmoid_ce, softmax_cross_entropy,
-                              weighted_l1_loss)
+from ..ops.focal_loss import (sigmoid_ce, sigmoid_focal_loss,
+                              softmax_cross_entropy, weighted_l1_loss)
 
 
 class AssignResult(NamedTuple):
@@ -162,3 +165,26 @@ def rcnn_loss(cls_logits: torch.Tensor, reg_deltas: torch.Tensor,
                                  w, avg)
     return {'loss_cls': loss_cls, 'loss_bbox': loss_bbox,
             'rcnn_num_pos': samples.is_pos.sum()}
+
+
+def single_stage_loss(flat_scores: torch.Tensor, flat_deltas: torch.Tensor,
+                      anchors: torch.Tensor, gt_boxes: torch.Tensor,
+                      gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                      num_classes: int = 10) -> Dict[str, torch.Tensor]:
+    """RetinaHead losses of one view: flat_scores [N, K] logits,
+    flat_deltas [N, 4], anchors [N, 4], gt [G, 4] -> {loss_cls,
+    loss_bbox, num_pos}."""
+    a = max_iou_assign(anchors, gt_boxes, gt_valid, 0.5, 0.4, 0.0)
+    labels = torch.where(a.is_pos, _gather_rows(
+        gt_labels.long()[:, None], a.assigned_gt)[:, 0],
+        torch.full_like(a.assigned_gt, num_classes))
+    weights = (a.is_pos | a.is_neg).float()
+    avg = a.is_pos.sum().float().clamp(min=1.0)
+    loss_cls = sigmoid_focal_loss(flat_scores, labels, weights, num_classes,
+                                  avg_factor=avg)
+    target = bbox2delta(anchors, _gather_rows(gt_boxes.float(),
+                                              a.assigned_gt))
+    loss_bbox = weighted_l1_loss(flat_deltas, torch.nan_to_num(target),
+                                 a.is_pos[:, None].float(), avg)
+    return {'loss_cls': loss_cls, 'loss_bbox': loss_bbox,
+            'num_pos': a.is_pos.sum()}

@@ -1,9 +1,10 @@
 """One scene's MV2D training losses.
 
 Port of `mv2d_tpu/train/train_step.py` (`compute_losses`): grid mask,
-backbone and FPN, RPN and R-CNN losses on the current frame's views,
-detections without gradients plus missed GT, the 3D head with DN, and
-per-layer Hungarian matching on the host.  The step that combines
+backbone and FPN, the 2D losses on the current frame's views (RPN and
+R-CNN, or the single-stage detector's focal and L1 losses), detections
+without gradients plus missed GT, the 3D head with DN, and per-layer
+Hungarian matching on the host.  The step that combines
 scenes' losses and updates the model is `parallel.dist.dp_train_step`,
 on one GPU as on many.  Mixed precision is the JAX package's: float32 master parameters,
 a bfloat16 forward through bfloat16 copies of them (their gradients reach
@@ -25,6 +26,7 @@ from ..configs import MV2DConfig
 from ..core.geometry import CameraParams
 from ..models.mv2d import MV2D, GroundTruth2D, GroundTruth3D
 from ..nn.decoder import NO_DROPOUT, Dropout
+from ..nn.retina import level_anchors
 from ..nn.rpn import grid_anchors, rpn_proposals
 from ..ops.grid_mask import GridMaskDraws, draw_grid_mask
 from . import detector2d_loss as d2l
@@ -48,11 +50,14 @@ class TrainDraws(NamedTuple):
 
 
 def all_anchors(cfg: MV2DConfig) -> torch.Tensor:
-    """Every RPN anchor [N, 4] in the flattened score order."""
+    """Every anchor [N, 4] of the 2D detector's dense head (the RPN's,
+    or the single-stage detector's RetinaHead's) in the flattened score
+    order."""
     H, W = cfg.image_size
+    level = level_anchors if cfg.detector_type == 'single_stage' \
+        else grid_anchors
     return torch.from_numpy(np.concatenate(
-        [grid_anchors((-(-H // s), -(-W // s)), s)
-         for s in (4, 8, 16, 32, 64)]))
+        [level((-(-H // s), -(-W // s)), s) for s in (4, 8, 16, 32, 64)]))
 
 
 def current_views(cfg: MV2DConfig) -> int:
@@ -102,6 +107,10 @@ def compute_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
 
     Vc = current_views(cfg)
     gt2d = batch.gt2d
+    if cfg.detector_type == 'single_stage':
+        total, metrics = _single_stage_losses(cfg, det, gt2d, losses, Vc)
+        metrics['num_queries'] = out.query_valid.sum()
+        return total, metrics, deferred
     # RPN losses on the current frame's views
     anchors = all_anchors(cfg).to(batch.imgs.device)
     flat_scores = torch.cat([s.reshape(s.shape[0], -1)
@@ -136,9 +145,34 @@ def compute_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
     metrics['rpn_num_pos'] = rpn['rpn_num_pos'].sum()
     metrics['rcnn_num_pos'] = rcnn['rcnn_num_pos']
     metrics['num_queries'] = out.query_valid.sum()
-    metrics['key_active'] = out.diagnostics['key_active']
-    metrics['key_overflow'] = out.diagnostics['key_overflow']
+    # the pixel key mode's bucket accounting (the roi key mode has none)
+    for k in ('key_active', 'key_overflow'):
+        if k in out.diagnostics:
+            metrics[k] = out.diagnostics[k]
     return total, metrics, deferred
+
+
+def _single_stage_losses(cfg: MV2DConfig, det: dict, gt2d: GroundTruth2D,
+                         losses: dict, Vc: int):
+    """The single-stage detector's focal and L1 losses of each current
+    view, averaged over the views, added to `losses` -> (total, metrics
+    with det_num_pos, the positive anchors of all views)."""
+    K = cfg.num_classes
+    anchors = all_anchors(cfg).to(det['rpn_scores'][0].device)
+    scores = torch.cat([s.reshape(s.shape[0], -1, K)
+                        for s in det['rpn_scores']], 1)
+    deltas = torch.cat([d.reshape(d.shape[0], -1, 4)
+                        for d in det['rpn_deltas']], 1)
+    ss = [d2l.single_stage_loss(scores[v], deltas[v], anchors,
+                                gt2d.boxes[v], gt2d.labels[v],
+                                gt2d.valid[v], K) for v in range(Vc)]
+    losses['det_loss_cls'] = torch.stack([x['loss_cls'] for x in ss]).mean()
+    losses['det_loss_bbox'] = torch.stack([x['loss_bbox']
+                                           for x in ss]).mean()
+    total = sum(v for k, v in losses.items() if 'loss' in k)
+    metrics = dict(losses)
+    metrics['det_num_pos'] = sum(x['num_pos'] for x in ss)
+    return total, metrics
 
 
 class _LossModule(tnn.Module):

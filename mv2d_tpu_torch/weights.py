@@ -3,8 +3,11 @@
 `state_dict_from_jax(params, constants)` is the inverse of
 `mv2d_tpu/train/checkpoint.py:convert_torch_state_dict`: it takes the JAX
 package's nested {'params', 'constants'} trees (numpy arrays) of an MV2D
-model and returns reference-named numpy arrays that load into
-`mv2d_tpu_torch.models.mv2d.MV2D` with strict=True.  Layout changes:
+model (ResNet or VoVNet backbone, two-stage or single-stage detector)
+and returns reference-named numpy arrays that load into
+`mv2d_tpu_torch.models.mv2d.MV2D` with strict=True.  The single-stage
+head takes mmdet RetinaHead's names (the JAX converter has no table for
+it).  Layout changes:
 conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in], the DCN
 tap kernel [9, C, F] -> [F, C, 3, 3], the R-CNN fc1 input order
 (7, 7, C) -> (C, 7, 7), and per-attention q/k/v projections packed into
@@ -83,6 +86,54 @@ def _resnet_key(p: str):
     mm = re.fullmatch(r'downsample_bn/(\w+)', rest)
     if mm:
         return f'{base}.downsample.1.{_BN[mm.group(1)]}', _raw
+    return None
+
+
+def _vovnet_key(p: str):
+    """The inverse of `mv2d_tpu/train/checkpoint.py:_map_vovnet`: JAX
+    stem_{i} / stage{s}_{b} (0-indexed) -> VoVNetCP's stem.stem_{i+1} /
+    stage{s}.OSA{s}_{b+1} names."""
+    m = re.fullmatch(r'stem_(\d)/(conv|bn)/(\w+)', p)
+    if m:
+        base = f'stem.stem_{int(m.group(1)) + 1}'
+        rest = m.group(2, 3)
+    else:
+        m = re.fullmatch(r'stage(\d)_(\d+)/(.*)', p)
+        if not m:
+            return None
+        st, blk = m.group(1), int(m.group(2)) + 1
+        osa = f'stage{st}.OSA{st}_{blk}'
+        mm = re.fullmatch(r'ese/fc/(kernel|bias)', m.group(3))
+        if mm:
+            leaf, is_w = _leaf(mm.group(1))
+            return f'{osa}.ese.fc.{leaf}', _conv if is_w else _raw
+        mm = re.fullmatch(r'(layer_(\d+)|concat)/(conv|bn)/(\w+)',
+                          m.group(3))
+        if not mm:
+            return None
+        if mm.group(2) is not None:
+            base = f'{osa}.layers.{mm.group(2)}.OSA{st}_{blk}_{mm.group(2)}'
+        else:
+            base = f'{osa}.concat.OSA{st}_{blk}_concat'
+        rest = mm.group(3, 4)
+    if rest == ('conv', 'kernel'):
+        return f'{base}/conv.weight', _conv
+    if rest[0] == 'bn' and rest[1] in _BN:
+        return f'{base}/norm.{_BN[rest[1]]}', _raw
+    return None
+
+
+def _retina_key(p: str):
+    """JAX RetinaHead leaves -> mmdet RetinaHead names."""
+    m = re.fullmatch(r'(cls|reg)_conv(\d+)/(kernel|bias)', p)
+    if m:
+        leaf, is_w = _leaf(m.group(3))
+        return (f'{m.group(1)}_convs.{m.group(2)}.conv.{leaf}',
+                _conv if is_w else _raw)
+    m = re.fullmatch(r'(retina_cls|retina_reg)/(kernel|bias)', p)
+    if m:
+        leaf, is_w = _leaf(m.group(2))
+        return f'{m.group(1)}.{leaf}', _conv if is_w else _raw
     return None
 
 
@@ -195,8 +246,11 @@ def torch_key(path: str, packed, value):
     if top == 'base_detector':
         sub, _, q = p.partition('/')
         if sub == 'backbone':
-            r = _resnet_key(q)
+            r = _resnet_key(q) or _vovnet_key(q)
             return r and (f'base_detector.backbone.{r[0]}', r[1])
+        if sub == 'retina_head':
+            r = _retina_key(q)
+            return r and (f'base_detector.bbox_head.{r[0]}', r[1])
         if sub == 'fpn':
             r = _fpn_key(q, 0)
             return r and (f'base_detector.neck.{r[0]}', r[1])

@@ -917,7 +917,7 @@ def test_decoder_packs_each_mask_once_a_pass(dev):
     from mv2d_tpu_torch.nn.decoder import PETRDecoder
     from mv2d_tpu_torch.ops import attention
     torch.manual_seed(0)
-    dec = PETRDecoder(3, 32, 4, 64, use_flash=True).to(dev)
+    dec = PETRDecoder(3, 32, 4, 64).to(dev)
     Q, K = 70, 300
     query, qpos = torch.randn(Q, 32, device=dev), torch.randn(Q, 32,
                                                               device=dev)

@@ -76,15 +76,35 @@ def test_config_files_match_jax(path):
         assert jv == tv, (k, jv, tv)
 
 
-def test_roi_key_mode_config_is_refused():
-    """The MV2D-S files (roi key mode) build a config, which the port's
-    model refuses; the MV2D-T files build a model."""
+def test_roi_key_mode_config_serves():
+    """The MV2D-S file (roi key mode) builds a model whose server answers
+    a request (on the CPU, at 64x96, the 3D head cut to one layer 64
+    wide, the R-CNN's fcs to 64) with a direct forward's detections; the
+    R101 file builds its model."""
     roi = [p for p in CONFIGS if 'single_frame_roi' in p]
     assert roi
-    cfg = common.load_cli_config(roi[0])
-    assert common.build_model_config(cfg).key_mode == 'roi'
-    with pytest.raises(NotImplementedError):
-        common.build_model(cfg)
+    torch.set_num_threads(1)
+    cfg = common.load_cli_config(roi[0], [
+        'model.overrides.image_size=(64, 96)',
+        'model.overrides.num_decoder_layers=1',
+        'model.overrides.embed_dims=64',
+        'model.overrides.rcnn_fc_channels=64'])
+    runner = ModelRunner(cfg, checkpoint=None, max_batch=1,
+                         batch_timeout_ms=1.0, warmup=False, device='cpu')
+    try:
+        mc = runner.mc
+        assert (mc.key_mode, mc.num_frames, mc.total_views) == ('roi', 1, 6)
+        arrays = dict(np.load(io.BytesIO(payload(mc, seed=3))))
+        got = runner.predict(arrays)
+        with torch.no_grad():
+            det = runner.model(*runner.inputs(arrays))
+    finally:
+        runner.close()
+    assert list(det.diagnostics) == ['num_queries']
+    assert got['valid'].any()
+    for k, t in (('boxes_3d', det.boxes), ('scores_3d', det.scores),
+                 ('labels_3d', det.labels), ('valid', det.valid)):
+        np.testing.assert_array_equal(got[k], t.numpy())
     cfg = common.load_cli_config(
         os.path.join(REPO, 'configs', 'mv2d',
                      'mv2d_r101_frcnn_two_frames_1600x640_ep24.py'),

@@ -39,9 +39,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def tiny_cfgs(**kw):
-    """(jax cfg, torch cfg) of the tiny config with DCN in stages 3-4."""
-    return (jcfgs.tiny(stage_with_dcn=DCN, **kw),
-            tcfgs.tiny(stage_with_dcn=DCN, **kw))
+    """(jax cfg, torch cfg) of the tiny config, by default with DCN in
+    stages 3-4."""
+    kw.setdefault('stage_with_dcn', DCN)
+    return jcfgs.tiny(**kw), tcfgs.tiny(**kw)
 
 
 def materialize(struct, seed=0):
@@ -100,7 +101,8 @@ def built():
 
 
 def test_configs_mirror_jax():
-    for name in ('mv2d_t_r50', 'mv2d_t_r101', 'mv2d_s_r50', 'tiny'):
+    for name in ('mv2d_t_r50', 'mv2d_t_r101', 'mv2d_s_r50', 'mv2d_t_v99',
+                 'tiny'):
         j = getattr(jcfgs, name)()._asdict()
         t = getattr(tcfgs, name)()._asdict()
         assert list(j) == list(t)

@@ -500,8 +500,15 @@ def pinned_jax_losses(jm, variables, batch, draws, rng):
 @pytest.fixture(scope='module')
 def step_pair():
     """One tiny+DCN two-frame training step through both packages."""
+    return train_step_pair(stage_with_dcn=DCN, num_frames=2, dropout=0.0)
+
+
+def train_step_pair(weights_seed=0, **kw):
+    """One training step of `tiny(**kw)` through both packages, on the
+    same weights (`materialize(., weights_seed)`), scene and draws: JAX's
+    losses and gradients (in port names), the port's losses after
+    `dp_objective` and its model with its gradients."""
     torch.set_num_threads(1)
-    kw = dict(stage_with_dcn=DCN, num_frames=2, dropout=0.0)
     jc, tc = jcfgs.tiny(**kw), tcfgs.tiny(**kw)
     batch = synthetic_train_batch(tc, seed=0, device='cpu')
     V, (H, W) = tc.total_views, tc.image_size
@@ -518,7 +525,7 @@ def step_pair():
     jm = jmv2d.MV2D(jc)
     struct = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jbatch.imgs,
                             jbatch.cam, jbatch.img_shapes)
-    variables = materialize(struct, seed=0)
+    variables = materialize(struct, seed=weights_seed)
     # a nonzero R-CNN box head: with zero deltas and the GT-as-proposal
     # positives' zero targets the L1 residual is exactly 0, where the two
     # frameworks' |x| subgradients differ (JAX 1, torch 0)
