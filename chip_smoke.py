@@ -52,7 +52,10 @@ Phases, in order; any failure exits non-zero without the final line:
      and B12 are timed beside K3 on the same RoIs (`k3_ms`), log their
      plan (box, ring slots, blocks an SM, registers, shared memory), and
      are checked on a finest level 560 cells wide and for equal bits in
-     two runs;
+     two runs.  Then each `mv2d` operator's host microseconds a call
+     (`torch.ops.mv2d.*`) against a direct call of its CUDA
+     implementation on the same arguments (`op_args`), and their cost
+     per eval forward and per training step;
   4. tiny: the tiny config with DCN, eval forward, GPU (kernels) against
      CPU (plain versions), same seeded weights, the GPU launching exactly
      the path's kernels (`path_kernels`);
@@ -74,6 +77,13 @@ Phases, in order; any failure exits non-zero without the final line:
      K3, K4 on the self-attention, `mask_bits` once a forward; the
      cross-attention is per query, in batched matmuls); serve_v99: two
      MV2D-T forwards on the VoVNet-99 backbone (K3, K4, no K1 or K2);
+     export: `tools.export` of MV2D-T R50 bf16 at full width on the
+     serve phase's weights and inputs (one `mv2d` node a kernel call:
+     K1 3, K2 9, K3 1, K4 12, mask_bits 2), the .pt2 loaded and run 4
+     times in a fresh `python -c` that imports only the operators
+     (`mv2d_tpu_torch.ops.library`): its detections equal to a direct
+     forward bit for bit, its launches 4 x the forward's, no model module
+     imported; ms/scene of both, and the operators each dispatches;
   7. http: the port's HTTP server (`mv2d_tpu_torch.tools.serve`) in
      process on 127.0.0.1, built from the R50 file of configs/mv2d/ with
      align_v2 (the JAX package's MV2D_ALIGN_V2=1: kernel B11), max
@@ -144,7 +154,15 @@ Phases, in order; any failure exits non-zero without the final line:
      K2 9, K3 1, K4 12, mask_bits 2, B10-B13 0; `tools.test` on
      epoch_2.pth (strict load) gives the hook's last mAP and NDS, and its
      scene-0 records equal a forward of the hook's bf16 copy within 1e-6.
-     Logs ms a step in the CLI loop (1000 / sps) and peak memory.
+     Logs ms a step in the CLI loop (1000 / sps) and peak memory;
+  13. tools: `tools.get_flops` at full width (params, GFLOPs, bytes),
+     `tools.benchmark --bf16` (5 + 20 iterations), `tools/dist_test.sh`
+     with GPUS=1 (torchrun, NCCL) on the eval phase's scenes and weights
+     (its submission equal to that phase's), `tools.misc publish` and
+     `fuse_conv_bn` on train_cli's last checkpoint, each loaded by
+     `tools.test`, `tools.visualize --cameras` to a PNG, and
+     `utils.profiling.trace` around one forward (device time under each
+     operator).
 The default phases (3-6, 9) build their models with the default routes
 (`Routes()`), whatever the environment holds; phase 7 sets align_v2 for
 its R50 server and the default routes for its R101 server; phase 8's
@@ -169,43 +187,56 @@ SELF_TOL = 1e-6
 
 KERNELS = {
     'fused_stage1': dict(
+        op='mv2d::bottleneck',
         source='mv2d_tpu_torch/csrc/stage1.cu',
         replaces='mv2d_tpu/ops/pallas_stage.py:201'),
     'dcn_conv': dict(
+        op='mv2d::dcn_conv',
         source='mv2d_tpu_torch/csrc/dcn.cu',
         replaces='mv2d_tpu/ops/pallas_dcn.py:607'),
     'roi_align_multilevel': dict(
+        op='mv2d::roi_align',
         source='mv2d_tpu_torch/csrc/roi_align.cu',
         replaces='mv2d_tpu/ops/pallas_roi_align.py:1263'),
     'masked_attention': dict(
+        op='mv2d::masked_attention',
         source='mv2d_tpu_torch/csrc/attention.cu',
         replaces='mv2d_tpu/ops/pallas_attention.py:179 and :78'),
     'dcn_samples': dict(
+        op='mv2d::dcn_samples',
         source='mv2d_tpu_torch/csrc/dcn.cu',
         replaces='mv2d_tpu/ops/pallas_dcn.py:575'),
     'dcn_samples_backward': dict(
+        op='mv2d::dcn_samples_bwd',
         source='mv2d_tpu_torch/csrc/dcn.cu',
         replaces='mv2d_tpu/ops/pallas_dcn.py:378'),
     'masked_attention_backward': dict(
+        op='mv2d::masked_attention_bwd',
         source='mv2d_tpu_torch/csrc/attention.cu',
         replaces='mv2d_tpu/ops/pallas_attention.py:328 and :491'),
     'roi_align_multilevel_backward': dict(
+        op='mv2d::roi_align_bwd',
         source='mv2d_tpu_torch/csrc/roi_align.cu',
         replaces='mv2d_tpu/ops/pallas_roi_align.py:1524'),
     'fused_identity_chain': dict(
+        op='mv2d::identity_block',
         source='mv2d_tpu_torch/csrc/stage.cu',
         replaces='mv2d_tpu/ops/pallas_stage.py:201 (fused_identity_chain '
                  ':253)'),
     'dcn_conv_backward': dict(
+        op='mv2d::dcn_conv_bwd',
         source='mv2d_tpu_torch/csrc/dcn.cu',
         replaces='mv2d_tpu/ops/pallas_dcn.py:306'),
     'roi_align_slab': dict(
+        op='mv2d::roi_align_slab',
         source='mv2d_tpu_torch/csrc/roi_align_slab.cu',
         replaces='mv2d_tpu/ops/pallas_roi_align.py:1219'),
     'roi_align_flat': dict(
+        op='mv2d::roi_align_flat',
         source='mv2d_tpu_torch/csrc/roi_align_patch.cu',
         replaces='mv2d_tpu/ops/pallas_roi_align.py:456'),
     'mask_bits': dict(
+        op='mv2d::mask_bits',
         source='mv2d_tpu_torch/csrc/attention.cu',
         replaces='none: packs the mask that K4 and B8 read (the TPU kernels '
                  'take a bf16 mask and per-tile lists, '
@@ -240,6 +271,11 @@ ROUTED_TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_conv': 9,
                          'mask_bits': MASKS_PER_PASS}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_OPS_PER_S = 989e12
+
+
+# what a phase leaves for a later one (the eval fixture, the training
+# CLI's checkpoint) and the temporary directories to remove at the end
+KEEP = {}
 
 
 def counters():
@@ -1214,7 +1250,121 @@ def phase_kernels(dev, results):
                         else case.note(ms)))
             del case, out_k, out_p
             torch.cuda.empty_cache()
-    return ok
+    return op_overhead(dev, results) and ok
+
+
+def op_args(dev, dtype=None, seed=0):
+    """Each `mv2d` operator's arguments at small shapes that its kernel
+    takes (block 0 of layer1 for K1, width 128 for B10, four RoIs a view
+    on four levels, 128 queries on 256 keys), in `dtype` (default
+    bfloat16) with float32 coordinates and biases."""
+    import torch
+    from mv2d_tpu_torch.ops import attention, stage
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = dtype or torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def block(cin, p, wd):
+        blk = dict(w1=rnd(cin, p, scale=0.1), b1=rnd(p, dtype=torch.float32),
+                   w2=rnd(9, p, p, scale=0.05),
+                   b2=rnd(p, dtype=torch.float32),
+                   w3=rnd(p, 4 * p, scale=0.1),
+                   b3=rnd(4 * p, dtype=torch.float32))
+        if wd:
+            blk.update(wd=rnd(cin, 4 * p, scale=0.1),
+                       bd=rnd(4 * p, dtype=torch.float32))
+        return stage._block_args(blk)
+
+    V, H, W, C, F = 1, 8, 16, 64, 64
+    x = rnd(V, H, W, C)
+    sy = torch.rand((V, H, W, 9), generator=g, device=dev) * H
+    sx = torch.rand((V, H, W, 9), generator=g, device=dev) * W
+    m = torch.rand((V, H, W, 9), generator=g, device=dev)
+    w = rnd(9, C, F, scale=0.05)
+    feats = [rnd(2, 128 // s, 256 // s, 64) for s in (4, 8, 16, 32)]
+    rois = torch.tensor([[[4., 4., 40., 30.], [0., 0., 250., 120.],
+                          [10., 3., 20., 9.], [60., 20., 180., 110.]]] * 2,
+                        device=dev)
+    strides = [4, 8, 16, 32]
+    Q, K, Cq = 128, 256, 256
+    q, k, v = rnd(Q, Cq), rnd(K, Cq), rnd(K, Cq)
+    allowed = torch.rand((Q, K), generator=g, device=dev) < 0.3
+    tiles = attention.mask_tiles(allowed)
+    out, lse = attention.masked_attention_forward(q, k, v, allowed, 8, tiles)
+    return {
+        'bottleneck': (x, *block(64, 64, True)),
+        'identity_block': (rnd(V, H, W, 512), *block(512, 128, False)[:6]),
+        'dcn_conv': (x, sy, sx, m, w),
+        'dcn_samples': (x, sy, sx, m),
+        'dcn_samples_bwd': (x, sy, sx, m, rnd(V, H, W, 9, C)),
+        'dcn_conv_bwd': (x, sy, sx, m, w, rnd(V, H, W, F)),
+        'roi_align': (feats, rois, strides),
+        'roi_align_slab': (feats, rois, strides),
+        'roi_align_flat': (feats, rois.reshape(-1, 4),
+                           torch.tensor([0] * 4 + [1] * 4, device=dev),
+                           strides, 0),
+        'roi_align_bwd': (feats, rois, rnd(2, 4, 7, 7, 64), strides),
+        'mask_bits': (allowed,),
+        'masked_attention': (q, k, v, allowed, *tiles[:3], 8),
+        'masked_attention_bwd': (q, k, v, None, *tiles, out, lse,
+                                 rnd(Q, Cq), 8),
+    }
+
+
+def _host_us(fn, n):
+    """Host microseconds a call of fn over n calls (the launches queue on
+    the device; it is synchronized before and after)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def op_overhead(dev, results, n=200):
+    """Host microseconds a call of each `mv2d` operator against a direct
+    call of its CUDA implementation on the same arguments (in turns:
+    direct, op, op, direct), and the cost per eval forward and per
+    training step from the launches a path makes (EVAL_PER_FORWARD,
+    TRAIN_PER_STEP)."""
+    import torch
+    from mv2d_tpu_torch.ops import library
+    args = op_args(dev)
+    per_call = {}
+    for name, a in args.items():
+        op = getattr(torch.ops.mv2d, name)
+        direct = library.OPS[name].cuda
+        d1 = _host_us(lambda: direct(*a), n)
+        o1 = _host_us(lambda: op(*a), n)
+        o2 = _host_us(lambda: op(*a), n)
+        d2 = _host_us(lambda: direct(*a), n)
+        per_call[name] = dict(op_us=(o1 + o2) / 2, direct_us=(d1 + d2) / 2)
+    op_of = {k: v['op'][len('mv2d::'):] for k, v in KERNELS.items()}
+
+    def cost(counts):
+        return sum(c * (per_call[op_of[k]]['op_us']
+                        - per_call[op_of[k]]['direct_us'])
+                   for k, c in counts.items()) / 1e3
+
+    # a step's K3 launches: the no-grad detect pass and the R-CNN RoIs
+    step = {**TRAIN_PER_STEP, 'roi_align_multilevel': 2}
+    fwd_ms, step_ms = cost(EVAL_PER_FORWARD), cost(step)
+    for name, r in per_call.items():
+        extra = r['op_us'] - r['direct_us']
+        log(f'  op mv2d::{name:<22} {r["op_us"]:7.1f} us a call, direct '
+            f'{r["direct_us"]:7.1f} us: dispatch {extra:6.1f} us')
+    log(f'  dispatch per eval forward ({sum(EVAL_PER_FORWARD.values())} '
+        f'calls) {fwd_ms:.3f} ms, per training step '
+        f'({sum(step.values())} calls) {step_ms:.3f} ms; '
+        f'{results.get("_smi", "")}')
+    results['_op_overhead'] = dict(per_call=per_call, forward_ms=fwd_ms,
+                                   step_ms=step_ms)
+    return all(np.isfinite(r['op_us']) for r in per_call.values())
 
 
 def path_kernels(cfg, training=False, dn=False):
@@ -1889,7 +2039,6 @@ def phase_eval(dev, results, n_scenes=8, options=(), image_hw=(900, 1600),
     `eval_e2e_bench.run` on the same fixture, 3 repeats.  `options`
     (--cfg-options) shrink the config for a rehearsal."""
     import os
-    import shutil
     import tempfile
     import torch
     from mv2d_tpu_torch.data import pipeline
@@ -1993,9 +2142,11 @@ def phase_eval(dev, results, n_scenes=8, options=(), image_hw=(900, 1600),
             + ', '.join(f'{k} {v:.2f} ms' for k, v in bench['alone'].items())
             + f'; {smi}')
         results['_eval'] = dict(cli_s=cli_s, **bench)
+        # the tools phase evaluates the same scenes again
+        KEEP['eval'] = dict(opts=opts, pth=pth, out=out, metrics=metrics)
         del model
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        KEEP.setdefault('dirs', []).append(tmp)
         torch.cuda.empty_cache()
     return launch_ok and sub_ok and metrics_ok and match_ok and pool_ok
 
@@ -2489,7 +2640,6 @@ def phase_train_cli(dev, results):
     (RANK=0 WORLD_SIZE=1: NCCL, the dp step's all-reduces; leg B), then
     `tools.test` on the last checkpoint."""
     import os
-    import shutil
     import tempfile
     import torch
     from mv2d_tpu_torch.data.nuscenes import to_eval_inputs
@@ -2635,6 +2785,9 @@ def phase_train_cli(dev, results):
             f'hook\'s copy: same boxes {same}, error {err:.2e} (tol '
             f'{SELF_TOL:.0e}) {"ok" if match_ok else "FAIL"}')
         results['_train_cli'] = dict(ms=ms, peak_gb=peak_gb)
+        # the tools phase publishes and fuses the last checkpoint
+        KEEP['train_cli'] = dict(config=paths['config'], ckpt=ckpt2,
+                                 opts=opts, metrics=metrics)
         del ev, model
     finally:
         checkpoint.restore_checkpoint = restore
@@ -2643,10 +2796,285 @@ def phase_train_cli(dev, results):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-        shutil.rmtree(tmp, ignore_errors=True)
+        KEEP.setdefault('dirs', []).append(tmp)
         torch.cuda.empty_cache()
     return (launch_ok and log_ok and resume_ok and frozen_ok
             and moved >= 0.9 * len(trainable) and hook_ok and match_ok)
+
+
+# the exported program's kernel nodes: EVAL_PER_FORWARD by operator
+EXPORT_NODES = {'mv2d.bottleneck.default': 3, 'mv2d.dcn_conv.default': 9,
+                'mv2d.roi_align.default': 1,
+                'mv2d.masked_attention.default': 12,
+                'mv2d.mask_bits.default': MASKS_PER_PASS}
+# run in a fresh process: load the program with the operators and no model
+# code, run it n times on the saved inputs, save outputs, ms and launches
+LOAD_AND_RUN = """
+import sys, time, torch
+import mv2d_tpu_torch.ops.library
+import chip_smoke
+path, inputs, out, n, dev = sys.argv[1:]
+program = torch.export.load(path).module()
+args = [a.to(dev) for a in torch.load(inputs)]
+sync = torch.cuda.synchronize if dev == 'cuda' else lambda: None
+fns = chip_smoke.counters()
+for fn in fns.values():
+    fn.launches = 0
+ms = []
+with torch.inference_mode():
+    for _ in range(int(n)):
+        sync()
+        t0 = time.perf_counter()
+        res = program(*args)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+torch.save(dict(out=[r.cpu() for r in res], ms=ms,
+                launches={k: fn.launches for k, fn in fns.items()},
+                model_code=sorted(m for m in sys.modules
+                                  if m.startswith('mv2d_tpu_torch.models'))),
+           out)
+"""
+
+
+def phase_export(dev, results, n_runs=4, cfg=None):
+    """`tools.export` of MV2D-T R50 in bfloat16 at full width on the serve
+    phase's seeded weights and inputs: the program's kernel nodes
+    (EXPORT_NODES); the .pt2 loaded in a fresh process that imports only
+    the operators (`mv2d_tpu_torch.ops.library`), run n_runs times there:
+    its detections equal bit for bit to a direct forward of the same
+    signature (`tools.export.ServeForward`, the same operators in the same
+    order), its launches n_runs x EVAL_PER_FORWARD and no model module
+    imported; ms a scene of the loaded program (there) and of the direct
+    forward (here), the first run of each a warm-up."""
+    import collections
+    import os
+    import tempfile
+    import torch
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.routes import Routes
+    from mv2d_tpu_torch.synthetic import init_random_weights
+    from mv2d_tpu_torch.tools import export
+
+    cfg = cfg or configs.mv2d_t_r50()
+    V, (H, W) = cfg.total_views, cfg.image_size
+    imgs = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(V, H, W, 3)).astype(np.float32))
+    dtype = torch.bfloat16 if dev == 'cuda' else torch.float32
+    model = init_random_weights(MV2D(cfg, Routes()).eval(), seed=0).to(
+        dev, dtype)
+    args = export.example_inputs(cfg, dev, dtype, imgs)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_export_')
+    KEEP.setdefault('dirs', []).append(tmp)
+    t0 = time.perf_counter()
+    program = export.export_model(model, args)
+    export_s = time.perf_counter() - t0
+    nodes = dict(collections.Counter(export.mv2d_nodes(program)))
+    path = os.path.join(tmp, export.PROGRAM)
+    torch.export.save(program, path)
+    inputs, out = os.path.join(tmp, 'inputs.pt'), os.path.join(tmp, 'out.pt')
+    torch.save([a.cpu() for a in args], inputs)
+    del program
+    nodes_ok = nodes == EXPORT_NODES
+    log(f'  exported in {export_s:.1f} s, {os.path.getsize(path) / 2**20:.1f}'
+        f' MiB; kernel nodes {nodes} {"ok" if nodes_ok else "FAIL"}')
+
+    fwd = export.ServeForward(model)
+    direct_ms = []
+    sync = torch.cuda.synchronize if dev == 'cuda' else (lambda: None)
+    with torch.inference_mode():
+        for _ in range(n_runs):
+            sync()
+            t1 = time.perf_counter()
+            want = fwd(*args)
+            sync()
+            direct_ms.append((time.perf_counter() - t1) * 1e3)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t2 = time.perf_counter()
+    r = subprocess.run([sys.executable, '-c', LOAD_AND_RUN, path, inputs,
+                        out, str(n_runs), dev], cwd=tmp, env=env,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        log(r.stdout[-3000:] + r.stderr[-5000:])
+        return False
+    got = torch.load(out)
+    same = all(torch.equal(w.cpu(), g) for w, g in zip(want, got['out']))
+    errs = [float((w.cpu().float() - g.float()).abs().max())
+            for w, g in zip(want, got['out'])]
+    launches = got['launches']
+    for name, n in launches.items():
+        results[name]['launches_by_path']['export'] = n
+    wanted = {k: n_runs * EVAL_PER_FORWARD.get(k, 0) for k in launches}
+    launch_ok = launches == wanted
+    alone = not got['model_code']
+    valid = int(got['out'][3].sum())
+    log(f'  loaded in a fresh process ({time.perf_counter() - t2:.1f} s, '
+        f'model modules imported: {got["model_code"] or "none"}): '
+        f'detections equal to the direct forward bit for bit {same} (max '
+        f'abs differences boxes, scores, labels, valid {errs}), '
+        f'{valid} valid; launches {launches} (want {wanted}) '
+        f'{"ok" if launch_ok else "FAIL"}')
+    log('  ms/scene, loaded program: '
+        + ', '.join(f'{t:.1f}' for t in got['ms'])
+        + '; direct forward: ' + ', '.join(f'{t:.1f}' for t in direct_ms)
+        + f' ({str(dtype)[6:]}, {V} views at {H}x{W}; first of each a '
+        'warm-up); '
+        + results.get('_smi', ''))
+    # the host's share: the operators each form dispatches a forward
+    # (counted here, on the same inputs)
+    from mv2d_tpu_torch.tools.get_flops import OpTally
+    calls = {}
+    with torch.inference_mode():
+        for name, fn in (('direct', fwd),
+                         ('loaded', torch.export.load(path).module())):
+            with OpTally() as tally:
+                fn(*args)
+            calls[name] = tally.calls
+    log(f'  operators dispatched a forward: {calls}')
+    results['_export'] = dict(export_s=export_s, loaded_ms=got['ms'],
+                              direct_ms=direct_ms, same=same, calls=calls)
+    del model, fwd
+    return nodes_ok and same and launch_ok and alone and valid > 0
+
+
+def _printed_metrics(stdout: str) -> dict:
+    """mAP and NDS as `tools.test` prints them (rounded to 4 places)."""
+    out = {}
+    for line in stdout.splitlines():
+        for k in ('mAP', 'NDS'):
+            if line.strip().startswith(f'"{k}":'):
+                out[k] = float(line.split(':')[1].strip(' ,'))
+    return out
+
+
+def phase_tools(dev, results, options=()):
+    """The port's other user tools on the card: `get_flops` at full width
+    (params, GFLOPs, bytes), `benchmark --bf16` 5 + 20 iterations,
+    `dist_test.sh` with GPUS=1 (torchrun, an NCCL group of one) on the
+    eval phase's rendered scenes and weights (its submission equal to that
+    phase's, its mAP / NDS equal to that phase's rounded as printed),
+    `misc publish` and `misc fuse_conv_bn` on train_cli's last checkpoint,
+    each loaded by `tools.test` (strict=True; the published file's metrics
+    equal to train_cli's test of the checkpoint, the fused one's finite),
+    `visualize --cameras` of one scene to a PNG, and
+    `utils.profiling.trace` around one forward (its trace written, with
+    the kernels' device time).  `options` (--cfg-options) shrink the
+    full-width runs for a rehearsal."""
+    import os
+    import tempfile
+    import torch
+    from mv2d_tpu_torch.parallel.dist import free_port
+    from mv2d_tpu_torch.routes import Routes
+    from mv2d_tpu_torch.synthetic import init_random_weights
+    from mv2d_tpu_torch.tools import benchmark, get_flops, misc, visualize
+    from mv2d_tpu_torch.tools import test as test_cli
+    from mv2d_tpu_torch.tools.common import build_model, load_cli_config
+    from mv2d_tpu_torch.tools.export import rig_camera
+    from mv2d_tpu_torch.utils import profiling
+
+    smi = results.get('_smi', '')
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_tools_')
+    KEEP.setdefault('dirs', []).append(tmp)
+    ok = True
+
+    t0 = time.perf_counter()
+    opts = ['--device', dev, '--cfg-options', *options]
+    flops = get_flops.main([R50_FILE, *opts])
+    log(f'  get_flops ({time.perf_counter() - t0:.1f} s): '
+        f'{flops["params"]} params, {flops["flops"] / 1e9:.2f} GFLOPs, '
+        f'{flops["bytes"] / 1e9:.2f} GB; {smi}')
+    results['_flops'] = flops
+    ok &= flops['flops'] > 0 and set(flops['ops']) == {
+        'mv2d.' + k.split('.')[1] for k in EXPORT_NODES}
+
+    bench = benchmark.main([R50_FILE, '--bf16', '--warmup', '5', '--iters',
+                            '20', *opts])
+    results['_benchmark'] = bench
+    ok &= np.isfinite(bench['samples_per_s'])
+
+    ev = KEEP['eval']
+    root = os.path.dirname(os.path.abspath(__file__))
+    out2 = os.path.join(tmp, 'submission_dist.json')
+    t1 = time.perf_counter()
+    r = subprocess.run(
+        ['bash', os.path.join(root, 'mv2d_tpu_torch/tools/dist_test.sh'),
+         R50_FILE, ev['pth'], '--out', out2, '--device', dev,
+         '--cfg-options', *ev['opts']],
+        cwd=root, env=dict(os.environ, GPUS='1', PORT=str(free_port()),
+                           PYTHON=sys.executable),
+        capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        log(r.stdout[-3000:] + r.stderr[-5000:])
+        return False
+    with open(ev['out']) as f:
+        sub1 = json.load(f)['results']
+    with open(out2) as f:
+        sub2 = json.load(f)['results']
+    printed = _printed_metrics(r.stdout)
+    want = {k: round(float(ev['metrics'][k]), 4) for k in ('mAP', 'NDS')}
+    dist_ok = sub1 == sub2 and printed == want
+    log(f'  dist_test.sh GPUS=1 ({time.perf_counter() - t1:.1f} s, torchrun,'
+        f' NCCL): submission equal to the eval phase\'s {sub1 == sub2}, '
+        f'mAP / NDS {printed} (eval phase {want}) '
+        f'{"ok" if dist_ok else "FAIL"}')
+    ok &= dist_ok
+
+    tc = KEEP['train_cli']
+    pub, fused = os.path.join(tmp, 'published.pth'), os.path.join(
+        tmp, 'fused.pth')
+    misc.main(['publish', tc['ckpt'], pub])
+    misc.main(['fuse_conv_bn', tc['ckpt'], fused])
+    m_pub = test_cli.main([tc['config'], pub, '--device', dev,
+                           '--cfg-options', *tc['opts']])
+    m_fused = test_cli.main([tc['config'], fused, '--device', dev,
+                             '--cfg-options', *tc['opts']])
+    keys = ('mAP', 'NDS')
+    misc_ok = (all(m_pub[k] == tc['metrics'][k] for k in keys)
+               and all(np.isfinite(m_fused[k]) for k in keys)
+               and 'optimizer' not in torch.load(pub, weights_only=True))
+    log(f'  misc publish: tools.test mAP / NDS '
+        f'{[m_pub[k] for k in keys]} (the checkpoint\'s '
+        f'{[tc["metrics"][k] for k in keys]}); fuse_conv_bn: '
+        f'{[m_fused[k] for k in keys]} {"ok" if misc_ok else "FAIL"}')
+    ok &= misc_ok
+
+    png = os.path.join(tmp, 'vis.png')
+    vis = visualize.main([R50_FILE, '--checkpoint', ev['pth'], '--cameras',
+                          '--out', png, '--score-thr', '0.0', '--device',
+                          dev, '--cfg-options', *ev['opts']])
+    vis_ok = os.path.getsize(png) > 0 and vis['gts'] > 0
+    log(f'  visualize: {vis} {os.path.getsize(png)} bytes '
+        f'{"ok" if vis_ok else "FAIL"}')
+    ok &= vis_ok
+
+    cfg = load_cli_config(R50_FILE, options)
+    model = init_random_weights(build_model(cfg, Routes()), seed=0).eval()
+    dtype = torch.bfloat16 if dev == 'cuda' else torch.float32
+    model = model.to(dev, dtype)
+    mc = model.cfg
+    V, (H, W) = mc.total_views, mc.image_size
+    imgs = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(V, H, W, 3)).astype(np.float32)).to(dev, dtype)
+    cam = rig_camera(mc, dev)
+    shapes = torch.tensor([[H, W]] * V, device=dev)
+    log_dir = os.path.join(tmp, 'trace')
+    with torch.inference_mode():
+        model(imgs, cam, shapes)
+        with profiling.trace(log_dir) as prof:
+            with profiling.annotate('forward'):
+                model(imgs, cam, shapes)
+    trace_file = os.path.join(log_dir, profiling.TRACE_FILE)
+    dev_us = {e.key: e.device_time_total for e in prof.key_averages()
+              if e.key.startswith('mv2d::')}
+    trace_ok = os.path.getsize(trace_file) > 0 and len(dev_us) > 0
+    log(f'  profiling.trace: {os.path.getsize(trace_file) / 2**20:.1f} MiB '
+        f'trace; device us under each operator {dev_us} '
+        f'{"ok" if trace_ok else "FAIL"}')
+    ok &= trace_ok
+    del model
+    torch.cuda.empty_cache()
+    return bool(ok)
 
 
 def main():
@@ -2687,13 +3115,15 @@ def main():
                 dev, results, cfg=configs.mv2d_s_r50(), label='serve_s')),
             ('serve_v99', lambda: phase_serve(
                 dev, results, 2, configs.mv2d_t_v99(), 'serve_v99')),
+            ('export', lambda: phase_export(dev, results)),
             ('http', lambda: phase_http(dev, results)),
             ('eval', lambda: phase_eval(dev, results)),
             ('train', lambda: phase_train(dev, results)),
             ('train_s', lambda: phase_train_s(dev, results)),
             ('routes_tiny', lambda: phase_routes_tiny(dev)),
             ('routes', lambda: phase_routes(dev, results)),
-            ('train_cli', lambda: phase_train_cli(dev, results))):
+            ('train_cli', lambda: phase_train_cli(dev, results)),
+            ('tools', lambda: phase_tools(dev, results))):
         log(f'[{phase}]')
         t1 = time.perf_counter()
         try:
@@ -2707,6 +3137,9 @@ def main():
             f'({time.perf_counter() - t1:.1f} s)')
         if not good:
             failed.append(phase)
+    import shutil
+    for d in KEEP.get('dirs', []):
+        shutil.rmtree(d, ignore_errors=True)
     log(f'total {time.perf_counter() - t0:.1f} s')
     if failed:
         log(f'chip_smoke: failed phases {failed}')

@@ -3,8 +3,11 @@
 Port of `mv2d_tpu/core/nms.py`.  Suppression is exact greedy NMS as a
 blocked scan: each block is suppressed by the earlier kept boxes with one
 masked reduction, then the within-block chain is resolved by a fixpoint
-iteration, which converges to the unique greedy solution.  There is no
-kernel here: the JAX package has none on this path either.
+iteration, which converges to the unique greedy solution.  The iteration
+stops once it is fixed, as the JAX package's `lax.while_loop` does: it is
+PyTorch's `while_loop` operator, which eager runs as a loop and
+`torch.export` keeps as one node.  There is no kernel here: the JAX
+package has none on this path either.
 
 Sorting is stable and `topk` breaks ties toward the lower index, as
 `jnp.argsort` and `lax.top_k` do.
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 from . import boxes as box_utils
 
@@ -34,6 +38,28 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, idx.dim() - 1,
                         idx.reshape(*idx.shape, *(1,) * len(extra))
                         .expand(*idx.shape, *extra))
+
+
+def _fixpoint_cond(it, k, prev, cand, kill):
+    return (it < kill.shape[-1]) & (k != prev).any()
+
+
+def _fixpoint_body(it, k, prev, cand, kill):
+    return it + 1, cand & ~(kill & k[..., :, None]).any(-2), k
+
+
+def greedy_fixpoint(cand: torch.Tensor, kill: torch.Tensor) -> torch.Tensor:
+    """The greedy keep mask of one block: candidates cand [..., B] and the
+    within-block suppressions kill [..., B, B] (i kills j > i) -> the
+    fixpoint of k = cand & ~any_i(kill[i] & k[i]), from k = cand & ~(kill
+    & cand) until k stops changing (at most B rounds)."""
+    k = cand & ~(kill & cand[..., :, None]).any(-2)
+    it = torch.zeros((), dtype=torch.int64, device=cand.device)
+    # `while_loop_op` runs the loop eagerly outside a trace and becomes one
+    # graph node under export (the public `while_loop` would compile)
+    _, k, _ = while_loop_op(_fixpoint_cond, _fixpoint_body, (it, k, cand),
+                            (cand, kill))
+    return k
 
 
 def _greedy_suppress_boxes(boxes: torch.Tensor, valid: torch.Tensor,
@@ -59,13 +85,7 @@ def _greedy_suppress_boxes(boxes: torch.Tensor, valid: torch.Tensor,
         sup_prev = (cols[..., :s, :] & kept[..., :s, None]).any(-2)
         cand = kept[..., s:s + B] & ~sup_prev
         kill = cols[..., s:s + B, :] & strictly_upper
-        k = cand & ~(kill & cand[..., :, None]).any(-2)
-        prev, it = cand, 0
-        while it < B and not torch.equal(k, prev):
-            prev = k
-            k = cand & ~(kill & k[..., :, None]).any(-2)
-            it += 1
-        kept[..., s:s + B] = k
+        kept[..., s:s + B] = greedy_fixpoint(cand, kill)
     return kept[..., :n]
 
 

@@ -1,10 +1,13 @@
 """Evaluation loop: dataset -> predictions -> nuScenes metrics.
 
-The port's counterpart of `mv2d_tpu/eval/runner.py` on one device: the
-`Prefetcher`'s threads read and preprocess the scenes, and each scene runs
-one eval forward (`MV2D.forward`) in the model's dtype under
+The port's counterpart of `mv2d_tpu/eval/runner.py`: the `Prefetcher`'s
+threads read and preprocess the scenes, and each scene runs one eval
+forward (`MV2D.forward`) in the model's dtype under
 `torch.inference_mode()`.  `eval_scenes` is the loop's body; the e2e
-bench times the same body.
+bench times the same body.  In a process group (`parallel.dist.DistInfo`,
+one process a GPU under torchrun) rank r evaluates the scenes r, r + N,
+... and rank 0 gathers every scene's predictions, as the JAX runner
+shards groups of scenes over its devices.
 """
 from __future__ import annotations
 
@@ -70,24 +73,41 @@ def eval_scenes(model, dataset: NuScenesDataset, idxs: Sequence[int],
 
 def run_eval(model, dataset: NuScenesDataset, device='cuda',
              max_samples: Optional[int] = None, verbose: bool = True,
-             collect_submission: bool = False
-             ) -> Tuple[Dict[str, float], Optional[dict]]:
+             collect_submission: bool = False, dist_info=None
+             ) -> Tuple[Optional[Dict[str, float]], Optional[dict]]:
     """Returns (metrics, submission_json_or_None).
 
     `model` is an `MV2D` already on `device`, in its eval dtype.  The
     scenes arrive out of order; their predictions are keyed by token, and
-    the metrics take them in dataset order."""
+    the metrics take them in dataset order.  With `dist_info` (a
+    `parallel.dist.DistInfo` whose group is set) rank r of N runs the
+    scenes r, r + N, ..., their predictions, GT and tokens go to rank 0
+    (`gather_object`), and rank 0 computes the metrics and the submission
+    over all scenes in dataset order, so they equal a one-process run's;
+    every other rank returns (None, None)."""
     n = min(max_samples or len(dataset), len(dataset))
-    by_index: Dict[int, tuple] = {}
+    group = dist_info.group if dist_info is not None else None
+    rank, world = (dist_info.rank, dist_info.world) if group is not None \
+        else (0, 1)
+    verbose = verbose and rank == 0
+    rows: Dict[int, tuple] = {}
     t0 = time.time()
-    for idx, s, preds in eval_scenes(model, dataset, range(n), device):
-        by_index[idx] = (s['token'], preds,
-                         res.gt_dict_from_info(dataset.get_info(idx)))
-        done = len(by_index)
-        if verbose and done % 48 == 0:
-            print(f'eval {done}/{n}  '
+    for idx, s, preds in eval_scenes(model, dataset, range(rank, n, world),
+                                     device):
+        rows[idx] = (s['token'], preds,
+                     res.gt_dict_from_info(dataset.get_info(idx)))
+        done = len(rows) * world
+        if verbose and len(rows) % 48 == 0:
+            print(f'eval ~{done}/{n}  '
                   f'{done / (time.time() - t0):.2f} samples/s', flush=True)
-    rows = [by_index[i] for i in sorted(by_index)]
+    if group is not None:
+        import torch.distributed as dist
+        parts = [None] * world if rank == 0 else None
+        dist.gather_object(rows, parts, dst=0, group=group)
+        if rank != 0:
+            return None, None
+        rows = {i: r for part in parts for i, r in part.items()}
+    rows = [rows[i] for i in sorted(rows)]
     tokens = [r[0] for r in rows]
     preds = [r[1] for r in rows]
     metrics = nuscenes_eval.evaluate(preds, [r[2] for r in rows])

@@ -5,7 +5,9 @@ with a plain C interface, loaded with ctypes (no PyTorch headers, so a
 build takes seconds).  The library lands in `csrc/build/`, named by a hash
 of the sources, so an edited source rebuilds; a file lock serialises
 concurrent builds.  Nothing here runs at import time: the first kernel
-launch builds and loads the library.
+launch builds and loads the library.  `ops.library` makes each C entry
+point of SIGNATURES a `torch.library` operator (`torch.ops.mv2d.*`) whose
+CUDA implementation calls `launch`.
 """
 from __future__ import annotations
 

@@ -138,7 +138,14 @@ class ResNet(tnn.Module):
         addresses.  An in-place edit through `.data` (`p.data.mul_(a)`)
         bumps no version PyTorch keeps and moves no storage, so it is not
         seen: edit without `.data` (under `torch.no_grad()`), or load the
-        state again (`net.load_state_dict(net.state_dict())`)."""
+        state again (`net.load_state_dict(net.state_dict())`).
+
+        Under `torch.export` the blocks are folded inside the traced graph
+        from layer1's parameters and buffers, and the cache is neither read
+        nor written (its checks read storage addresses, which a traced
+        tensor has not)."""
+        if torch.compiler.is_exporting():
+            return [pack_block(blk.folded(), dtype) for blk in self.layer1]
         now = [t.detach() for t in (*self.layer1.parameters(),
                                     *self.layer1.buffers())]
         seen = self._layer1_packed

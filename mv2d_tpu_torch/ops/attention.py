@@ -93,23 +93,22 @@ def attention_lse_plain(q, k, allowed, num_heads: int) -> torch.Tensor:
                        torch.full_like(lse, EMPTY_LSE))
 
 
-def _check(q, k, v, allowed, num_heads):
-    Q, C = q.shape
-    K = k.shape[0]
+def _check(q, k, v, num_heads):
+    C = q.shape[1]
     D = C // num_heads
     if D not in (8, 16, 32) or D * num_heads != C:
         raise ValueError(f'attention kernel takes head dim 8/16/32, '
                          f'got C={C} heads={num_heads}')
-    if k.dtype != q.dtype or v.dtype != q.dtype or (
-            allowed is not None and allowed.shape != (Q, K)):
-        raise ValueError('q/k/v must share a dtype; allowed must be [Q, K]')
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError('q/k/v must share a dtype')
 
 
 SPARSE_TILE = 64          # the query and key tiles of K4 and B8
 
 
 class MaskTiles(NamedTuple):
-    """A mask [Q, K] as K4 and B8 read it: `bits` uint64 [Q, ceil(K/64)],
+    """A mask [Q, K] as K4 and B8 read it: `bits` uint64 [Q, ceil(K/64)]
+    (int64 in an exported program),
     bit j of word t = allowed[q, 64t + j]; the CSR list of the key tiles
     that hold any allowed pair, per 64-query tile (`key_starts` [nQ + 1],
     `key_tiles` [nQ * nK + 1] int32: query tile i's tiles are
@@ -138,10 +137,16 @@ def mask_bits_plain(allowed: torch.Tensor) -> torch.Tensor:
 
 
 def mask_bits(allowed: torch.Tensor) -> torch.Tensor:
-    """`mask_bits_plain` by a CUDA kernel (one warp ballot per 32 keys);
-    CPU tensors take the plain version."""
-    if allowed.device.type == 'cpu':
-        return mask_bits_plain(allowed)
+    """`mask_bits_plain` through `mv2d::mask_bits`: a CUDA kernel (one warp
+    ballot per 32 keys) on CUDA tensors, the plain version on CPU ones.
+    Under `torch.export` the words stay int64: the program format of the
+    torch the port runs on (2.11) has no uint64."""
+    bits = torch.ops.mv2d.mask_bits(allowed)
+    return bits if torch.compiler.is_exporting() else bits.view(torch.uint64)
+
+
+def mask_bits_cuda(allowed: torch.Tensor) -> torch.Tensor:
+    """`mv2d::mask_bits` on CUDA tensors -> the words as int64."""
     Q, K = allowed.shape
     mask = allowed.to(torch.bool).contiguous()
     kernels.check_cuda(mask)
@@ -149,7 +154,7 @@ def mask_bits(allowed: torch.Tensor) -> torch.Tensor:
                        device=mask.device)
     kernels.launch('mv2d_mask_bits', mask.data_ptr(), bits.data_ptr(), Q, K)
     mask_bits.launches += 1
-    return bits.view(torch.uint64)
+    return bits
 
 
 mask_bits.launches = 0
@@ -194,16 +199,13 @@ def mask_tiles(allowed: torch.Tensor) -> MaskTiles:
     return MaskTiles(bits, *_csr(blk), *_csr(blk.t()))
 
 
-def _tiles_for(q, k, allowed, tiles):
-    """`tiles`, checked against q / k, or `mask_tiles(allowed)`."""
+def _check_tiles(q, k, tiles):
     Q, K = q.shape[0], k.shape[0]
-    if tiles is None:
-        return mask_tiles(allowed.to(torch.bool))
-    if tiles.bits.shape != (Q, -(-K // SPARSE_TILE)) \
-            or tiles.key_starts.shape != (-(-Q // SPARSE_TILE) + 1,) \
-            or tiles.query_starts.shape != (-(-K // SPARSE_TILE) + 1,):
+    if tiles[0].shape != (Q, -(-K // SPARSE_TILE)) \
+            or tiles[1].shape != (-(-Q // SPARSE_TILE) + 1,) \
+            or (len(tiles) > 3
+                and tiles[3].shape != (-(-K // SPARSE_TILE) + 1,)):
         raise ValueError('tiles must be mask_tiles of a [Q, K] mask')
-    return tiles
 
 
 def _splits(q, K, num_heads):
@@ -216,16 +218,28 @@ def _splits(q, K, num_heads):
 
 
 def masked_attention_forward(q, k, v, allowed, num_heads: int, tiles=None):
-    """Kernel K4 on CUDA tensors -> (out [Q, C], lse [Q, H] float32).
-    `tiles` is `mask_tiles(allowed)`, built here when not given."""
-    _check(q, k, v, allowed, num_heads)
+    """Kernel K4 through `mv2d::masked_attention` -> (out [Q, C], lse
+    [Q, H] float32).  `tiles` is `mask_tiles(allowed)`, built here when not
+    given.  CPU tensors take `masked_attention_plain` and
+    `attention_lse_plain` on `allowed` (the tiles are not read)."""
+    if tiles is None:
+        tiles = mask_tiles(allowed.to(torch.bool))
+    return torch.ops.mv2d.masked_attention(q, k, v, allowed, tiles.bits,
+                                           tiles.key_starts, tiles.key_tiles,
+                                           num_heads)
+
+
+def masked_attention_cuda(q, k, v, allowed, bits, key_starts, key_tiles,
+                          num_heads: int):
+    """`mv2d::masked_attention` on CUDA tensors: kernel K4 (`allowed` is
+    read from the tiles)."""
+    _check(q, k, v, num_heads)
+    _check_tiles(q, k, (bits, key_starts, key_tiles))
     Q, C = q.shape
     K = k.shape[0]
     D = C // num_heads
     q, k, v = (t.contiguous() for t in (q, k, v))
-    kernels.check_cuda(q, k, v)
-    tiles = _tiles_for(q, k, allowed, tiles)
-    kernels.check_cuda(*tiles)
+    kernels.check_cuda(q, k, v, bits, key_starts, key_tiles)
     splits = _splits(q, K, num_heads)
     f32 = dict(dtype=torch.float32, device=q.device)
     po = torch.empty((splits, Q, C), **f32)
@@ -234,11 +248,10 @@ def masked_attention_forward(q, k, v, allowed, num_heads: int, tiles=None):
     lse = torch.empty((Q, num_heads), **f32)
     out = torch.empty_like(q)
     kernels.launch('mv2d_masked_attention', q.data_ptr(), k.data_ptr(),
-                   v.data_ptr(), tiles.bits.data_ptr(),
-                   tiles.key_starts.data_ptr(), tiles.key_tiles.data_ptr(),
-                   out.data_ptr(), lse.data_ptr(), po.data_ptr(),
-                   pm.data_ptr(), pl.data_ptr(), Q, K, num_heads, D, splits,
-                   kernels.dtype_code(q))
+                   v.data_ptr(), bits.data_ptr(), key_starts.data_ptr(),
+                   key_tiles.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                   po.data_ptr(), pm.data_ptr(), pl.data_ptr(), Q, K,
+                   num_heads, D, splits, kernels.dtype_code(q))
     masked_attention.launches += 1
     return out, lse
 
@@ -248,10 +261,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      tiles: MaskTiles | None = None) -> torch.Tensor:
     """Kernel K4: q [Q, C], k/v [K, C] (float32 or bfloat16, one dtype),
     allowed [Q, K] bool -> [Q, C].  `tiles`: `mask_tiles(allowed)`, built
-    here when not given.  CPU tensors take `masked_attention_plain` (and
-    `tiles` is not read)."""
-    if q.device.type == 'cpu':
-        return masked_attention_plain(q, k, v, allowed, num_heads)
+    here when not given.  CPU tensors take `masked_attention_plain`."""
     return masked_attention_forward(q, k, v, allowed, num_heads, tiles)[0]
 
 
@@ -260,10 +270,56 @@ masked_attention.launches = 0
 
 def masked_attention_backward(q, k, v, allowed, out, lse, dout,
                               num_heads: int, tiles=None):
-    """Kernel B8 on CUDA tensors: -> (dq, dk, dv) float32.  The mask is
-    read from `tiles` (`mask_tiles(allowed)`, built here when not given;
-    with tiles, `allowed` may be None)."""
-    _check(q, k, v, allowed, num_heads)
+    """Kernel B8 through `mv2d::masked_attention_bwd`: -> (dq, dk, dv)
+    float32.  The mask is read from `tiles` (`mask_tiles(allowed)`, built
+    here when not given; with tiles, `allowed` may be None).  CPU tensors
+    take `masked_attention_backward_plain` (on `allowed`, or on the mask
+    the tiles pack)."""
+    if tiles is None:
+        tiles = mask_tiles(allowed.to(torch.bool))
+    return torch.ops.mv2d.masked_attention_bwd(q, k, v, allowed, *tiles, out,
+                                               lse, dout, num_heads)
+
+
+def masked_attention_backward_plain(q, k, v, allowed, out, lse, dout,
+                                    num_heads: int):
+    """B8's function in plain PyTorch, from the forward's out and lse as
+    the kernel takes them (float32): P = exp(s - lse) on allowed pairs,
+    dv = P^T dout, ds = P (dout v^T - rowsum(dout * out)), dq = ds k / sqrt(D),
+    dk = ds^T q / sqrt(D)."""
+    Q, C = q.shape
+    K = k.shape[0]
+    H = num_heads
+    D = C // H
+
+    def heads(t, n):
+        return t.float().reshape(n, H, D).transpose(0, 1)      # [H, n, D]
+
+    qh, kh, vh = heads(q, Q), heads(k, K), heads(v, K)
+    do, o = heads(dout, Q), heads(out, Q)
+    scale = D ** -0.5
+    s = (qh @ kh.transpose(-1, -2)) * scale                    # [H, Q, K]
+    p = torch.exp(s - lse.float().t()[..., None]) * allowed[None]
+    dv = p.transpose(-1, -2) @ do
+    ds = p * (do @ vh.transpose(-1, -2)
+              - (do * o).sum(-1, keepdim=True))
+    dq = (ds @ kh) * scale
+    dk = (ds.transpose(-1, -2) @ qh) * scale
+
+    def merge(t, n):
+        return t.transpose(0, 1).reshape(n, C)
+
+    return merge(dq, Q), merge(dk, K), merge(dv, K)
+
+
+def masked_attention_backward_cuda(q, k, v, allowed, bits, key_starts,
+                                   key_tiles, query_starts, query_tiles, out,
+                                   lse, dout, num_heads: int):
+    """`mv2d::masked_attention_bwd` on CUDA tensors: kernel B8 (the mask is
+    read from the tiles)."""
+    _check(q, k, v, num_heads)
+    tiles = (bits, key_starts, key_tiles, query_starts, query_tiles)
+    _check_tiles(q, k, tiles)
     Q, C = q.shape
     K = k.shape[0]
     if out.shape != q.shape or dout.shape != q.shape \
@@ -271,9 +327,7 @@ def masked_attention_backward(q, k, v, allowed, out, lse, dout,
         raise ValueError('out / dout must be [Q, C] in q.dtype, lse [Q, H]')
     q, k, v, out, dout, lse = (t.contiguous() for t in
                                (q, k, v, out, dout, lse))
-    kernels.check_cuda(q, k, v, out, dout, lse)
-    tiles = _tiles_for(q, k, allowed, tiles)
-    kernels.check_cuda(*tiles)
+    kernels.check_cuda(q, k, v, out, dout, lse, *tiles)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty((Q, num_heads), **f32)
     dq = torch.empty((Q, C), **f32)
@@ -303,7 +357,8 @@ class MaskedAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, allowed, num_heads, tiles=None):
-        tiles = _tiles_for(q, k, allowed, tiles)
+        if tiles is None:
+            tiles = mask_tiles(allowed.to(torch.bool))
         out, lse = masked_attention_forward(q, k, v, allowed, num_heads,
                                             tiles)
         ctx.num_heads = num_heads

@@ -82,11 +82,16 @@ def dcn_conv_plain(x, sy, sx, mask, w):
 
 
 def dcn_conv(x, sy, sx, mask, w):
-    """Kernel K2.  CPU tensors take `dcn_conv_plain`; CUDA tensors launch
-    the kernel (x, w float32 or bfloat16; sy, sx, mask float32; 3x3 taps,
-    C % 32 == 0, F % 64 == 0, any other shape raises)."""
-    if x.device.type == 'cpu':
-        return dcn_conv_plain(x, sy, sx, mask, w)
+    """Kernel K2 through `mv2d::dcn_conv`: x [V, H, W, C]; sy, sx, mask
+    [V, Ho, Wo, 9] float32; w [9, C, F] -> [V, Ho, Wo, F] in x.dtype.  CPU
+    tensors take `dcn_conv_plain`."""
+    return torch.ops.mv2d.dcn_conv(x, sy, sx, mask, w)
+
+
+def dcn_conv_cuda(x, sy, sx, mask, w):
+    """`mv2d::dcn_conv` on CUDA tensors: kernel K2 (x, w float32 or
+    bfloat16; sy, sx, mask float32; 3x3 taps, C % 32 == 0, F % 64 == 0,
+    any other shape raises)."""
     V, H, W, C = x.shape
     _, Ho, Wo, K = sy.shape
     F_ = w.shape[-1]
@@ -137,7 +142,13 @@ def _check_samples_args(x, sy, sx, mask):
 
 
 def dcn_samples_forward(x, sy, sx, mask):
-    """Kernel B5 on CUDA tensors: -> [V, Ho, Wo, 9, C] in x.dtype."""
+    """Kernel B5 through `mv2d::dcn_samples`: -> [V, Ho, Wo, 9, C] in
+    x.dtype.  CPU tensors take `dcn_samples_plain`."""
+    return torch.ops.mv2d.dcn_samples(x, sy, sx, mask)
+
+
+def dcn_samples_cuda(x, sy, sx, mask):
+    """`mv2d::dcn_samples` on CUDA tensors: kernel B5."""
     _check_samples_args(x, sy, sx, mask)
     x, sy, sx, mask = (t.contiguous() for t in (x, sy, sx, mask))
     kernels.check_cuda(x, sy, sx, mask)
@@ -240,9 +251,12 @@ def dcn_samples_backward(x, sy, sx, mask, dsamples):
     two runs give equal bits.  CPU tensors take
     `dcn_samples_backward_plain`; CUDA tensors launch the kernels (float32
     or bfloat16, C % 8 == 0, a non-empty map, 36 V Ho Wo below 2^31; any
-    other shape raises)."""
-    if x.device.type == 'cpu':
-        return dcn_samples_backward_plain(x, sy, sx, mask, dsamples)
+    other shape raises), through `mv2d::dcn_samples_bwd`."""
+    return torch.ops.mv2d.dcn_samples_bwd(x, sy, sx, mask, dsamples)
+
+
+def dcn_samples_backward_cuda(x, sy, sx, mask, dsamples):
+    """`mv2d::dcn_samples_bwd` on CUDA tensors: kernel B6."""
     _check_samples_args(x, sy, sx, mask)
     V, H, W, C = x.shape
     _, Ho, Wo, K = sy.shape
@@ -258,8 +272,9 @@ def dcn_samples_backward(x, sy, sx, mask, dsamples):
     kernels.check_cuda(x, sy, sx, mask, dsamples)
     code = kernels.dtype_code(x)
     dx = torch.empty_like(x)
-    dsy, dsx, dm = torch.empty((3, *sy.shape), dtype=torch.float32,
-                               device=x.device)
+    # three tensors of their own: an operator's outputs may not alias
+    dsy, dsx, dm = (torch.empty(sy.shape, dtype=torch.float32,
+                                device=x.device) for _ in range(3))
     work = torch.empty(_b6_workspace(V, H, W, C, Ho, Wo, code),
                        dtype=torch.uint8, device=x.device)
     kernels.launch('mv2d_dcn_samples_bwd', x.data_ptr(), sy.data_ptr(),
@@ -332,9 +347,13 @@ def dcn_conv_backward(x, sy, sx, mask, w, dy):
     bits.  The derivatives follow B6's conventions (floor form; zero where
     a coordinate was clamped).  CPU tensors take `dcn_conv_backward_plain`;
     CUDA tensors launch the kernels (3x3 taps, C % 64 == 0, F % 64 == 0,
-    F <= 512, a non-empty map; any other shape raises)."""
-    if x.device.type == 'cpu':
-        return dcn_conv_backward_plain(x, sy, sx, mask, w, dy)
+    F <= 512, a non-empty map; any other shape raises), through
+    `mv2d::dcn_conv_bwd`."""
+    return torch.ops.mv2d.dcn_conv_bwd(x, sy, sx, mask, w, dy)
+
+
+def dcn_conv_backward_cuda(x, sy, sx, mask, w, dy):
+    """`mv2d::dcn_conv_bwd` on CUDA tensors: kernel B13."""
     V, H, W, C = x.shape
     _, Ho, Wo, K = sy.shape
     F_ = w.shape[-1]
@@ -361,8 +380,9 @@ def dcn_conv_backward(x, sy, sx, mask, w, dy):
     kernels.check_cuda(x, sy, sx, mask, w, dy)
     code = kernels.dtype_code(x)
     dx = torch.empty_like(x)
-    dsy, dsx, dm = torch.empty((3, *sy.shape), dtype=torch.float32,
-                               device=x.device)
+    # three tensors of their own: an operator's outputs may not alias
+    dsy, dsx, dm = (torch.empty(sy.shape, dtype=torch.float32,
+                                device=x.device) for _ in range(3))
     dw = torch.empty_like(w)
     work = torch.empty(conv_backward_workspace(V, H, W, C, Ho, Wo, F_, code),
                        dtype=torch.uint8, device=x.device)

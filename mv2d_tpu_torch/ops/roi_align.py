@@ -177,10 +177,17 @@ def roi_align_multilevel(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                          strides: Sequence[int]) -> torch.Tensor:
     """Kernel K3: 7x7 RoIAlign over four FPN levels with in-kernel level
     routing.  feats: 4 maps [V, H_l, W_l, C] (float32 or bfloat16); rois
-    [V, P, 4] float32 image pixels -> [V, P, 7, 7, C].  CPU tensors take
-    `multilevel_roi_align_plain`."""
-    if rois.device.type == 'cpu':
-        return multilevel_roi_align_plain(feats, rois, strides)
+    [V, P, 4] float32 image pixels -> [V, P, 7, 7, C], through
+    `mv2d::roi_align`.  CPU tensors take `multilevel_roi_align_plain`."""
+    return torch.ops.mv2d.roi_align(list(feats), rois, _ints(strides))
+
+
+def _ints(strides: Sequence[int]):
+    return [int(s) for s in strides]
+
+
+def roi_align_multilevel_cuda(feats, rois, strides):
+    """`mv2d::roi_align` on CUDA tensors: kernel K3."""
     V, P = rois.shape[:2]
     feats, dims, scales = _levels(feats, strides, V)
     C = feats[0].shape[-1]
@@ -214,10 +221,14 @@ def roi_align_flat(feats: Sequence[torch.Tensor], rois: torch.Tensor,
     8, any side); rois [R, 4] float32 image pixels; view_idx [R] ints in
     [0, V) -> [R, 7, 7, C].  sampling_ratio > 0 takes that many samples a
     bin and axis, 0 mmcv's adaptive ceil(bin).  Computes no gradient.
-    CPU tensors take `multilevel_roi_align_flat_plain`."""
-    if rois.device.type == 'cpu':
-        return multilevel_roi_align_flat_plain(feats, rois, view_idx,
-                                               strides, sampling_ratio)
+    Runs `mv2d::roi_align_flat`; CPU tensors take
+    `multilevel_roi_align_flat_plain`."""
+    return torch.ops.mv2d.roi_align_flat(list(feats), rois, view_idx,
+                                         _ints(strides), int(sampling_ratio))
+
+
+def roi_align_flat_cuda(feats, rois, view_idx, strides, sampling_ratio):
+    """`mv2d::roi_align_flat` on CUDA tensors: kernel B12."""
     out = launch_flat(feats, rois, view_idx, strides, sampling_ratio)
     roi_align_flat.launches += 1
     return out
@@ -258,10 +269,13 @@ def roi_align_slab(feats: Sequence[torch.Tensor], rois: torch.Tensor,
                    strides: Sequence[int]) -> torch.Tensor:
     """Kernel B11: K3's function (rois [V, P, 4] -> [V, P, 7, 7, C],
     adaptive sampling) through a per-view work list of size-class buckets,
-    the blocks view-major.  Levels as `roi_align_flat`.  CPU tensors take
-    `multilevel_roi_align_plain`."""
-    if rois.device.type == 'cpu':
-        return multilevel_roi_align_plain(feats, rois, strides)
+    the blocks view-major.  Levels as `roi_align_flat`.  Runs
+    `mv2d::roi_align_slab`; CPU tensors take `multilevel_roi_align_plain`."""
+    return torch.ops.mv2d.roi_align_slab(list(feats), rois, _ints(strides))
+
+
+def roi_align_slab_cuda(feats, rois, strides):
+    """`mv2d::roi_align_slab` on CUDA tensors: kernel B11."""
     out, _ = launch_slab(feats, rois, strides)
     roi_align_slab.launches += 1
     return out
@@ -580,9 +594,13 @@ def roi_align_multilevel_backward(feats: Sequence[torch.Tensor],
     backward of K3 and of B11, which compute the same function.  CPU
     tensors take `roi_align_backward_plain`; CUDA tensors launch the
     kernels (float32 or bfloat16, C % 8 == 0, levels of any side; any
-    other input raises)."""
-    if rois.device.type == 'cpu':
-        return roi_align_backward_plain(feats, rois, dout, strides)
+    other input raises), through `mv2d::roi_align_bwd`."""
+    return torch.ops.mv2d.roi_align_bwd(list(feats), rois, dout,
+                                        _ints(strides))
+
+
+def roi_align_multilevel_backward_cuda(feats, rois, dout, strides):
+    """`mv2d::roi_align_bwd` on CUDA tensors: kernel B9."""
     V, P = rois.shape[:2]
     feats, dims, scales = _levels(feats, strides, V)
     C = feats[0].shape[-1]

@@ -71,6 +71,8 @@ def pack_block(blk: Block, dtype: torch.dtype) -> Block:
 
 
 def bottleneck_cuda(x: torch.Tensor, blk: Block) -> torch.Tensor:
+    """`mv2d::bottleneck` on CUDA tensors: kernel K1, one launch."""
+    x = x.contiguous()
     V, H, W, cin = x.shape
     planes = blk['w1'].shape[1]
     if planes != 64 or cin % 32:
@@ -99,15 +101,18 @@ def fused_stage1_plain(x: torch.Tensor, blocks: Sequence[Block]):
     return x
 
 
+def _block_args(blk: Block):
+    """A folded block as the bottleneck operators take it."""
+    return (blk['w1'], blk['b1'], blk['w2'], blk['b2'], blk['w3'],
+            blk['b3'], blk.get('wd'), blk.get('bd'))
+
+
 def fused_stage1(x: torch.Tensor, blocks: Sequence[Block]) -> torch.Tensor:
     """x [V, H, W, 64] (post-maxpool) -> [V, H, W, 256] through the layer1
-    bottleneck chain (block 0 carries wd/bd).  CPU tensors take
-    `fused_stage1_plain`; CUDA tensors take the kernel, one launch per
-    bottleneck."""
-    if x.device.type == 'cpu':
-        return fused_stage1_plain(x, blocks)
+    bottleneck chain (block 0 carries wd/bd): one `mv2d::bottleneck` a
+    block, kernel K1 on CUDA tensors, `bottleneck_plain` on CPU ones."""
     for blk in blocks:
-        x = bottleneck_cuda(x.contiguous(), blk)
+        x = torch.ops.mv2d.bottleneck(x, *_block_args(blk))
     return x
 
 
@@ -118,6 +123,8 @@ IDENTITY_PLANES = (128, 256)
 
 
 def identity_block_cuda(x: torch.Tensor, blk: Block) -> torch.Tensor:
+    """`mv2d::identity_block` on CUDA tensors: kernel B10, one launch."""
+    x = x.contiguous()
     V, H, W, cin = x.shape
     planes = blk['w1'].shape[1]
     if planes not in IDENTITY_PLANES or cin != 4 * planes or 'wd' in blk:
@@ -151,13 +158,10 @@ fused_identity_chain_plain = fused_stage1_plain
 def fused_identity_chain(x: torch.Tensor,
                          blocks: Sequence[Block]) -> torch.Tensor:
     """x [V, H, W, 4P] -> same shape through stride-1 identity bottlenecks
-    (no wd/bd), P = 128 or 256.  CPU tensors take
-    `fused_identity_chain_plain`; CUDA tensors take kernel B10, one launch
-    per bottleneck."""
-    if x.device.type == 'cpu':
-        return fused_identity_chain_plain(x, blocks)
+    (no wd/bd), P = 128 or 256: one `mv2d::identity_block` a block,
+    kernel B10 on CUDA tensors, `bottleneck_plain` on CPU ones."""
     for blk in blocks:
-        x = identity_block_cuda(x.contiguous(), blk)
+        x = torch.ops.mv2d.identity_block(x, *_block_args(blk)[:6])
     return x
 
 

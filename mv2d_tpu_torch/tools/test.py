@@ -16,6 +16,13 @@ bfloat16 on the GPU (the default) and in float32 with `--device cpu`.
 Prints mAP, NDS, the mean TP errors and each class's AP; `--out` writes
 the nuScenes submission json.  The port runs exact top-k always, so the
 JAX CLI's MV2D_EXACT_TOPK has no counterpart.
+
+On N GPUs: `bash mv2d_tpu_torch/tools/dist_test.sh <config> [args]` (or
+torchrun ... -m mv2d_tpu_torch.tools.test): with RANK set, each process
+joins the group (`parallel.dist.init_distributed`: NCCL on
+cuda:LOCAL_RANK, gloo with --device cpu), evaluates every N-th scene, and
+rank 0 prints the metrics of all scenes and writes --out; the other ranks
+return None.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import Dict, Optional, Sequence
 from ..eval import nuscenes_eval
 from ..eval import results as res
 from ..eval.runner import run_eval
+from ..parallel.dist import close_distributed, init_distributed
 from .common import (build_dataset, build_model, device_and_dtype,
                      load_cli_config, load_weights)
 
@@ -42,20 +50,33 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     return p.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
-    """Runs the CLI; returns the metrics."""
+def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, float]]:
+    """Runs the CLI; returns the metrics (None on a rank other than 0)."""
     args = parse_args(argv)
     device, dtype = device_and_dtype(args.device)
+    info = init_distributed(device)
+    try:
+        return _evaluate(args, info, dtype)
+    finally:
+        close_distributed(info)
+
+
+def _evaluate(args, info, dtype) -> Optional[Dict[str, float]]:
+    lead = info.rank == 0
     cfg = load_cli_config(args.config, args.cfg_options)
     dataset = build_dataset(cfg, 'val')
     model = load_weights(build_model(cfg), args.checkpoint)
-    print(f'loaded {args.checkpoint}' if args.checkpoint else
-          'no checkpoint: random weights (init_random_weights, seed 0)')
-    model = model.eval().to(device, dtype)
+    if lead:
+        print(f'loaded {args.checkpoint}' if args.checkpoint else
+              'no checkpoint: random weights (init_random_weights, seed 0)')
+    model = model.eval().to(info.device, dtype)
 
-    metrics, sub = run_eval(model, dataset, device,
+    metrics, sub = run_eval(model, dataset, info.device,
                             max_samples=args.max_samples,
-                            collect_submission=bool(args.out))
+                            collect_submission=bool(args.out),
+                            dist_info=info)
+    if not lead:
+        return None
     if args.out:
         res.save_submission(args.out, sub)
         print('wrote', args.out)

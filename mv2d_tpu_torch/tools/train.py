@@ -31,7 +31,10 @@ and `train_log.jsonl`; `epoch_{e}.pth` after each epoch (rank 0;
 optimizer), which `tools.test` and `tools.serve` load as they are; and,
 every `evaluation.interval` epochs, the eval hook's `val_*` line: the
 val split through `eval.runner.run_eval` on a copy of the model in eval
-mode and the eval dtype, what `tools.test` computes on the saved file.
+mode and the eval dtype, what `tools.test` computes on the saved file;
+in a group every rank evaluates its share of the scenes and rank 0 logs
+the metrics of all of them.  `bash mv2d_tpu_torch/tools/dist_train.sh
+<config> [args]` launches one process a local GPU.
 """
 from __future__ import annotations
 
@@ -243,13 +246,15 @@ def train(args, info) -> dict:
         interval = evaluation.get('interval', 0)
         if interval and (epoch + 1) % interval == 0 and \
                 'val' in cfg.get('data', {}):
+            # on every rank of the group, each its share of the scenes
+            ev = eval_copy(model, cfg, dev)
+            val, _ = run_eval(ev, build_dataset(cfg, 'val'), dev,
+                              max_samples=evaluation.get('max_samples'),
+                              dist_info=info)
+            del ev
+            if dev.type == 'cuda':
+                torch.cuda.empty_cache()
             if lead:
-                ev = eval_copy(model, cfg, dev)
-                val, _ = run_eval(ev, build_dataset(cfg, 'val'), dev,
-                                  max_samples=evaluation.get('max_samples'))
-                del ev
-                if dev.type == 'cuda':
-                    torch.cuda.empty_cache()
                 emit(val_line(val, epoch + 1))
             barrier(info)
         if done:

@@ -1040,3 +1040,50 @@ def test_run_eval_on_the_card_matches_the_cpu(dev, rendered, monkeypatch):
     for k in cm:
         assert cm[k] == pytest.approx(gm[k], abs=1e-3, nan_ok=True), k
     assert set(csub['results']) == set(gsub['results'])
+
+
+# ------------------------------------------- the operators, the export
+
+OP_NAMES = sorted(smoke.KERNELS[k]['op'][len('mv2d::'):]
+                  for k in smoke.KERNELS)
+
+
+@pytest.mark.parametrize('name', OP_NAMES)
+def test_opcheck_on_the_card(dev, name):
+    """`torch.library.opcheck` of each `mv2d` operator on CUDA tensors
+    (bfloat16, `chip_smoke.op_args`): its CUDA implementation, the kernel,
+    against its fake one, and the schema's aliasing."""
+    args = smoke.op_args(dev)[name]
+    torch.library.opcheck(getattr(torch.ops.mv2d, name).default, args)
+
+
+def test_exported_tiny_program_on_the_card(dev, tmp_path):
+    """The tiny+DCN eval forward exported on the GPU (float32), saved,
+    loaded and run: equal to the direct forward of its signature, and its
+    launches those of one forward."""
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.tools import export
+    cfg = configs.tiny(num_frames=2, stage_with_dcn=(False, False, True,
+                                                     True))
+    model = synthetic.init_random_weights(MV2D(cfg).eval(), seed=0).to(dev)
+    V, (H, W) = cfg.total_views, cfg.image_size
+    imgs = torch.randn((V, H, W, 3), generator=torch.Generator().manual_seed(
+        0))
+    args = export.example_inputs(cfg, dev, torch.float32, imgs)
+    path = str(tmp_path / export.PROGRAM)
+    torch.export.save(export.export_model(model, args), path)
+    program = torch.export.load(path).module()
+    fns = smoke.counters()
+    for fn in fns.values():
+        fn.launches = 0
+    with torch.no_grad():
+        got = program(*args)
+    launched = {n: fn.launches for n, fn in fns.items()}
+    with torch.no_grad():
+        want = export.ServeForward(model)(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    need, masks = smoke.path_kernels(cfg)
+    assert smoke._launch_check(launched, need)
+    assert launched['mask_bits'] == masks
