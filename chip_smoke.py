@@ -111,6 +111,17 @@ Phases, in order; any failure exits non-zero without the final line:
      its pool images within 0.05 mean abs of the numpy path.  Logs
      samples/s and the ms a scene of the bench's parts (sample, wait,
      h2d, forward, convert) with the card's name and power limit;
+     parity: the acceptance harness (`tools.parity`, --synthetic) on
+     the R50 file at full width: the RoI head's stand-in state dict
+     loaded with every key taken; the golden of one 6-view frame (8
+     proposals a view) through the bf16 port against the float32
+     reference transcription on the host: pe, virtual_intrinsics,
+     roi_align, decoder_cls and decoder_box each within 3e-2 of its
+     stage's largest reference value, proposals found, key_overflow 0;
+     the same with pe and roi_align re-run in float32 under matmul
+     precision 'highest', both under 1e-4; then `run_val_eval` on two of
+     the eval phase's scenes (metrics finite); launches are 4 forwards x
+     K1 3, K2 9, K3 1, K4 12, mask_bits 2;
   9. train: four full-width MV2D-T R50 training steps (bf16 mixed
      precision, synthetic_train_batch(seed=0), seeded weights; the first
      is warm-up): finite losses, total and grad norm, trained parameters
@@ -2151,6 +2162,89 @@ def phase_eval(dev, results, n_scenes=8, options=(), image_hw=(900, 1600),
     return launch_ok and sub_ok and metrics_ok and match_ok and pool_ok
 
 
+# the golden's bf16 rows: each within BF16_TOL of its stage's largest
+# reference value; the float32 control ('highest') of pe and roi_align
+# within CONTROL_TOL absolute
+CONTROL_TOL = 1e-4
+
+
+def phase_parity(dev, results, n_prop=8, n_scenes=2, options=()):
+    """The acceptance harness (`mv2d_tpu_torch.tools.parity`) in its
+    --synthetic mode on MV2D-T R50 at full width: the stand-in's load
+    report (every key taken), the golden of one 6-view frame with
+    `n_prop` proposals a view (bf16 port against the float32 reference
+    transcription on the host), the same with pe and roi_align re-run in
+    float32 under matmul precision 'highest', then `run_val_eval` on
+    `n_scenes` of the eval phase's rendered scenes.  Launches go under
+    'parity': two golden forwards and the scenes', K1-K4 and mask_bits.
+    `options` (--cfg-options) shrink the config for a rehearsal."""
+    import torch
+    from mv2d_tpu_torch.tools import parity
+    from mv2d_tpu_torch.tools.common import (build_dataset,
+                                             build_model_config,
+                                             load_cli_config)
+
+    smi = results.get('_smi', '')
+    mc = build_model_config(load_cli_config(R50_FILE, options))
+    sd = parity.synthetic_state_dict(mc)
+    model, unmatched = parity.load_report(mc, sd)
+    n_head = sum(k.startswith('roi_head.') for k in model.state_dict())
+    load_ok = not unmatched and len(sd) == n_head
+    log(f'  load report: {len(sd) - len(unmatched)}/{len(sd)} stand-in keys '
+        f'taken, the port\'s head has {n_head} {"ok" if load_ok else "FAIL"}')
+
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    sample = parity.rig_sample(mc)
+    t0 = time.perf_counter()
+    g = parity.run_golden(mc, model.state_dict(), sd, sample, n_prop, dev)
+    t1 = time.perf_counter()
+    ctl = parity.run_golden(mc, model.state_dict(), sd, sample, n_prop, dev,
+                            'highest')
+    t2 = time.perf_counter()
+    if g is None or ctl is None:
+        log('  golden compared nothing FAIL')
+        return False
+    parity.print_golden(g, mc, dev)
+    log('  control, pe and roi_align in float32 under matmul precision '
+        "'highest':")
+    parity.print_golden(ctl, mc, dev)
+    rows_ok = all(np.isfinite(e) and e <= BF16_TOL * g.scale[k]
+                  for k, e in g.rows.items()) and len(g.rows) == 5
+    ctl_ok = all(ctl.rows[k] < CONTROL_TOL for k in ('pe', 'roi_align'))
+    golden_ok = (rows_ok and ctl_ok and g.proposals > 0
+                 and g.key_overflow == 0)
+    log(f'  golden: {g.proposals} proposals, key_overflow {g.key_overflow}; '
+        f'rows within {BF16_TOL:.0e} of each stage\'s max |ref| {rows_ok}; '
+        f'control pe / roi_align under {CONTROL_TOL:.0e} {ctl_ok}; '
+        f'{t1 - t0:.1f} s + {t2 - t1:.1f} s (the reference on the host) '
+        f'{"ok" if golden_ok else "FAIL"}; {smi}')
+    results['_parity'] = dict(rows=g.rows, scale=g.scale,
+                              control=ctl.rows, proposals=g.proposals,
+                              key_active=g.key_active,
+                              key_overflow=g.key_overflow)
+
+    dataset = build_dataset(load_cli_config(R50_FILE, KEEP['eval']['opts']),
+                            'val')
+    metrics = parity.run_val_eval(model, dataset, n_scenes, True, dev)
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    for name, n in launches.items():
+        results[name]['launches_by_path']['parity'] = n
+    want = {n: EVAL_PER_FORWARD.get(n, 0) * (2 + n_scenes) for n in fns}
+    launch_ok = _launch_check(launches, path_kernels(mc)[0]) and \
+        launches == want
+    eval_ok = all(np.isfinite(metrics[k]) for k in ('mAP', 'NDS'))
+    log(f'  eval on {n_scenes} of the eval phase\'s scenes: mAP '
+        f'{metrics["mAP"]} NDS {metrics["NDS"]} '
+        f'{"ok" if eval_ok else "FAIL"}; launches {launches} (want {want}) '
+        f'{"ok" if launch_ok else "FAIL"}')
+    del model
+    torch.cuda.empty_cache()
+    return load_ok and golden_ok and eval_ok and launch_ok
+
+
 def _attn_fwd_plain(q, k, v, a, H, tiles=None):
     """K4's training outputs (out, lse) by the plain versions."""
     from mv2d_tpu_torch.ops import attention
@@ -3118,6 +3212,7 @@ def main():
             ('export', lambda: phase_export(dev, results)),
             ('http', lambda: phase_http(dev, results)),
             ('eval', lambda: phase_eval(dev, results)),
+            ('parity', lambda: phase_parity(dev, results)),
             ('train', lambda: phase_train(dev, results)),
             ('train_s', lambda: phase_train_s(dev, results)),
             ('routes_tiny', lambda: phase_routes_tiny(dev)),
