@@ -122,6 +122,21 @@ Phases, in order; any failure exits non-zero without the final line:
      precision 'highest', both under 1e-4; then `run_val_eval` on two of
      the eval phase's scenes (metrics finite); launches are 4 forwards x
      K1 3, K2 9, K3 1, K4 12, mask_bits 2;
+     stages: the stage benches (`tools.{stage_bench, detect_stage_bench,
+     roi_stage_bench, train_stage_bench, micro_bench, misc_bench,
+     train_bench}`) at MV2D-T R50's full width, each `main` with 2 timed
+     calls after 1 warm-up: every row's host ms, device-busy ms (a
+     profiled window) and host syncs with their blocked ms by
+     `mv2d_tpu_torch` site (one profiled call under the sync debug mode)
+     printed, finite and positive; the forward's stage rows summing to
+     within
+     STAGE_SUM_SHARE of its full row; then `stage_bench --check`, each
+     stage of the bf16 forward fed the host's float32 inputs against the
+     float32 plain path on the host (backbone C2-C5, FPN p2-p6, the neck,
+     the RPN's dense outputs, the R-CNN, the PE of each frame, the
+     two-frame head), each row within 3e-2 of its reference's max, with
+     a float32 control on the card and the chained error beside it;
+     launches of the eval and training paths' kernels;
   9. train: four full-width MV2D-T R50 training steps (bf16 mixed
      precision, synthetic_train_batch(seed=0), seeded weights; the first
      is warm-up): finite losses, total and grad norm, trained parameters
@@ -2245,6 +2260,114 @@ def phase_parity(dev, results, n_prop=8, n_scenes=2, options=()):
     return load_ok and golden_ok and eval_ok and launch_ok
 
 
+# the stage benches' forward rows: their sum within this share of the full
+# forward's row (host clock) either way
+STAGE_SUM_SHARE = (0.67, 1.5)
+# rows of `stage_bench --check` over BF16_TOL of their reference's max in
+# bfloat16 while their float32 control is within F32_TOL: the faults that
+# ROADMAP.md's queue C records (bf16 rounding through the backbone's
+# layers 3-4; the head's velocities); every other row must pass
+CHECK_FAULTS = ('backbone C4', 'backbone C5', 'head velocity')
+
+
+def _rows_ok(rows, dev):
+    """Every row's host ms finite and positive; on the card its busy ms
+    too, and its syncs counted."""
+    return len(rows) > 0 and all(
+        np.isfinite(r.host_ms) and r.host_ms > 0 and (
+            dev != 'cuda' or (r.busy_ms is not None and np.isfinite(
+                r.busy_ms) and r.busy_ms > 0 and r.sites is not None))
+        for r in rows.values())
+
+
+def phase_stages(dev, results, args=(), iters=2, warmup=1,
+                 check_views='0,6'):
+    """The stage benches (`mv2d_tpu_torch.tools.{stage_bench,
+    detect_stage_bench, roi_stage_bench, train_stage_bench, train_bench,
+    micro_bench, misc_bench}`) at MV2D-T R50's full width, each `main`
+    with `iters` timed calls after `warmup`: every row's host ms, busy ms
+    and top sync sites printed, each finite and positive, the forward's
+    stage rows summing to within STAGE_SUM_SHARE of its full row; then
+    `stage_bench --check` on `check_views` (the per-view stages on one
+    view a frame, to keep the host's float32 run short), the full-width
+    numeric check: every row within BF16_TOL of its reference's max but
+    the recorded CHECK_FAULTS, and every row's float32 control within
+    F32_TOL.  Launches go under 'stages': the eval and training paths'
+    kernels launched.  `args` (e.g. --preset tiny --device cpu) and
+    `check_views` shrink the runs for a rehearsal."""
+    import torch
+    from mv2d_tpu_torch.tools import (detect_stage_bench, micro_bench,
+                                      misc_bench, roi_stage_bench,
+                                      stage_bench, stage_common,
+                                      train_bench, train_stage_bench)
+
+    smi = results.get('_smi', '')
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    it = ['--iters', str(iters), '--warmup', str(warmup), *args]
+    ok = True
+    for mod in (stage_bench, detect_stage_bench, roi_stage_bench,
+                train_stage_bench, micro_bench, misc_bench):
+        name = mod.__name__.rsplit('.', 1)[-1]
+        t0 = time.perf_counter()
+        try:
+            rows = mod.main(it)['rows']
+        except Exception as e:            # report, go on with the others
+            import traceback
+            traceback.print_exc()
+            log(f'  {name} raised {type(e).__name__}: {e} FAIL')
+            ok = False
+            continue
+        good = _rows_ok(rows, dev)
+        if mod is stage_bench:
+            share = sum(r.host_ms for k, r in rows.items() if k != 'full') \
+                / rows['full'].host_ms
+            lo, hi = STAGE_SUM_SHARE
+            good &= lo <= share <= hi
+            results['_stages_share'] = share
+        results.setdefault('_stages', {})[name] = {
+            k: dict(host_ms=r.host_ms, busy_ms=r.busy_ms, syncs=r.syncs,
+                    blocked_ms=r.blocked_ms,
+                    top=[stage_common.site_name(st, x) for st, x in r.top()])
+            for k, r in rows.items()}
+        log(f'  {name}: {len(rows)} rows ({time.perf_counter() - t0:.1f} s) '
+            f'{"ok" if good else "FAIL"}')
+        ok &= good
+    t0 = time.perf_counter()
+    tb = train_bench.main(it)
+    tb_ok = np.isfinite(tb['ms_per_step']) and np.isfinite(tb['loss'])
+    log(f'  train_bench ({time.perf_counter() - t0:.1f} s) '
+        f'{"ok" if tb_ok else "FAIL"}; {smi}')
+    ok &= tb_ok
+    t0 = time.perf_counter()
+    check = stage_bench.main(['--check', '--check-views', check_views,
+                              *args])['check']
+    rows = {k: v for k, v in check.items() if not k.startswith('_')}
+    faults = sorted(k for k, v in rows.items() if not v['ok'])
+    control_ok = all(v['f32'] <= F32_TOL * v['scale'] for v in rows.values())
+    check_ok = set(faults) <= set(CHECK_FAULTS) and control_ok
+    log(f'  stage_bench --check ({time.perf_counter() - t0:.1f} s): rows '
+        f'over {BF16_TOL:.0e} {faults} (recorded: {list(CHECK_FAULTS)}); '
+        f'float32 controls within {F32_TOL:.0e} {control_ok} '
+        f'{"ok" if check_ok else "FAIL"}')
+    results['_stages_check'] = rows
+    ok &= check_ok
+    if dev == 'cuda':
+        torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in fns.items()}
+    for name, n in launches.items():
+        results[name]['launches_by_path']['stages'] = n
+    from mv2d_tpu_torch import configs
+    mc = configs.mv2d_t_r50()
+    need = set(path_kernels(mc)[0]) | set(path_kernels(mc, True, True)[0])
+    launch_ok = all(launches[n] > 0 for n in need)
+    log(f'  launches {launches} (need {sorted(need)}) '
+        f'{"ok" if launch_ok else "FAIL"}')
+    torch.cuda.empty_cache()
+    return bool(ok and launch_ok)
+
+
 def _attn_fwd_plain(q, k, v, a, H, tiles=None):
     """K4's training outputs (out, lse) by the plain versions."""
     from mv2d_tpu_torch.ops import attention
@@ -3213,6 +3336,7 @@ def main():
             ('http', lambda: phase_http(dev, results)),
             ('eval', lambda: phase_eval(dev, results)),
             ('parity', lambda: phase_parity(dev, results)),
+            ('stages', lambda: phase_stages(dev, results)),
             ('train', lambda: phase_train(dev, results)),
             ('train_s', lambda: phase_train_s(dev, results)),
             ('routes_tiny', lambda: phase_routes_tiny(dev)),

@@ -142,22 +142,34 @@ class TwoStageDetector(tnn.Module):
         return self.roi_head.bbox_head(
             roi_feats.reshape(V * S, *roi_feats.shape[2:]))
 
+    def rcnn(self, feats: Sequence[torch.Tensor], prop_boxes: torch.Tensor):
+        """RoIAlign (K3, or B11 under align_v2) -> Shared2FC of the
+        proposals [V, P, 4] -> (cls_logits [V, P, K+1], deltas [V, P, 4K])."""
+        V, Rp = prop_boxes.shape[:2]
+        align = roi_align_slab if self.align_v2 else roi_align_multilevel
+        roi_feats = align(list(feats[:4]), prop_boxes, self.fpn_strides[:4])
+        cls_logits, deltas = self.roi_head.bbox_head(
+            roi_feats.reshape(V * Rp, *roi_feats.shape[2:]))
+        return cls_logits.reshape(V, Rp, -1), deltas.reshape(V, Rp, -1)
+
+    def detections(self, prop_boxes, prop_valid, cls_logits, deltas,
+                   image_shape: Tuple[int, int],
+                   cfg: DetectionProposalCfg) -> Proposals:
+        """Per-class decode -> multiclass NMS: padded per-view
+        detections."""
+        boxes, scores = decode_detections(prop_boxes, cls_logits, deltas,
+                                          image_shape, self.num_classes)
+        b, s, l, v = multiclass_nms_2d(
+            boxes, scores, prop_valid, cfg.score_thr, cfg.iou_threshold,
+            cfg.nms_pre, cfg.max_per_img, min_bbox_size=cfg.min_bbox_size)
+        return Proposals(boxes=b, scores=s, labels=l, valid=v)
+
     def detect(self, feats: Sequence[torch.Tensor],
                image_shape: Tuple[int, int],
                cfg: DetectionProposalCfg) -> Proposals:
         """RPN -> RoIAlign -> Shared2FC -> per-class decode -> multiclass
         NMS: padded per-view detections."""
-        V = feats[0].shape[0]
         prop_boxes, _, prop_valid = self.rpn(feats, image_shape, cfg)
-        Rp = prop_boxes.shape[1]
-        align = roi_align_slab if self.align_v2 else roi_align_multilevel
-        roi_feats = align(list(feats[:4]), prop_boxes, self.fpn_strides[:4])
-        cls_logits, deltas = self.roi_head.bbox_head(
-            roi_feats.reshape(V * Rp, *roi_feats.shape[2:]))
-        boxes, scores = decode_detections(
-            prop_boxes, cls_logits.reshape(V, Rp, -1),
-            deltas.reshape(V, Rp, -1), image_shape, self.num_classes)
-        b, s, l, v = multiclass_nms_2d(
-            boxes, scores, prop_valid, cfg.score_thr, cfg.iou_threshold,
-            cfg.nms_pre, cfg.max_per_img, min_bbox_size=cfg.min_bbox_size)
-        return Proposals(boxes=b, scores=s, labels=l, valid=v)
+        cls_logits, deltas = self.rcnn(feats, prop_boxes)
+        return self.detections(prop_boxes, prop_valid, cls_logits, deltas,
+                               image_shape, cfg)

@@ -378,6 +378,12 @@ class MV2D(tnn.Module):
                                               c.image_size)
         out = self.roi_head_forward(p4, pos, proposals, cam, img_shapes,
                                     self._mean_time_delta(cam))
+        return self.decode(out)
+
+    def decode(self, out: HeadOutputs) -> Detections:
+        """The eval forward's last stage: NMS-free decode of the head's
+        last layer, then the cross-view BEV merge."""
+        c = self.cfg
         boxes, scores, labels, valid = nms_free_decode(
             out.all_cls_scores[-1].float(), out.all_bbox_preds[-1].float(),
             out.query_valid, c.max_num, c.num_classes, c.position_range)

@@ -157,11 +157,16 @@ class ResNet(tnn.Module):
             self._layer1_packed = seen
         return seen[2]
 
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The 7x7/2 conv with its folded BN and ReLU, then the 3x3/2 max
+        pool."""
+        return max_pool_3x3_s2(F.relu(_folded_conv(x, self.conv1, self.bn1,
+                                                   stride=2)))
+
     def forward(self, x: torch.Tensor):
         outs = []
         with torch.no_grad():                      # frozen stem + layer1
-            x = F.relu(_folded_conv(x, self.conv1, self.bn1, stride=2))
-            x = max_pool_3x3_s2(x)
+            x = self.stem(x)
             if not self.stage_with_dcn[0]:
                 x = fused_stage1(x, self.layer1_blocks(x.dtype))
             else:

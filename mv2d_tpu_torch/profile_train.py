@@ -3,8 +3,10 @@
     python -m mv2d_tpu_torch.profile_train [--steps 3] [--warmup 2] [--eval]
                                            [--top 30]
 
-Builds the MV2D-T R50 model (seeded bench-rule weights), the seeded
-synthetic scene and the optimizer on the card, runs `warmup` steps, then:
+Builds the MV2D-T R50 model (`synthetic.init_random_weights(seed=0)`,
+the weights of `chip_smoke.py`'s serve and train phases; not the bench
+rule of `synthetic.bench_rule_weights`), the seeded synthetic scene and
+the optimizer on the card, runs `warmup` steps, then:
   1. `steps` steps timed on the host clock around a synchronised step,
      split into forward + losses (matching included), backward, and
      clip + AdamW, each ended by a synchronisation;

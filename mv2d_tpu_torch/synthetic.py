@@ -11,7 +11,10 @@ linear weights are N(0, 1/fan_in), the box-delta heads rpn_reg / fc_reg
 are zero so proposals are exactly anchor-shaped, the DCN offset
 branches get small random offsets, and every other bias is zero (the
 RetinaHead's class bias too: at its focal prior, -log 99, random weights
-leave no anchor above the score threshold).
+leave no anchor above the score threshold).  `bench_rule_weights` is the
+JAX package's bench rule instead (`bench.py:54-76`): every float tensor
+N(0, 0.02), BN running variances 1, rpn_reg / fc_reg zero; the stage
+benches (`tools/*_bench.py`) time with it.
 """
 from __future__ import annotations
 
@@ -57,6 +60,28 @@ def init_random_weights(model: tnn.Module, seed: int = 0) -> tnn.Module:
         if 'rpn_reg' in name or 'fc_reg' in name:
             val = torch.zeros(p.shape)
         p.copy_(val)
+    return model
+
+
+@torch.no_grad()
+def bench_rule_weights(model: tnn.Module, seed: int = 0) -> tnn.Module:
+    """The JAX package's bench rule (`bench.py:54-76`) over the model's
+    parameters and buffers, in the order of its state dict: every float
+    tensor N(0, 0.02) from numpy.random.default_rng(seed), except the BN
+    running variances (1, so their square roots are finite) and rpn_reg /
+    fc_reg (0, so proposals are anchor-shaped).  The JAX stage benches
+    draw N(0, 0.02) for the variances too, half of them negative."""
+    rng = np.random.default_rng(seed)
+    for name, t in model.state_dict(keep_vars=True).items():
+        if not t.is_floating_point():
+            continue
+        if name.endswith('running_var'):
+            val = np.ones(t.shape, np.float32)
+        elif 'rpn_reg' in name or 'fc_reg' in name:
+            val = np.zeros(t.shape, np.float32)
+        else:
+            val = rng.normal(0, 0.02, t.shape).astype(np.float32)
+        t.copy_(torch.from_numpy(val))
     return model
 
 

@@ -184,5 +184,9 @@ def test_port_imports_without_jax():
               'data.nuscenes', 'data.converter', 'eval.runner',
               'eval.nuscenes_eval', 'eval.results', 'tools.test',
               'tools.create_data', 'tools.make_synth_fixture',
-              'tools.eval_e2e_bench', 'utils.native_build'):
+              'tools.eval_e2e_bench', 'utils.native_build',
+              'tools.stage_common', 'tools.stage_bench',
+              'tools.detect_stage_bench', 'tools.roi_stage_bench',
+              'tools.train_stage_bench', 'tools.train_bench',
+              'tools.micro_bench', 'tools.misc_bench'):
         assert f'mv2d_tpu_torch.{m}' in names, m
