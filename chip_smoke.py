@@ -131,11 +131,14 @@ Phases, in order; any failure exits non-zero without the final line:
      printed, finite and positive; the forward's stage rows summing to
      within
      STAGE_SUM_SHARE of its full row; then `stage_bench --check`, each
-     stage of the bf16 forward fed the host's float32 inputs against the
-     float32 plain path on the host (backbone C2-C5, FPN p2-p6, the neck,
+     stage of the bf16 forward against the float32 plain path on the
+     host, both fed the same inputs (backbone C2-C5, FPN p2-p6, the neck,
      the RPN's dense outputs, the R-CNN, the PE of each frame, the
-     two-frame head), each row within 3e-2 of its reference's max, with
-     a float32 control on the card and the chained error beside it;
+     two-frame head), each row within 3e-2 of its reference's max or,
+     where ROADMAP.md's queue C records it, its FAULT_BOUNDS; each row's
+     float32 control on the card within 1e-4; the witness (the DCN layers
+     and the head with K2 / K4 and with their plain versions in bf16),
+     each kernel's error within WITNESS_RATIO of its plain version's;
      launches of the eval and training paths' kernels;
   9. train: four full-width MV2D-T R50 training steps (bf16 mixed
      precision, synthetic_train_batch(seed=0), seeded weights; the first
@@ -2263,11 +2266,16 @@ def phase_parity(dev, results, n_prop=8, n_scenes=2, options=()):
 # the stage benches' forward rows: their sum within this share of the full
 # forward's row (host clock) either way
 STAGE_SUM_SHARE = (0.67, 1.5)
-# rows of `stage_bench --check` over BF16_TOL of their reference's max in
-# bfloat16 while their float32 control is within F32_TOL: the faults that
-# ROADMAP.md's queue C records (bf16 rounding through the backbone's
-# layers 3-4; the head's velocities); every other row must pass
-CHECK_FAULTS = ('backbone C4', 'backbone C5', 'head velocity')
+# rows of `stage_bench --check` past BF16_TOL of their reference's max in
+# bfloat16 (ROADMAP.md queue C records them), each held instead to its
+# bound here, just above its reading on the H100 (C4 4.89%, C5 6.05%,
+# velocity 3.27%); every other row is held to BF16_TOL
+FAULT_BOUNDS = {'backbone C4': 6e-2, 'backbone C5': 7e-2,
+                'head velocity': 4e-2}
+# the check's witness: the backbone's DCN layers and the head with K2 / K4
+# and with their plain versions in the kernels' place, both in bf16 on the
+# card: a kernel's path within this factor of its plain version's error
+WITNESS_RATIO = 1.25
 
 
 def _rows_ok(rows, dev):
@@ -2290,11 +2298,13 @@ def phase_stages(dev, results, args=(), iters=2, warmup=1,
     stage rows summing to within STAGE_SUM_SHARE of its full row; then
     `stage_bench --check` on `check_views` (the per-view stages on one
     view a frame, to keep the host's float32 run short), the full-width
-    numeric check: every row within BF16_TOL of its reference's max but
-    the recorded CHECK_FAULTS, and every row's float32 control within
-    F32_TOL.  Launches go under 'stages': the eval and training paths'
-    kernels launched.  `args` (e.g. --preset tiny --device cpu) and
-    `check_views` shrink the runs for a rehearsal."""
+    numeric check: every row within BF16_TOL of its reference's max, or
+    within its FAULT_BOUNDS where queue C records it; every row's float32
+    control within F32_TOL; and its witness, each kernel's bf16 path
+    within WITNESS_RATIO of the error of its plain version's.  Launches
+    go under 'stages': the eval and training paths' kernels launched.
+    `args` (e.g. --preset tiny --device cpu) and `check_views` shrink the
+    runs for a rehearsal."""
     import torch
     from mv2d_tpu_torch.tools import (detect_stage_bench, micro_bench,
                                       misc_bench, roi_stage_bench,
@@ -2327,7 +2337,8 @@ def phase_stages(dev, results, args=(), iters=2, warmup=1,
             good &= lo <= share <= hi
             results['_stages_share'] = share
         results.setdefault('_stages', {})[name] = {
-            k: dict(host_ms=r.host_ms, busy_ms=r.busy_ms, syncs=r.syncs,
+            k: dict(host_ms=r.host_ms, busy_ms=r.busy_ms, rounds=r.rounds,
+                    syncs=r.syncs,
                     blocked_ms=r.blocked_ms,
                     top=[stage_common.site_name(st, x) for st, x in r.top()])
             for k, r in rows.items()}
@@ -2345,13 +2356,24 @@ def phase_stages(dev, results, args=(), iters=2, warmup=1,
                               *args])['check']
     rows = {k: v for k, v in check.items() if not k.startswith('_')}
     faults = sorted(k for k, v in rows.items() if not v['ok'])
+    over = sorted(k for k, v in rows.items() if not (
+        np.isfinite(v['err']) and v['err'] <= FAULT_BOUNDS.get(
+            k, BF16_TOL) * v['scale']))
     control_ok = all(v['f32'] <= F32_TOL * v['scale'] for v in rows.values())
-    check_ok = set(faults) <= set(CHECK_FAULTS) and control_ok
+    witness = check['_witness']
+    wit_bad = sorted(k for k, v in witness.items() if v['plain'] is not None
+                     and not v['kernel'] <= WITNESS_RATIO * v['plain'])
+    check_ok = not over and control_ok and not wit_bad
     log(f'  stage_bench --check ({time.perf_counter() - t0:.1f} s): rows '
-        f'over {BF16_TOL:.0e} {faults} (recorded: {list(CHECK_FAULTS)}); '
-        f'float32 controls within {F32_TOL:.0e} {control_ok} '
+        f'over {BF16_TOL:.0e} {faults}, over their bounds {over} (bounds '
+        f'{FAULT_BOUNDS}); float32 controls within {F32_TOL:.0e} '
+        f'{control_ok}; witness (kernel / plain share) ' + ', '.join(
+            f'{k} {v["kernel"]:.2e}/{v["plain"]:.2e}'
+            for k, v in witness.items() if v['plain'] is not None)
+        + f', past {WITNESS_RATIO}x: {wit_bad} '
         f'{"ok" if check_ok else "FAIL"}')
     results['_stages_check'] = rows
+    results['_stages_witness'] = witness
     ok &= check_ok
     if dev == 'cuda':
         torch.cuda.synchronize()

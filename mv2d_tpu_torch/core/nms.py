@@ -41,6 +41,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _fixpoint_cond(it, k, prev, cand, kill):
+    greedy_fixpoint.rounds += 1
     return (it < kill.shape[-1]) & (k != prev).any()
 
 
@@ -60,6 +61,11 @@ def greedy_fixpoint(cand: torch.Tensor, kill: torch.Tensor) -> torch.Tensor:
     _, k, _ = while_loop_op(_fixpoint_cond, _fixpoint_body, (it, k, cand),
                             (cand, kill))
     return k
+
+
+# the fixpoint's loop tests so far, each a host sync in eager (the stage
+# benches read it: rounds a call)
+greedy_fixpoint.rounds = 0
 
 
 def _greedy_suppress_boxes(boxes: torch.Tensor, valid: torch.Tensor,

@@ -14,7 +14,8 @@ pieces (default: all):
   decode     `decode_detections` + multiclass NMS of each view, batched
              over the views as `TwoStageDetector.detections` runs them
              (N(0, 1) logits and deltas).
-bfloat16, `synthetic.bench_rule_weights(seed=0)`, the JAX bench's scene;
+bfloat16, `synthetic.bench_rule_weights(seed=0)` (`--init random`:
+`init_random_weights(seed=0)`), the JAX bench's scene;
 each row prints the host ms a call, the device's busy ms and the host
 syncs by site (`stage_common.timed`).
 """
@@ -35,6 +36,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('pieces', nargs='*')
     sc.add_common_args(p)
+    sc.add_init_arg(p)
     return p.parse_args(argv)
 
 
@@ -49,7 +51,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     pieces = sc.want(PIECES, args.pieces)
     cfg = sc.model_config(args)
     sc.header('detect_stage_bench', dev, dtype, cfg)
-    model = sc.bench_model(cfg, dev, dtype)
+    model = sc.bench_model(cfg, dev, dtype, args.init)
     imgs, _, _ = sc.rig_inputs(cfg, dev, dtype)
     det = model.base_detector
     pcfg = cfg.proposal_test

@@ -22,7 +22,8 @@ W - 220 s) x U(0, H - 220 s) and sides ~ U(24 s, 200 s) (s = W / 1408),
   decode        the NMS-free decode of N(0, 1) logits and codes.
 The JAX tool's `align` (an XLA gather form) has no counterpart, and its
 `keys` piece is listed but runs nothing there: both print why.  bfloat16,
-`synthetic.bench_rule_weights(seed=0)` for the modules; each row prints
+`synthetic.bench_rule_weights(seed=0)` for the modules (`--init random`:
+`init_random_weights(seed=0)`); each row prints
 the host ms a call, the device's busy ms and the host syncs by site
 (`stage_common.timed`).
 """
@@ -51,6 +52,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('pieces', nargs='*')
     sc.add_common_args(p)
+    sc.add_init_arg(p)
     return p.parse_args(argv)
 
 
@@ -88,7 +90,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     pieces = sc.want(PIECES, args.pieces)
     cfg = sc.model_config(args)
     sc.header('roi_stage_bench', dev, dtype, cfg)
-    model = sc.bench_model(cfg, dev, dtype)
+    model = sc.bench_model(cfg, dev, dtype, args.init)
     head = model.roi_head
     _, cam, shapes = sc.rig_inputs(cfg, dev, dtype)
     rng = np.random.default_rng(0)

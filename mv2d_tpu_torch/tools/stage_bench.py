@@ -14,14 +14,17 @@ and the BEV merge); then the whole forward.  The rows chained compute
 what the forward computes (`forward_by_stages`).  Each row prints the
 host ms a call, the device's busy ms and the host syncs by site
 (`stage_common.timed`); the sum of the stage rows is printed beside the
-full row.  bfloat16 on the card (`--f32`: float32), with
-`synthetic.bench_rule_weights(seed=0)` and the JAX bench's scene
+full row, and each row's NMS fixpoint rounds a call.  bfloat16 on the
+card (`--f32`: float32), with `synthetic.bench_rule_weights(seed=0)`
+(`--init random`: `init_random_weights(seed=0)`, the weights
+`chip_smoke.py` serves) and the JAX bench's scene
 (`stage_common.rig_inputs`).
 
 `--check` runs the full-width numeric check instead: each stage of the
 forward on the card (bfloat16, hand kernels) against the port's float32
-plain path on the host, fed the host's own inputs, so that a row measures
-that stage alone (`numeric_check`).
+plain path on the host, both sides fed the same inputs, so that a row
+measures that stage alone, and a witness that reruns the bf16 path with
+K2's and K4's plain versions in their place (`numeric_check`).
 
 The JAX tool's `--flash` is not ported: it routes the TPU's attention,
 and the port runs K4 for every shared-key attention on the card whatever
@@ -30,6 +33,7 @@ and the port runs K4 for every shared-key attention on the card whatever
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import time
 from typing import Dict, Optional, Sequence
@@ -87,6 +91,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help='comma-separated views for the per-view stages of '
                         "--check (e.g. '0,6'; default all)")
     sc.add_common_args(p)
+    sc.add_init_arg(p)
     return p.parse_args(argv)
 
 
@@ -107,7 +112,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         else torch.bfloat16
     pieces = sc.want(PIECES, args.pieces)
     sc.header('stage_bench', dev, dtype, cfg)
-    model = sc.bench_model(cfg, dev, dtype)
+    model = sc.bench_model(cfg, dev, dtype, args.init)
     imgs, cam, shapes = sc.rig_inputs(cfg, dev, dtype)
     f = stage_fns(model, cam, shapes)
     kw = dict(iters=args.iters, warmup=args.warmup, device=dev)
@@ -147,6 +152,11 @@ def _err(got, ref):
     return float((g - r).abs().max()), float(r.abs().max())
 
 
+def _share(got, ref) -> float:
+    err, scale = _err(got, ref)
+    return err / max(scale, 1e-30)
+
+
 def _delta_heads(model, seed: int = 1):
     """rpn_reg / fc_reg N(0, 1 / fan_in) weights, so that the delta rows
     compare something (`init_random_weights` zeroes them)."""
@@ -157,6 +167,13 @@ def _delta_heads(model, seed: int = 1):
                 p.copy_(torch.randn(p.shape, generator=g) * p[0].numel()
                         ** -0.5)
     return model
+
+
+def _head_rows(out):
+    """The 3D head's last layer by check row."""
+    box = out.all_bbox_preds[-1]
+    return {'head cls': out.all_cls_scores[-1], 'head box': box[:, :8],
+            'head velocity': box[:, 8:10]}
 
 
 def _rows(cfg, C, fpn, p4, rs, rd, cls, dl, pos, out, sv=None):
@@ -178,17 +195,21 @@ def _rows(cfg, C, fpn, p4, rs, rd, cls, dl, pos, out, sv=None):
     for f in range(cfg.num_frames):
         rows[f'pe views {f * Vc}-{(f + 1) * Vc - 1}'] = \
             pos[f * Vc:(f + 1) * Vc]
-    box = out.all_bbox_preds[-1]
-    rows['head cls'] = out.all_cls_scores[-1]
-    rows['head box'] = box[:, :8]
-    rows['head velocity'] = box[:, 8:10]
-    return rows
+    return {**rows, **_head_rows(out)}
+
+
+def _head(model, dt, dev, head_in, cam, shapes):
+    """The 3D head of `model` (on dev, in dt) on (p4, PE, detections)."""
+    p4, pos, props = head_in
+    props = type(props)(*(t.to(dev) for t in props))
+    return model.roi_head_forward(p4.to(dev, dt), pos.to(dev, dt), props,
+                                  cam, shapes, model._mean_time_delta(cam))
 
 
 def _stage_rows(model, dt, dev, imgs, C, fpn, pb, pe_in, head_in, cam,
                 shapes):
-    """Each stage of `model` (on dev, in dt) fed the host's inputs, cast
-    -> its outputs by check row."""
+    """Each stage of `model` (on dev, in dt) fed the same inputs as the
+    host's, cast -> its outputs by check row."""
     c = model.cfg
     md = model.base_detector
 
@@ -198,12 +219,95 @@ def _stage_rows(model, dt, dev, imgs, C, fpn, pb, pe_in, head_in, cam,
     cls, dl = md.rcnn(to_d(fpn), pb.to(dev))
     pos = model.roi_head.position_encoding(pe_in.to(dev, dt), cam.img2lidar,
                                            shapes, c.image_size)
-    props = type(head_in[2])(*(t.to(dev) for t in head_in[2]))
-    out = model.roi_head_forward(head_in[0].to(dev, dt),
-                                 head_in[1].to(dev, dt), props, cam, shapes,
-                                 model._mean_time_delta(cam))
     return _rows(c, md.backbone(imgs.to(dev, dt)), md.neck(to_d(C)),
-                 model.neck(to_d(fpn))[0], rs, rd, cls, dl, pos, out)
+                 model.neck(to_d(fpn))[0], rs, rd, cls, dl, pos,
+                 _head(model, dt, dev, head_in, cam, shapes))
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """float32 products in float32 on the card (TF32 off)."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+@contextlib.contextmanager
+def _plain(kernel: str):
+    """Kernel K2 ('dcn') or K4 ('attention') replaced, where the eval
+    forward calls it, by its plain version, which then runs on the card
+    in the inputs' dtype; the kernel's wrapper must launch nothing
+    meanwhile."""
+    from unittest import mock
+    from ..nn import decoder
+    from ..ops import attention, dcn
+    if kernel == 'dcn':
+        where, name, wrapper = dcn, 'dcn_conv', dcn.dcn_conv
+        plain = dcn.dcn_conv_plain
+    else:
+        where, name, wrapper = decoder, 'masked_attention', \
+            attention.masked_attention
+
+        def plain(q, k, v, allowed, num_heads, tiles=None):
+            return attention.masked_attention_plain(q, k, v, allowed,
+                                                    num_heads)
+    n = wrapper.launches
+    with mock.patch.object(where, name, plain):
+        yield
+    assert wrapper.launches == n, f'{kernel}: its kernel launched'
+
+
+def _witness(card, dt, dev, C, head_in, cam, shapes, ref) -> dict:
+    """Where the bf16 rows' error comes from: the card's bf16 path, and
+    the same path with a kernel's plain version in the kernel's place.
+    The backbone's layers 2-4 alone, each fed the host's input of that
+    layer (layers with DCN: K2, then K2's plain version); the 3D head
+    (K4, then K4's plain version).  -> {piece: dict(kernel, plain,
+    apart)}: max |card - host| as a share of max |host| with the kernel
+    and with its plain version (None: no such kernel in the piece), and
+    max |kernel path - plain path| as that share.  Where `plain` is near
+    `kernel`, the piece's error is the bf16 path's, not the kernel's."""
+    bb = card.base_detector.backbone
+    res = {}
+
+    def put(piece, k, p, r):
+        scale = max(float(r.detach().float().abs().max()), 1e-30)
+        res[piece] = dict(
+            kernel=_share(k, r), plain=None if p is None else _share(p, r),
+            apart=None if p is None else _err(k, p)[0] / scale)
+
+    with torch.no_grad(), _no_tf32():
+        for i in range(1, 4):
+            layer = getattr(bb, f'layer{i + 1}')
+            x = C[i - 1].to(dev, dt)
+            p = None
+            if bb.stage_with_dcn[i]:
+                with _plain('dcn'):
+                    p = layer(x)
+            put(f'layer{i + 1}', layer(x), p, C[i])
+        with _plain('attention'):
+            out_p = _head_rows(_head(card, dt, dev, head_in, cam, shapes))
+        out_k = _head_rows(_head(card, dt, dev, head_in, cam, shapes))
+    for name, r in out_k.items():
+        put(name, r, out_p[name], ref[name])
+    for piece, r in res.items():
+        if piece.startswith('layer'):
+            what, kern = f'backbone {piece} alone, from the host\'s ' \
+                f'C{piece[-1]}', 'K2'
+        else:
+            what, kern = piece, 'K4'
+        plain = ' (no DCN)' if r['plain'] is None else (
+            f' with {kern}, {r["plain"]:.2e} with its plain version in '
+            f'bf16; the two apart {r["apart"]:.2e}')
+        print(f'check (witness) {what}: share {r["kernel"]:.2e}{plain}',
+              flush=True)
+    return res
 
 
 def numeric_check(cfg, dev, tol: float = CHECK_TOL,
@@ -212,29 +316,28 @@ def numeric_check(cfg, dev, tol: float = CHECK_TOL,
     kernels) against the port's float32 plain path on the host, on
     `init_random_weights(seed=0)` with rpn_reg / fc_reg drawn too
     (`_delta_heads`), the float32 weights cast for the card.  Each stage
-    is fed the same inputs on both sides, the host's float32 values (cast
-    for the card), so that a row measures that stage alone:
+    is fed the same inputs on both sides, so that a row measures that
+    stage alone:
       backbone C2-C5 (images); FPN p2-p6 and the neck's p4 (the host's
       C2-C5 / p2-p6); the RPN's objectness and deltas of each level,
       dense, before top-k and NMS (p2-p6); the R-CNN's cls and deltas on
-      the host's RPN proposals; the PE of each frame's views (p4); the
-      3D head on all views of both frames (p4, PE and the detections,
-      with `_mean_time_delta`'s velocity scaling): its last layer's
-      classes, boxes (code dims 0-7) and velocities (8-9).
+      the host's RPN proposals; the PE of each frame's views and the 3D
+      head on all views of both frames (the card's own chain's p4, PE and
+      detections, upcast: the PE's sine channels number the views, so it
+      takes all of them), the head with `_mean_time_delta`'s velocity
+      scaling: its last layer's classes, boxes (code dims 0-7) and
+      velocities (8-9).
     `views` (e.g. (0, 6), one a frame) limits the stages of the backbone,
     the FPN, the RPN and the R-CNN to those views, to shorten the host's
-    run; the PE (whose sine channels number the views) and the head then
-    take the card's own chain's p4, PE and detections, upcast, on both
-    sides.
-    A row passes with max |card - host| <= tol x max |host|.  The chained
-    error, the card's own forward stage by stage against the host's, is
-    printed beside each row and not gated (past the RPN the two chains
-    may keep other proposals; in the head the chains differ only by it
-    when `views` is set), nor is the float32 control: the same stages on
-    the card in float32 with TF32 off (where it is near 0 and the bf16
-    row is not, the row's error is bfloat16 rounding, not a kernel's).
-    -> {row: dict(err, scale, ok, chained, f32)}, '_ok', '_host_s' (the
-    host's seconds by stage)."""
+    run.  A row passes with max |card - host| <= tol x max |host|.
+    Printed beside each row and not gated: the chained error (the card's
+    own forward stage by stage against the host's; past the RPN the two
+    chains may keep other proposals; the PE and head rows equal theirs),
+    and the float32 control (the same stages on the card in float32 with
+    TF32 off).  Then `_witness`: the bf16 error of the backbone's layers
+    and of the head with K2 / K4 and with their plain versions.
+    -> {row: dict(err, scale, ok, chained, f32)}, '_ok', '_witness',
+    '_host_s' (the host's seconds by stage)."""
     from ..models.mv2d import MV2D
     from ..routes import Routes
     from ..synthetic import init_random_weights
@@ -245,7 +348,7 @@ def numeric_check(cfg, dev, tol: float = CHECK_TOL,
     card = copy.deepcopy(host).to(dev, dt)
     imgs, cam, shapes = sc.rig_inputs(cfg, 'cpu', torch.float32)
     _, cam_d, shapes_d = sc.rig_inputs(cfg, dev, dt)
-    c, Vc, V = cfg, cfg.num_views, cfg.total_views
+    c, V = cfg, cfg.total_views
     sv = list(range(V)) if views is None else sorted(views)
     bd, cd = host.base_detector, card.base_detector
     pcfg, size = c.proposal_test, c.image_size
@@ -279,34 +382,22 @@ def numeric_check(cfg, dev, tol: float = CHECK_TOL,
         p4 = timed_host('neck', lambda f: host.neck(f)[0], fpn)
         rs, rd = timed_host('rpn_head', bd.rpn_head, fpn)
         pb, pv, cls, dl, props = timed_host('detect', detect, bd, fpn)
-        if views is None:
-            pe_in = p4
-        else:       # the PE numbers the views (its sine 'n' channels)
-            pe_in = p4_c.float().cpu()
+        # the PE and the head: the card chain's inputs, upcast, both sides
+        pe_in = p4_c.float().cpu()
         pos = timed_host('pe', host.roi_head.position_encoding, pe_in,
                          cam.img2lidar, shapes, size)
-        if views is None:
-            head_in = (p4, pos, props)
-        else:                     # the card's chain, upcast, on both sides
-            pc = type(props_c)(*(t.cpu() for t in props_c))
-            head_in = (pe_in, pos_c.float().cpu(), pc._replace(
-                boxes=pc.boxes.float(), scores=pc.scores.float()))
+        pc = type(props_c)(*(t.cpu() for t in props_c))
+        head_in = (pe_in, pos_c.float().cpu(), pc._replace(
+            boxes=pc.boxes.float(), scores=pc.scores.float()))
         out = timed_host('head', host.roi_head_forward, *head_in, cam,
                          shapes, host._mean_time_delta(cam))
         stage = _stage_rows(card, dt, dev, imgs[sv], C, fpn, pb, pe_in,
                             head_in, cam_d, shapes_d)
         if dev.type == 'cuda':        # the kernels in float32, TF32 off
-            tf32 = (torch.backends.cuda.matmul.allow_tf32,
-                    torch.backends.cudnn.allow_tf32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            try:
+            with _no_tf32():
                 control = _stage_rows(copy.deepcopy(host).to(dev),
                                       torch.float32, dev, imgs[sv], C, fpn,
                                       pb, pe_in, head_in, cam_d, shapes_d)
-            finally:
-                (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32) = tf32
         else:
             control = stage
     chained = _rows(cfg, C_c, fpn_c, p4_c, rs_c, rd_c, cls_c, dl_c, pos_c,
@@ -328,20 +419,10 @@ def numeric_check(cfg, dev, tol: float = CHECK_TOL,
               f'share {err / max(scale, 1e-30):.2e}  '
               f'{"ok" if ok else "FAIL"}  (float32 {ferr:.4e}, chained '
               f'{cerr:.4e})', flush=True)
-    # where the backbone's error grows: each later layer alone, fed the
-    # host's input of that layer (printed, not gated)
-    layers = {}
-    with torch.no_grad():
-        for i in range(1, 4):
-            layer = getattr(cd.backbone, f'layer{i + 1}')
-            err, scale = _err(layer(C[i - 1].to(dev, dt)), C[i])
-            layers[f'layer{i + 1}'] = (err, scale)
-            print(f'check (not gated) backbone layer{i + 1} alone, from the '
-                  f'host\'s C{i + 1}: max|err| {err:.4e}  share '
-                  f'{err / max(scale, 1e-30):.2e}', flush=True)
-    result['_layers'] = layers
+    result['_witness'] = _witness(card, dt, dev, C, head_in, cam_d,
+                                  shapes_d, ref)
     where = 'all views' if views is None else \
-        f'views {sv} (the PE and the head on all, from the card\'s chain)'
+        f'views {sv} (the PE and the head on all)'
     print(f'check on {where}: {len(ref)} rows within {tol:.0e} of max '
           f'|ref|: {ok_all}; the chains kept the same detections: '
           f'{same_props}; {int(props.valid.sum())} detections, key_overflow '

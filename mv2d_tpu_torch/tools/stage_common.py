@@ -3,7 +3,9 @@ busy time and the host syncs it makes, by site.
 
 `timed(fn, *args, iters, warmup, name)` runs `warmup` calls, then `iters`
 calls back to back with one `torch.cuda.synchronize()` at the end, and
-gives a `Row` with the host ms a call.  On a CUDA device it then makes,
+gives a `Row` with the host ms a call and the NMS fixpoint's rounds a
+call in that loop (`core.nms.greedy_fixpoint.rounds`: each round a host
+sync, the count depends on the scores).  On a CUDA device it then makes,
 outside that loop (each slows the calls it watches):
   * a window of calls (one, or as many as last ~20 ms) under
     `torch.profiler` (CPU and CUDA activities): the device's busy ms a
@@ -16,7 +18,7 @@ outside that loop (each slows the calls it watches):
     put to the site of the warning that follows it (torch warns as the
     op that synced returns).
 A site is the innermost frame of `mv2d_tpu_torch` below the harness on the
-stack at the sync (`core/nms.py:60 greedy_fixpoint`: the lines that
+stack at the sync (`core/nms.py:61 greedy_fixpoint`: the lines that
 synced), not the line inside torch that made it.  A sync on a thread with
 no Python frame (the autograd engine's) raises no warning: its blocked ms
 go to NO_FRAME.  The profiles are read from kineto's records
@@ -38,6 +40,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from ..core.nms import greedy_fixpoint
 from ..profile_train import _busy_ms
 
 PKG = 'mv2d_tpu_torch'
@@ -62,6 +65,7 @@ class SiteStats:
 class Row:
     name: str
     host_ms: float                          # a call, host clock
+    rounds: float = 0.0                     # NMS fixpoint rounds a call
     busy_ms: Optional[float] = None         # a call, None on the CPU
     sites: Optional[Dict[Site, SiteStats]] = None    # None on the CPU
 
@@ -266,11 +270,13 @@ def timed(fn, *args, iters: int = 10, warmup: int = 2, name: str = '',
     for _ in range(1 + warmup):
         fn(*args)
     sync()
+    r0 = greedy_fixpoint.rounds
     t0 = time.perf_counter()
     for _ in range(iters):
         fn(*args)
     sync()
-    row = Row(name, (time.perf_counter() - t0) * 1e3 / iters)
+    row = Row(name, (time.perf_counter() - t0) * 1e3 / iters,
+              (greedy_fixpoint.rounds - r0) / iters)
     if cuda:
         row.busy_ms = device_busy_ms(fn, args, row.host_ms)
         row.sites = sync_sites(fn, args)
@@ -288,8 +294,8 @@ def print_row(row: Row, width: int = 40):
                  + '; '.join(f'{site_name(s, st)} x{st.syncs} '
                              f'{st.blocked_ms:.3f} ms'
                              for s, st in row.top()))
-    print(f'{row.name:{width}s} {row.host_ms:9.3f} ms  {busy} ms  {syncs}',
-          flush=True)
+    print(f'{row.name:{width}s} {row.host_ms:9.3f} ms  {busy} ms  nms rounds '
+          f'{row.rounds:g}  {syncs}', flush=True)
 
 
 def refuse(piece: str, reason: str):
@@ -310,6 +316,22 @@ def add_common_args(p: argparse.ArgumentParser, iters: int = 10,
                         'fix MV2D-T R50; tests pass tiny)')
     p.add_argument('--num-frames', type=int, default=None,
                    help="override the preset's frames (tiny: 1)")
+
+
+def add_init_arg(p: argparse.ArgumentParser):
+    p.add_argument('--init', choices=('bench', 'random'), default='bench',
+                   help="the model's weights: 'bench' (default; "
+                        "synthetic.bench_rule_weights, bench.py's rule) or "
+                        "'random' (synthetic.init_random_weights, the "
+                        "weights chip_smoke.py serves and trains)")
+
+
+def init_weights(model, init: str = 'bench', seed: int = 0):
+    """`model` with `bench_rule_weights(seed)` or, for init 'random',
+    `init_random_weights(seed)`."""
+    from ..synthetic import bench_rule_weights, init_random_weights
+    return {'bench': bench_rule_weights,
+            'random': init_random_weights}[init](model, seed=seed)
 
 
 def device_of(args) -> torch.device:
@@ -337,13 +359,12 @@ def rig_inputs(cfg, dev, dtype, seed: int = 0):
     return imgs, rig_camera(cfg, dev), shapes
 
 
-def bench_model(cfg, dev, dtype, seed: int = 0):
-    """MV2D of cfg on the default routes with `bench_rule_weights(seed)`,
+def bench_model(cfg, dev, dtype, init: str = 'bench', seed: int = 0):
+    """MV2D of cfg on the default routes with `init_weights(init, seed)`,
     in eval mode, on dev in dtype."""
     from ..models.mv2d import MV2D
     from ..routes import Routes
-    from ..synthetic import bench_rule_weights
-    model = bench_rule_weights(MV2D(cfg, Routes()), seed)
+    model = init_weights(MV2D(cfg, Routes()), init, seed)
     return model.eval().to(dev, dtype)
 
 

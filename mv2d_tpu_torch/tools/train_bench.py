@@ -11,11 +11,13 @@ the Hungarian matching on the host, clip and AdamW; bfloat16 copies of
 float32 masters on the card) on one scene: `synthetic_train_batch(seed=0)`
 at the image size, or with `--fixture` the first training scene of a
 `tools.make_synth_fixture` directory through `data.nuscenes`.  Weights:
-`synthetic.bench_rule_weights(seed=0)`, or a checkpoint of the port
+`synthetic.bench_rule_weights(seed=0)` (`--init random`:
+`init_random_weights(seed=0)`), or a checkpoint of the port
 (`tools.train`'s, or a reference-keyed state dict) loaded with
 strict=True.  Runs a first step, `--warmup` steps (2), then `--iters`
-steps with one synchronize at the end, and prints ms a step, scenes/s
-and the peak device memory.  The reference trains one scene a GPU on 8 GPUs.
+steps with one synchronize at the end, and prints ms a step, scenes/s,
+the NMS fixpoint's rounds a step in those steps (each a host sync) and
+the peak device memory.  The reference trains one scene a GPU on 8 GPUs.
 
   --no-dcn   plain convs in stages 3-4 (the DCN's share of the step);
   --no-dn    no DN queries (the DN's share);
@@ -61,6 +63,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument('--no-auto-layout', action='store_true',
                    help='not ported (prints why)')
     sc.add_common_args(p)
+    sc.add_init_arg(p)
     return p.parse_args(argv)
 
 
@@ -82,10 +85,11 @@ def fixture_batch(cfg, fixture: str, dev):
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Runs the CLI; returns ms_per_step, scenes_per_s, peak_gib and loss
     (or flops and bytes with --flops)."""
+    from ..core.nms import greedy_fixpoint
     from ..models.mv2d import MV2D
     from ..parallel.dist import dp_train_step
     from ..routes import Routes
-    from ..synthetic import bench_rule_weights, synthetic_train_batch
+    from ..synthetic import synthetic_train_batch
     from ..train.optim import make_optimizer
     from .common import load_weights
     args = parse_args(argv)
@@ -118,7 +122,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         load_weights(model, args.weights)
         print(f'loaded weights from {args.weights}', flush=True)
     else:
-        bench_rule_weights(model, seed=0)
+        sc.init_weights(model, args.init)
     model = model.to(dev)
     opt = make_optimizer(model)
     batch = fixture_batch(cfg, args.fixture, dev) if args.fixture else \
@@ -155,17 +159,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     sync()
     if dev.type == 'cuda':
         torch.cuda.reset_peak_memory_stats(dev)
+    r0 = greedy_fixpoint.rounds
     t0 = time.perf_counter()
     for _ in range(args.iters):
         metrics = step()
     sync()
     dt = (time.perf_counter() - t0) / args.iters
+    rounds = (greedy_fixpoint.rounds - r0) / args.iters
     loss = float(metrics['total_loss'])
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
         if dev.type == 'cuda' else float('nan')
     print(f'train step: {dt * 1e3:.1f} ms/scene ({1 / dt:.3f} scenes/s), '
-          f'loss={loss:.3f}, peak {peak:.2f} GiB; {sc.card(dev)}',
-          flush=True)
+          f'loss={loss:.3f}, nms rounds {rounds:g} a step, peak {peak:.2f} '
+          f'GiB; {sc.card(dev)}', flush=True)
     if args.trace:
         from ..utils.profiling import trace
         with trace(args.trace):
@@ -173,7 +179,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 step()
         print(f'trace written to {args.trace}', flush=True)
     return dict(ms_per_step=dt * 1e3, scenes_per_s=1 / dt, peak_gib=peak,
-                loss=loss)
+                loss=loss, rounds=rounds)
 
 
 if __name__ == '__main__':

@@ -5,18 +5,22 @@ counterpart of the repository's `tools/train_stage_bench.py`.
       [--iters 8] [--warmup 2] [--device cuda|cpu]
 
 One scene, `synthetic.synthetic_train_batch(seed=0)`, with
-`synthetic.bench_rule_weights(seed=0)`; a step's draws (grid mask, DN
-noise, the samplers' keys) are drawn once from a generator seeded 0.  The
-rows, as the step runs them (bfloat16 copies of the float32 masters on
-the card, float32 on the CPU):
+`synthetic.bench_rule_weights(seed=0)` (`--init random`:
+`init_random_weights(seed=0)`, the weights `chip_smoke.py` trains).
+Rows 1-3 take one step's draws (grid mask, DN noise, the samplers'
+keys), drawn once from a generator seeded 0, which also draws their
+dropout; row 4 draws each step's own from it after them, so it times
+other steps than `train_bench` does.  The rows, as the step runs them
+(bfloat16 copies of the float32 masters on the card, float32 on the
+CPU):
   1. `MV2D.forward_train` alone, without gradients;
   2. the losses with the Hungarian matching (`train_step.step_losses`),
      without gradients;
   3. forward + backward (`parallel.dist.dp_objective`, `.backward()`);
   4. the full step through `parallel.dist.dp_train_step` (forward,
      backward, clip, AdamW), the step that trains.
-Each row prints the host ms a call, the device's busy ms and the host
-syncs by site (`stage_common.timed`).  The JAX tool's `--no-remat` has no
+Each row prints the host ms a call, the NMS fixpoint's rounds a call,
+the device's busy ms and the host syncs by site (`stage_common.timed`).  The JAX tool's `--no-remat` has no
 counterpart: the port keeps no rematerialisation.
 """
 from __future__ import annotations
@@ -34,9 +38,7 @@ NAMES = {1: 'model forward_train only', 2: 'losses forward (incl matching)',
 
 
 class _ForwardTrain(tnn.Module):
-    """forward_train as a module call, for torch.func.functional_call on
-    the step's bfloat16 parameter copies (`train_step._LossModule`'s
-    way)."""
+    """forward_train as a module call, for `train_step.bf16_call`."""
 
     def __init__(self, model):
         super().__init__()
@@ -49,16 +51,13 @@ class _ForwardTrain(tnn.Module):
 
 
 def forward_train(model, batch, draws, drop, mixed_precision: bool):
-    """forward_train as `train_step.step_losses` runs it: through bfloat16
-    copies of the parameters and images under mixed precision."""
-    if not mixed_precision:
-        return _ForwardTrain(model)(batch, draws, drop)
-    params = {f'model.{n}': p.to(torch.bfloat16)
-              if p.dtype == torch.float32 else p
-              for n, p in model.named_parameters()}
-    batch = batch._replace(imgs=batch.imgs.to(torch.bfloat16))
-    return torch.func.functional_call(_ForwardTrain(model), params,
-                                      (batch, draws, drop), strict=False)
+    """forward_train as `train_step.step_losses` runs it (under mixed
+    precision through `train_step.bf16_call`)."""
+    from ..train.train_step import bf16_call
+    module = _ForwardTrain(model)
+    if mixed_precision:
+        return bf16_call(module, batch, draws, drop)
+    return module(batch, draws, drop)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -68,6 +67,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument('--stage', type=int, default=-1, choices=(-1, 1, 2, 3, 4),
                    help='run only this row (1-4)')
     sc.add_common_args(p, iters=8)
+    sc.add_init_arg(p)
     return p.parse_args(argv)
 
 
@@ -89,8 +89,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               torch.bfloat16 if mp else torch.float32, cfg)
     from ..models.mv2d import MV2D
     from ..routes import Routes
-    from ..synthetic import bench_rule_weights
-    model = bench_rule_weights(MV2D(cfg, Routes()), seed=0).to(dev)
+    model = sc.init_weights(MV2D(cfg, Routes()), args.init).to(dev)
     opt = make_optimizer(model)
     batch = synthetic_train_batch(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -187,16 +187,21 @@ class _LossModule(tnn.Module):
         return compute_losses(self.model, batch, draws, drop)
 
 
+def bf16_call(module: tnn.Module, batch: TrainBatch, *args):
+    """module(batch, *args) through bfloat16 copies of module's float32
+    parameters and of the batch's images, so that the gradients reach the
+    float32 masters through the casts: the mixed precision of a step."""
+    params = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+              for n, p in module.named_parameters()}
+    batch = batch._replace(imgs=batch.imgs.to(torch.bfloat16))
+    return torch.func.functional_call(module, params, (batch, *args),
+                                      strict=False)
+
+
 def step_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
                 drop: Dropout = NO_DROPOUT, mixed_precision: bool = True):
     """compute_losses; mixed_precision runs the forward in bfloat16
-    through bfloat16 copies of the float32 parameters and images, so the
-    gradients reach the float32 masters through the casts."""
+    (`bf16_call`)."""
     if not mixed_precision:
         return compute_losses(model, batch, draws, drop)
-    params = {f'model.{n}': p.to(torch.bfloat16)
-              if p.dtype == torch.float32 else p
-              for n, p in model.named_parameters()}
-    batch = batch._replace(imgs=batch.imgs.to(torch.bfloat16))
-    return torch.func.functional_call(_LossModule(model), params,
-                                      (batch, draws, drop), strict=False)
+    return bf16_call(_LossModule(model), batch, draws, drop)

@@ -1,8 +1,10 @@
 """The port's stage benches (`mv2d_tpu_torch/tools/*_bench.py`, their
 harness `tools/stage_common.py`) on the CPU, at the tiny preset:
 
-  * each tool's `main` with `--device cpu --iters 1` prints its rows, and
-    the JAX pieces and flags it does not port print their reasons;
+  * each tool's `main` with `--device cpu --iters 1` prints its rows
+    with their NMS fixpoint rounds a call, and the JAX pieces and flags
+    it does not port print their reasons; `--init random` takes
+    `init_random_weights`;
     `train_bench` loads a checkpoint strictly, writes a trace, and reads
     its `--fixture` scene from a rendered `make_synth_fixture`;
   * `train_bench --flops` counts the backward: the step's FLOPs are more
@@ -14,8 +16,10 @@ harness `tools/stage_common.py`) on the CPU, at the tiny preset:
     `roi_head_forward` within 1e-4 of each output's max magnitude (float32
     end to end; `test_torch_port_slice.py`'s tolerance), discrete outputs
     (validity, labels) exactly;
-  * `stage_bench --check` runs its rows (on the CPU both sides are the
-    float32 plain path, so every error is 0);
+  * `stage_bench --check` runs its rows and its witness (on the CPU both
+    sides are the float32 plain path, so every error is 0); the witness
+    puts K2's and K4's plain versions where the forward calls the
+    kernels, and only while it runs;
   * `bench_rule_weights` gives every BN running variance 1 and rpn_reg /
     fc_reg 0, and the tensors it sets so correspond one to one, through
     `weights.py`'s key map, to the JAX leaves that `bench.py`'s rule sets
@@ -59,10 +63,11 @@ def _threads():
 
 # tool, extra arguments, rows printed, refusals printed
 TOOLS = [
-    (stage_bench, ['--flash'], 6, ['--flash']),
+    (stage_bench, ['--flash', '--init', 'random'], 6, ['--flash']),
     (detect_stage_bench, [], 5, []),
     (roi_stage_bench, [], 7, ['align', 'keys']),
-    (train_stage_bench, ['--no-remat'], 4, ['--no-remat']),
+    (train_stage_bench, ['--no-remat', '--init', 'random'], 4,
+     ['--no-remat']),
     (micro_bench, [], 21, ['align (XLA form)', 'dcn (gather)',
                            'bottleneck p512 fused']),
     (misc_bench, [], 11, []),
@@ -81,12 +86,14 @@ def test_tool_prints_rows(tool, extra, n_rows, refused, capsys):
         assert np.isfinite(r.host_ms) and r.host_ms > 0
         assert r.busy_ms is None and r.sites is None     # not on the CPU
         assert f'{r.name:40s} {r.host_ms:9.3f} ms' in text
-        assert 'syncs n/a (CPU)' in text
+        assert f'nms rounds {r.rounds:g}  syncs n/a (CPU)' in text
     for piece in refused:
         assert f'{piece}: not ported (' in text
     assert text.count('not ported') == len(refused)
     if tool is stage_bench:
         assert 'of the full row' in text
+        assert rows['detect'].rounds == rows['full'].rounds > 0
+        assert rows['feats'].rounds == rows['head'].rounds == 0
 
 
 def test_train_bench_step_weights_trace_fixture(tmp_path, capsys):
@@ -166,6 +173,30 @@ def test_check_runs_its_rows(capsys):
     assert all(v['err'] == 0.0 and v['scale'] > 0 for v in rows.values())
     assert 'the chains kept the same detections: True' in \
         capsys.readouterr().out
+    wit = res['_witness']
+    assert set(wit) == {'layer2', 'layer3', 'layer4', 'head cls',
+                        'head box', 'head velocity'}
+    assert all(v['kernel'] == 0.0 for v in wit.values())
+    assert all(wit[k]['plain'] == wit[k]['apart'] == 0.0
+               for k in ('head cls', 'head box', 'head velocity'))
+
+
+def test_witness_swaps_in_the_plain_versions():
+    from mv2d_tpu_torch.nn import decoder
+    from mv2d_tpu_torch.ops import attention, dcn
+    with stage_bench._plain('dcn'):
+        assert dcn.dcn_conv is dcn.dcn_conv_plain
+    assert dcn.dcn_conv is not dcn.dcn_conv_plain
+    with stage_bench._plain('attention'):
+        assert decoder.masked_attention is not attention.masked_attention
+    assert decoder.masked_attention is attention.masked_attention
+    # the module calls the plain version under the swap
+    conv = dcn.ModulatedDeformConv(32, 64)
+    x = torch.randn(1, 5, 6, 32)
+    with torch.no_grad():
+        want = conv(x)
+        with stage_bench._plain('dcn'):
+            assert torch.equal(conv(x), want)
 
 
 def _close(got, want, tol=TOL):
