@@ -1,7 +1,6 @@
-"""Box utilities: 3D box codes, axis-aligned IoU, rotated BEV IoU.
+"""Box utilities: 3D box codes, axis-aligned IoU, rotated BEV and 3D IoU.
 
-Port of `mv2d_tpu/core/boxes.py` (the parts the eval and training paths
-use).
+Port of `mv2d_tpu/core/boxes.py`.
 3D boxes are (cx, cy, cz, w, l, h, yaw[, vx, vy]); "gravity" boxes have z
 at the geometric center, "bottom" boxes at the bottom face.
 """
@@ -111,9 +110,9 @@ def _clip_polygon_halfplane(poly, count, p0, p1):
     return pts[..., :P, :], new_count
 
 
-def rotated_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
-                    eps: float = 1e-8) -> torch.Tensor:
-    """Pairwise IoU of rotated BEV boxes (cx, cy, w, l, yaw):
+def _bev_intersection(boxes_a: torch.Tensor,
+                      boxes_b: torch.Tensor) -> torch.Tensor:
+    """Pairwise intersection area of rotated BEV boxes (cx, cy, w, l, yaw):
     [..., n, 5] x [..., m, 5] -> [..., n, m], exact convex clipping."""
     n, m = boxes_a.shape[-2], boxes_b.shape[-2]
     ca = bev_corners(boxes_a)                                # [..., n, 4, 2]
@@ -129,7 +128,31 @@ def rotated_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
         p1 = cb[..., None, :, (e + 1) % 4, :].expand(*lead, n, m, 2)
         poly, count = _clip_polygon_halfplane(poly, count, p0, p1)
     valid = torch.arange(P, device=poly.device) < count[..., None]
-    inter = _polygon_area(poly, valid)
+    return _polygon_area(poly, valid)
+
+
+def rotated_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
+                    eps: float = 1e-8) -> torch.Tensor:
+    """Pairwise IoU of rotated BEV boxes (cx, cy, w, l, yaw):
+    [..., n, 5] x [..., m, 5] -> [..., n, m], exact convex clipping."""
+    inter = _bev_intersection(boxes_a, boxes_b)
     area_a = (boxes_a[..., 2] * boxes_a[..., 3])[..., :, None]
     area_b = (boxes_b[..., 2] * boxes_b[..., 3])[..., None, :]
     return inter / (area_a + area_b - inter).clamp(min=eps)
+
+
+def iou_3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor,
+           eps: float = 1e-8) -> torch.Tensor:
+    """Pairwise 3D IoU of bottom-center boxes (x, y, z, w, l, h, yaw):
+    [n, >=7] x [m, >=7] -> [n, m], the BEV polygon intersection times the
+    vertical overlap (the reference's mmdet3d iou3d calculators; no path
+    of the model calls it)."""
+    bev = [0, 1, 3, 4, 6]
+    inter_bev = _bev_intersection(boxes_a[:, bev], boxes_b[:, bev])
+    z1 = torch.maximum(boxes_a[:, None, 2], boxes_b[None, :, 2])
+    z2 = torch.minimum(boxes_a[:, None, 2] + boxes_a[:, None, 5],
+                       boxes_b[None, :, 2] + boxes_b[None, :, 5])
+    inter = inter_bev * (z2 - z1).clamp(min=0.0)
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return inter / (vol_a + vol_b - inter).clamp(min=eps)

@@ -121,6 +121,38 @@ def normalize_points(points: torch.Tensor,
     return (points - lo) / (hi - lo)
 
 
+def denormalize_points(points: torch.Tensor,
+                       pc_range: Sequence[float]) -> torch.Tensor:
+    """[0, 1]^3 -> lidar xyz over pc_range, the inverse of
+    `normalize_points`; the range enters as Python scalars, so a call
+    copies nothing to the device."""
+    lo, hi = pc_range[:3], pc_range[3:]
+    return torch.stack([points[..., i] * (hi[i] - lo[i]) + lo[i]
+                        for i in range(3)], dim=-1)
+
+
+def points_img2cam(points: torch.Tensor,
+                   cam2img: torch.Tensor) -> torch.Tensor:
+    """Unproject image points (u, v, depth) [N, 3] to camera-frame xyz
+    [N, 3] through the inverse of cam2img ([3, 3], [3, 4] or [4, 4])
+    padded to 4x4 (the reference's core/bbox/util.py points_img2cam)."""
+    pad = torch.eye(4, dtype=points.dtype, device=points.device)
+    pad[:cam2img.shape[0], :cam2img.shape[1]] = cam2img
+    homo = torch.cat([points[:, :2] * points[:, 2:3], points[:, 2:3],
+                      torch.ones_like(points[:, :1])], dim=1)
+    return (homo @ torch.linalg.inv_ex(pad).inverse.T)[:, :3]
+
+
+def project_lidar_to_img(points: torch.Tensor, lidar2img: torch.Tensor,
+                         eps: float = 1e-2):
+    """Project lidar xyz [..., 3] with lidar2img [..., 4, 4] -> (uv
+    [..., 2], depth [...]); the divisor is the depth clamped to >= eps."""
+    p = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    q = (lidar2img @ p[..., None])[..., 0]
+    depth = q[..., 2]
+    return q[..., :2] / depth[..., None].clamp(min=eps), depth
+
+
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """mmdet inverse_sigmoid: clamp to [0, 1], then eps-guard."""
     x = x.clamp(0.0, 1.0)

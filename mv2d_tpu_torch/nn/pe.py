@@ -79,6 +79,33 @@ def sine_positional_encoding_3d(mask: torch.Tensor, num_feats: int = 128,
     return torch.cat([emb(n_embed), emb(y_embed), emb(x_embed)], dim=-1)
 
 
+class LearnedPositionalEncoding3D(tnn.Module):
+    """Learned view / row / col embedding (ref models/utils/
+    positional_encoding.py:110; no config selects it): mask [V, H, W] ->
+    [V, H, W, 3 * num_feats], ordered view, row, col; index i of an axis
+    reads row i modulo its table's size."""
+
+    def __init__(self, num_feats: int = 128, row_num_embed: int = 50,
+                 col_num_embed: int = 50, view_num_embed: int = 12):
+        super().__init__()
+        self.row_embed = tnn.Embedding(row_num_embed, num_feats)
+        self.col_embed = tnn.Embedding(col_num_embed, num_feats)
+        self.view_embed = tnn.Embedding(view_num_embed, num_feats)
+
+    def forward(self, mask: torch.Tensor) -> torch.Tensor:
+        V, H, W = mask.shape
+
+        def emb(table, n):
+            return table(torch.arange(n, device=mask.device)
+                         % table.num_embeddings)
+        view, row, col = (emb(self.view_embed, V), emb(self.row_embed, H),
+                          emb(self.col_embed, W))
+        size = (V, H, W, view.shape[-1])
+        return torch.cat([view[:, None, None].expand(size),
+                          row[None, :, None].expand(size),
+                          col[None, None, :].expand(size)], dim=-1)
+
+
 class SELayer(tnn.Module):
     def __init__(self, channels: int):
         super().__init__()

@@ -2,7 +2,7 @@
 the counterpart of the repository's `tools/stage_bench.py`.
 
   python -m mv2d_tpu_torch.tools.stage_bench [piece ...] [--f32]
-      [--iters 10] [--warmup 2] [--check] [--device cuda|cpu]
+      [--iters 10] [--warmup 2] [--check [--seed 0]] [--device cuda|cpu]
 
 pieces: feats, detect, pe, head, decode, full (default: all).  Each row
 calls the port's own stage methods, in the order `MV2D.forward` calls
@@ -24,7 +24,9 @@ card (`--f32`: float32), with `synthetic.bench_rule_weights(seed=0)`
 forward on the card (bfloat16, hand kernels) against the port's float32
 plain path on the host, both sides fed the same inputs, so that a row
 measures that stage alone, and a witness that reruns the bf16 path with
-K2's and K4's plain versions in their place (`numeric_check`).
+K2's and K4's plain versions in their place (`numeric_check`).  `--seed`
+draws its weights (`init_random_weights(seed)`, rpn_reg / fc_reg from
+seed + 1).
 
 The JAX tool's `--flash` is not ported: it routes the TPU's attention,
 and the port runs K4 for every shared-key attention on the card whatever
@@ -90,6 +92,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument('--check-views', default=None,
                    help='comma-separated views for the per-view stages of '
                         "--check (e.g. '0,6'; default all)")
+    p.add_argument('--seed', type=int, default=0,
+                   help="--check's weight seed")
     sc.add_common_args(p)
     sc.add_init_arg(p)
     return p.parse_args(argv)
@@ -107,7 +111,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.check:
         views = None if args.check_views is None else [
             int(v) for v in args.check_views.split(',')]
-        return {'check': numeric_check(cfg, dev, views=views)}
+        return {'check': numeric_check(cfg, dev, views=views,
+                                       seed=args.seed)}
     dtype = torch.float32 if args.f32 or dev.type == 'cpu' \
         else torch.bfloat16
     pieces = sc.want(PIECES, args.pieces)
@@ -303,21 +308,23 @@ def _witness(card, dt, dev, C, head_in, cam, shapes, ref) -> dict:
         else:
             what, kern = piece, 'K4'
         plain = ' (no DCN)' if r['plain'] is None else (
-            f' with {kern}, {r["plain"]:.2e} with its plain version in '
-            f'bf16; the two apart {r["apart"]:.2e}')
-        print(f'check (witness) {what}: share {r["kernel"]:.2e}{plain}',
+            f' with {kern}, {r["plain"]:.3e} with its plain version in '
+            f'bf16 (ratio {r["kernel"] / max(r["plain"], 1e-30):.3f}); the '
+            f'two apart {r["apart"]:.3e}')
+        print(f'check (witness) {what}: share {r["kernel"]:.3e}{plain}',
               flush=True)
     return res
 
 
 def numeric_check(cfg, dev, tol: float = CHECK_TOL,
-                  views: Optional[Sequence[int]] = None) -> dict:
+                  views: Optional[Sequence[int]] = None,
+                  seed: int = 0) -> dict:
     """Each stage of the forward on `dev` (bfloat16 on the card: the hand
     kernels) against the port's float32 plain path on the host, on
-    `init_random_weights(seed=0)` with rpn_reg / fc_reg drawn too
-    (`_delta_heads`), the float32 weights cast for the card.  Each stage
-    is fed the same inputs on both sides, so that a row measures that
-    stage alone:
+    `init_random_weights(seed)` with rpn_reg / fc_reg drawn too
+    (`_delta_heads(seed + 1)`), the float32 weights cast for the card.
+    Each stage is fed the same inputs on both sides, so that a row
+    measures that stage alone:
       backbone C2-C5 (images); FPN p2-p6 and the neck's p4 (the host's
       C2-C5 / p2-p6); the RPN's objectness and deltas of each level,
       dense, before top-k and NMS (p2-p6); the R-CNN's cls and deltas on
@@ -342,8 +349,9 @@ def numeric_check(cfg, dev, tol: float = CHECK_TOL,
     from ..routes import Routes
     from ..synthetic import init_random_weights
     dt = torch.bfloat16 if dev.type == 'cuda' else torch.float32
-    sc.header('stage_bench --check', dev, dt, cfg)
-    host = _delta_heads(init_random_weights(MV2D(cfg, Routes()), seed=0))
+    sc.header(f'stage_bench --check (weight seed {seed})', dev, dt, cfg)
+    host = _delta_heads(init_random_weights(MV2D(cfg, Routes()), seed=seed),
+                        seed + 1)
     host = host.eval()
     card = copy.deepcopy(host).to(dev, dt)
     imgs, cam, shapes = sc.rig_inputs(cfg, 'cpu', torch.float32)

@@ -1,7 +1,7 @@
 """Evaluation CLI of the port: the counterpart of the repository's
 `tools/test.py` (the reference's `tools/test.py --eval bbox` flow).
 
-  python -m mv2d_tpu_torch.tools.test <config> [checkpoint.pth]
+  python -m mv2d_tpu_torch.tools.test <config> [checkpoint.pth] [--eval]
       [--out submission.json] [--format-only] [--max-samples N]
       [--cfg-options k=v ...] [--device cuda|cpu]
 
@@ -14,8 +14,10 @@ optionally under 'state_dict'), loaded with strict=True; without one the
 weights are `synthetic.init_random_weights(seed=0)`.  The model runs in
 bfloat16 on the GPU (the default) and in float32 with `--device cpu`.
 Prints mAP, NDS, the mean TP errors and each class's AP; `--out` writes
-the nuScenes submission json.  The port runs exact top-k always, so the
-JAX CLI's MV2D_EXACT_TOPK has no counterpart.
+the nuScenes submission json.  `--eval` is taken, and is on whether
+given or not, as in the JAX CLI: only `--format-only` skips the metrics.
+The port runs exact top-k always, so the JAX CLI's MV2D_EXACT_TOPK has
+no counterpart.
 
 On N GPUs: `bash mv2d_tpu_torch/tools/dist_test.sh <config> [args]` (or
 torchrun ... -m mv2d_tpu_torch.tools.test): with RANK set, each process
@@ -42,6 +44,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser()
     p.add_argument('config')
     p.add_argument('checkpoint', nargs='?', default=None)
+    p.add_argument('--eval', action='store_true', default=True)
     p.add_argument('--format-only', action='store_true')
     p.add_argument('--out', default=None, help='submission json path')
     p.add_argument('--max-samples', type=int, default=None)

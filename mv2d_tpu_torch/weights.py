@@ -5,9 +5,11 @@
 package's nested {'params', 'constants'} trees (numpy arrays) of an MV2D
 model (ResNet or VoVNet backbone, two-stage or single-stage detector)
 and returns reference-named numpy arrays that load into
-`mv2d_tpu_torch.models.mv2d.MV2D` with strict=True.  The single-stage
-head takes mmdet RetinaHead's names (the JAX converter has no table for
-it).  Layout changes:
+`mv2d_tpu_torch.models.mv2d.MV2D` with strict=True; a flax `Embed`
+table at the top of the tree (`LearnedPositionalEncoding3D`'s) becomes
+its `nn.Embedding` weight.  The single-stage head takes mmdet
+RetinaHead's names (the JAX converter has no table for it).  Layout
+changes:
 conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in], the DCN
 tap kernel [9, C, F] -> [F, C, 3, 3], the R-CNN fc1 input order
 (7, 7, C) -> (C, 7, 7), and per-attention q/k/v projections packed into
@@ -282,6 +284,9 @@ def torch_key(path: str, packed, value):
     if top == 'bbox_head':
         r = _head_key(p, packed, value)
         return r and (f'roi_head.bbox_head.{r[0]}', r[1])
+    m = re.fullmatch(r'(\w+_embed)/embedding', path)
+    if m:                         # flax Embed [n, F] = nn.Embedding [n, F]
+        return f'{m.group(1)}.weight', _raw
     return None
 
 

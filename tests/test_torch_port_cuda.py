@@ -1087,3 +1087,60 @@ def test_exported_tiny_program_on_the_card(dev, tmp_path):
     need, masks = smoke.path_kernels(cfg)
     assert smoke._launch_check(launched, need)
     assert launched['mask_bits'] == masks
+
+
+# ------------------------- the public functions that no model path calls
+
+def _surface_calls():
+    """name -> fn(device) -> outputs, on inputs drawn once with numpy."""
+    import numpy as np
+    from mv2d_tpu_torch.core import boxes, coder, geometry
+    from mv2d_tpu_torch.nn import pe
+    rng = np.random.default_rng(0)
+    a = np.concatenate([rng.uniform(-3, 3, (7, 3)), rng.uniform(0.5, 4, (
+        7, 3)), rng.uniform(-3, 3, (7, 1))], 1).astype(np.float32)
+    K, E = synthetic.camera_rig(6, (64, 176))
+    l2i = (K @ np.transpose(E, (0, 2, 1))).astype(np.float32)
+    uvd = rng.uniform(1, 60, (20, 3)).astype(np.float32)
+    pts = rng.uniform(-40, 40, (6, 50, 3)).astype(np.float32)
+    cls = rng.normal(0, 2, (30, 11)).astype(np.float32)
+    code = rng.normal(0, 1, (30, 10)).astype(np.float32) * 20
+    qv = rng.uniform(size=30) > 0.33
+    lpe = pe.LearnedPositionalEncoding3D(8, 5, 7, 4)
+
+    def on(d, x):
+        return torch.from_numpy(x).to(d)
+    return {
+        'iou_3d': lambda d: (boxes.iou_3d(on(d, a), on(d, a[::-1].copy())),),
+        'points_img2cam': lambda d: (geometry.points_img2cam(
+            on(d, uvd), on(d, K[0, :3, :3].astype(np.float32))),),
+        'denormalize_points': lambda d: (geometry.denormalize_points(
+            on(d, pts / 80 + 0.5), [-51.2, -51.2, -5.0, 51.2, 51.2, 3.0]),),
+        'project_lidar_to_img': lambda d: geometry.project_lidar_to_img(
+            on(d, pts), on(d, l2i[:, None])),
+        'nms_free_cls_decode': lambda d: coder.nms_free_cls_decode(
+            on(d, cls), on(d, code), on(d, qv), 40, 10,
+            (-61.2, -61.2, -10.0, 61.2, 61.2, 10.0), 0.2),
+        'LearnedPositionalEncoding3D': lambda d: (lpe.to(d)(
+            torch.zeros((6, 9, 11), dtype=torch.bool, device=d)),)}
+
+
+@pytest.mark.parametrize('name', ['iou_3d', 'points_img2cam',
+                                  'denormalize_points',
+                                  'project_lidar_to_img',
+                                  'nms_free_cls_decode',
+                                  'LearnedPositionalEncoding3D'])
+def test_public_function_on_the_card_equals_the_cpu(dev, name):
+    """Each of the six on CUDA tensors against the same call on the CPU,
+    float32: floats within 1e-5 of the CPU's max, the rest equal."""
+    fn = _surface_calls()[name]
+    with torch.no_grad():
+        want, got = fn('cpu'), fn(dev)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == 'cuda' and g.shape == w.shape
+        if w.is_floating_point():
+            err = float((g.cpu() - w).abs().max())
+            assert err <= 1e-5 * max(float(w.abs().max()), 1e-6), err
+        else:
+            assert torch.equal(g.cpu(), w)

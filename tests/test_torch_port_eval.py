@@ -273,6 +273,16 @@ def test_test_cli_on_cpu(fake, tmp_path):
             ttest.main([cfg_path])
 
 
+def test_test_cli_takes_eval():
+    """`--eval` parses, as in the JAX CLI (store_true, default True), so a
+    reference-style command line runs; metrics are on either way."""
+    from mv2d_tpu_torch.tools import test as ttest
+    for argv in (['c.py', 'w.pth', '--eval'], ['c.py', '--eval', '--out',
+                                                'r.json'], ['c.py']):
+        args = ttest.parse_args(argv)
+        assert args.eval is True and not args.format_only
+
+
 def test_create_data_cli(tmp_path):
     from mv2d_tpu_torch.tools import create_data
     root = _fake_tables(str(tmp_path), n_samples=3)
