@@ -77,6 +77,14 @@ Phases, in order; any failure exits non-zero without the final line:
      K3, K4 on the self-attention, `mask_bits` once a forward; the
      cross-attention is per query, in batched matmuls); serve_v99: two
      MV2D-T forwards on the VoVNet-99 backbone (K3, K4, no K1 or K2);
+     serve_all: two MV2D-T R50 forwards under the reference's
+     'all_matched' correlation (every RoI with a positive hull IoU
+     correlates: a [900, 901] table; K1-K4 as in serve, key_active and
+     key_overflow printed); serve_s_all: two MV2D-S R50 forwards under
+     'all_matched' (each query's keys the cells of all 451 RoIs,
+     [450, 22099, 256]) when its reckoned peak
+     (`serve_peak_estimate_gb`) stays within 90% of the card's memory,
+     else the reckoning printed and the forward skipped;
      export: `tools.export` of MV2D-T R50 bf16 at full width on the
      serve phase's weights and inputs (one `mv2d` node a kernel call:
      K1 3, K2 9, K3 1, K4 12, mask_bits 2), the .pt2 loaded and run 4
@@ -139,7 +147,8 @@ Phases, in order; any failure exits non-zero without the final line:
      float32 control on the card within 1e-4; the witness (the DCN layers
      and the head with K2 / K4 and with their plain versions in bf16),
      each kernel's error within WITNESS_RATIO of its plain version's;
-     launches of the eval and training paths' kernels;
+     launches of the eval and training paths' kernels (`train_stage_bench`
+     with --no-remat: the step that `train` runs);
   9. train: four full-width MV2D-T R50 training steps (bf16 mixed
      precision, synthetic_train_batch(seed=0), seeded weights; the first
      is warm-up): finite losses, total and grad norm, trained parameters
@@ -151,7 +160,13 @@ Phases, in order; any failure exits non-zero without the final line:
      DN (40866 shared keys, 1794 queries: K4 and B8 on the cross-
      attention too): finite losses, the DN terms in the second leg only,
      each leg's launches, ms a step and peak memory, the DN cross-
-     attention's first inputs replayed;
+     attention's first inputs replayed; train_remat: two full-width
+     MV2D-T R50 steps with remat and remat_decoder against two without,
+     the same seeded weights, scene and generator (dropout 0.1), cuDNN
+     held to deterministic algorithms for the phase: every metric and
+     gradient equal bit for bit, the remat leg launching B5 and K4 twice
+     a step (the backward's recompute) and every other kernel as often,
+     ms a step and the peak memory of each leg;
   10. routes_tiny: the routes that the JAX package's switches select
      (`mv2d_tpu_torch.routes.Routes`), float32 with TF32 off, GPU against
      CPU: a ResNet-50 backbone with MV2D-T's DCN layout on 2 views at
@@ -1400,8 +1415,8 @@ def path_kernels(cfg, training=False, dn=False):
     """(the kernels that a forward of `cfg` on the default routes launches
     (training: a step's, with DN queries if `dn`), the masks its decoder
     packs a pass): K4 (with B8 in training) for every shared-key
-    attention, K1 for a DCN-free ResNet layer1, K2 (B5 and B6 in
-    training) for a ResNet with DCN, K3 (and B9) for the two-stage
+    attention, K1 for a DCN-free ResNet layer1, K2 (B5 and B6 in a
+    trained stage) for a ResNet with DCN, K3 (and B9) for the two-stage
     detector's R-CNN; the self-attention mask, and the cross-attention
     mask where the keys are shared (the pixel key mode, or roi with
     DN)."""
@@ -1409,9 +1424,14 @@ def path_kernels(cfg, training=False, dn=False):
     resnet = cfg.backbone_type == 'resnet'
     if resnet and not cfg.stage_with_dcn[0]:
         need.append('fused_stage1')
-    if resnet and any(cfg.stage_with_dcn):
-        need += (['dcn_samples', 'dcn_samples_backward'] if training
-                 else ['dcn_conv'])
+    # stages below max(frozen_stages, 1) run without gradients, so their
+    # DCN convs take K2 in training too
+    frozen = max(cfg.frozen_stages, 1)
+    dcn = [s for s in range(4) if resnet and cfg.stage_with_dcn[s]]
+    if any(s < frozen or not training for s in dcn):
+        need.append('dcn_conv')
+    if training and any(s >= frozen for s in dcn):
+        need += ['dcn_samples', 'dcn_samples_backward']
     if cfg.detector_type == 'two_stage':
         need.append('roi_align_multilevel')
         if training:
@@ -2325,8 +2345,11 @@ def phase_stages(dev, results, args=(), iters=2, warmup=1,
                 train_stage_bench, micro_bench, misc_bench):
         name = mod.__name__.rsplit('.', 1)[-1]
         t0 = time.perf_counter()
+        # the JAX tool's default recomputes the backbone in the backward;
+        # the phase times the step that trains, which keeps it
+        extra = ['--no-remat'] if mod is train_stage_bench else []
         try:
-            rows = mod.main(it)['rows']
+            rows = mod.main(it + extra)['rows']
         except Exception as e:            # report, go on with the others
             import traceback
             traceback.print_exc()
@@ -2650,6 +2673,141 @@ def phase_train_s(dev, results, n_steps=4, n_dn_steps=2, cfg=None):
             'roi_align_multilevel_backward':
                 roi_align.roi_align_multilevel_backward}
     return _replay(seen, plain, kern, 'train_s') and ok
+
+
+def phase_train_remat(dev, results, n_steps=2, cfg=None):
+    """n_steps full-width training steps (bf16 mixed precision, dropout
+    on) of `cfg` (default MV2D-T R50) with remat and remat_decoder
+    against n_steps without, from the same seeded weights, scene and
+    generator seed: every metric and every parameter's gradient of each
+    step equal bit for bit (every kernel on the path has one owner an
+    output tile; cuDNN is held to its deterministic algorithms for the
+    phase), the remat leg launching each recomputed kernel's forward
+    twice a step (B5 in the trained DCN stages, K4 in the decoder) and
+    every other kernel as often; ms a step and the peak memory of each
+    leg.  Launches go under 'train_remat' (the remat leg's)."""
+    import torch
+    from mv2d_tpu_torch import configs
+    from mv2d_tpu_torch.models.mv2d import MV2D
+    from mv2d_tpu_torch.parallel.dist import dp_train_step
+    from mv2d_tpu_torch.routes import Routes
+    from mv2d_tpu_torch.synthetic import (init_random_weights,
+                                          synthetic_train_batch)
+    from mv2d_tpu_torch.train.optim import make_optimizer
+
+    base = cfg or configs.mv2d_t_r50()
+    batch = synthetic_train_batch(base, seed=0, device=dev)
+    fns = counters()
+    legs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for remat in (False, True):
+            c = base._replace(remat=remat, remat_decoder=remat)
+            model = init_random_weights(MV2D(c, Routes()), seed=0).to(dev)
+            opt = make_optimizer(model)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            torch.cuda.synchronize()
+            start_gb = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            for fn in fns.values():
+                fn.launches = 0
+            steps, ms = [], []
+            for _ in range(n_steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                metrics = dp_train_step(model, opt, [batch], [gen])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                steps.append(({k: float(v) for k, v in metrics.items()},
+                              {n: p.grad.detach().clone()
+                               for n, p in model.named_parameters()
+                               if p.grad is not None}))
+            legs[remat] = dict(
+                steps=steps, ms=ms, start_gb=start_gb,
+                peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches={n: fn.launches for n, fn in fns.items()})
+            del model, opt
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, rem = legs[False], legs[True]
+    for name, n in rem['launches'].items():
+        results[name]['launches_by_path']['train_remat'] = n
+    same_metrics = all(a[0] == b[0] for a, b in
+                       zip(plain['steps'], rem['steps']))
+    unequal = sorted({n for a, b in zip(plain['steps'], rem['steps'])
+                      for n in set(a[1]) | set(b[1])
+                      if n not in a[1] or n not in b[1]
+                      or not torch.equal(a[1][n], b[1][n])})
+    worst = max((float((a[1][n].float() - b[1][n].float()).abs().max())
+                 for a, b in zip(plain['steps'], rem['steps'])
+                 for n in a[1] if n in b[1]), default=0.0)
+    twice = ('dcn_samples', 'masked_attention')
+    la, lb = plain['launches'], rem['launches']
+    launch_ok = all(lb[n] == 2 * la[n] > 0 for n in twice) and all(
+        lb[n] == la[n] for n in la if n not in twice)
+    finite = all(np.isfinite(v) for st in rem['steps']
+                 for v in st[0].values())
+    ok = same_metrics and not unequal and launch_ok and finite
+    for remat, leg in legs.items():
+        log(f'  remat={remat}: ms/step ' + ', '.join(
+            f'{t:.1f}' for t in leg['ms']) + f'; memory at the start '
+            f'{leg["start_gb"]:.2f} GiB, peak {leg["peak_gb"]:.2f} GiB; '
+            f'total_loss ' + ', '.join(
+                f'{st[0]["total_loss"]:.6f}' for st in leg['steps']))
+    log(f'  metrics equal {same_metrics}; gradients unequal in '
+        f'{len(unequal)} tensors {unequal[:5]} (worst abs diff '
+        f'{worst:.3e}); launches without {la} with {lb} (forward '
+        f'kernels {twice} twice) {"ok" if ok else "FAIL"}')
+    results['_train_remat'] = {str(k): dict(ms=v['ms'],
+                                            peak_gb=v['peak_gb'])
+                               for k, v in legs.items()}
+    return ok
+
+
+def all_matched(cfg):
+    """cfg with its correlation in the reference's 'all_matched' mode."""
+    return cfg._replace(correlation=cfg.correlation._replace(
+        mode='all_matched'))
+
+
+def phase_serve_s_all(dev, results, n_requests=2, share=0.9):
+    """n_requests full-width bf16 MV2D-S R50 forwards under 'all_matched'
+    (each query's keys: the cells of all 1 + R RoIs), through
+    `phase_serve`, if `serve_peak_estimate_gb` stays within `share` of
+    the card's memory; otherwise the reckoning is printed and the
+    forwards skipped."""
+    import torch
+    from mv2d_tpu_torch import configs
+    cfg = all_matched(configs.mv2d_s_r50())
+    est = serve_peak_estimate_gb(cfg)
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    fits = est <= share * card
+    log(f'  reckoned peak {est:.1f} GiB of the card\'s {card:.1f} GiB '
+        f'({"runs" if fits else "skipped: over"} {share:.0%})')
+    if not fits:
+        return True
+    try:
+        return phase_serve(dev, results, n_requests, cfg, 'serve_s_all')
+    finally:
+        torch.cuda.empty_cache()
+
+
+def serve_peak_estimate_gb(cfg) -> float:
+    """The roi key mode's eval forward peak, reckoned from its shapes in
+    bf16 (the per-query keys dominate): the gathered cells [R, Cc*49, 2C]
+    and, in a decoder layer's cross-attention, keys + key_pos, the two
+    projections, their float32 casts in `multi_head_attention` and the
+    float32 copy that each batched matmul makes of its transposed operand
+    (three [R, Cc*49, C] float32 tensors live at once), plus 2 GiB for the
+    rest of the forward."""
+    R = cfg.total_views * cfg.proposal_test.max_per_img
+    Cc = 1 + R if cfg.correlation.mode == 'all_matched' else \
+        1 + cfg.total_views * min(cfg.correlation.topk,
+                                  cfg.proposal_test.max_per_img)
+    n = R * Cc * cfg.roi_size ** 2 * cfg.embed_dims    # one [R, Kq, C]
+    return (2 * n * 2 + 3 * n * 2 + 3 * n * 4) / 2 ** 30 + 2.0
 
 
 def phase_routes_tiny(dev):
@@ -3358,6 +3516,10 @@ def main():
                 dev, results, cfg=configs.mv2d_s_r50(), label='serve_s')),
             ('serve_v99', lambda: phase_serve(
                 dev, results, 2, configs.mv2d_t_v99(), 'serve_v99')),
+            ('serve_all', lambda: phase_serve(
+                dev, results, 2, all_matched(configs.mv2d_t_r50()),
+                'serve_all')),
+            ('serve_s_all', lambda: phase_serve_s_all(dev, results)),
             ('export', lambda: phase_export(dev, results)),
             ('http', lambda: phase_http(dev, results)),
             ('eval', lambda: phase_eval(dev, results)),
@@ -3365,6 +3527,7 @@ def main():
             ('stages', lambda: phase_stages(dev, results)),
             ('train', lambda: phase_train(dev, results)),
             ('train_s', lambda: phase_train_s(dev, results)),
+            ('train_remat', lambda: phase_train_remat(dev, results)),
             ('routes_tiny', lambda: phase_routes_tiny(dev)),
             ('routes', lambda: phase_routes(dev, results)),
             ('train_cli', lambda: phase_train_cli(dev, results)),

@@ -2,8 +2,9 @@
 
 Port of `mv2d_tpu/models/correlation.py`.  Geometry on
 detached inputs: proposals live in [V, P] slots, the correlation is a
-[R, 1 + V*topk] table of global RoI ids with validity (R = V*P), and the
-active attention keys are a stable gather capped at k_max.
+[R, 1 + V*topk] table of global RoI ids with validity (R = V*P; under
+'all_matched' the full [R, 1 + R] table), and the active attention keys
+are a stable gather capped at k_max.
 """
 from __future__ import annotations
 
@@ -31,10 +32,9 @@ def epipolar_in_box(boxes: torch.Tensor, valid: torch.Tensor,
                     cfg: CorrelationConfig):
     """boxes [V, P, 4]; valid [V, P]; trans_mats [V, V, 4, 4] ->
     (corr_ids [R, 1 + V*topk], corr_mask [R, 1 + V*topk]); column 0 is
-    the RoI itself.  Mode 'topk_matched' with LID depth bins, as every
-    shipped config sets."""
-    if cfg.mode != 'topk_matched' or not cfg.lid:
-        raise NotImplementedError(f'correlation mode {cfg.mode}, lid={cfg.lid}')
+    the RoI itself.  Depth bins LID-spaced (cfg.lid) or uniform.  Under
+    mode 'all_matched' every RoI whose hull IoU is positive correlates:
+    the table is [R, 1 + R], column 1 + j RoI j."""
     V, P = boxes.shape[:2]
     R = V * P
     dev = boxes.device
@@ -44,7 +44,11 @@ def epipolar_in_box(boxes: torch.Tensor, valid: torch.Tensor,
     flat_valid = valid.reshape(R)
     view_of_roi = torch.arange(V, device=dev).repeat_interleave(P)
     pts = _sample_points_in_boxes(flat_boxes, cfg.sample_size)   # [R, S, 2]
-    depths = lid_depth_bins(cfg.depth_start, cfg.depth_end, D, dev)
+    if cfg.lid:
+        depths = lid_depth_bins(cfg.depth_start, cfg.depth_end, D, dev)
+    else:
+        depths = torch.linspace(cfg.depth_start, cfg.depth_end, D,
+                                device=dev)
     uv = pts[:, :, None, :]
     d = depths[None, None, :, None]
     hom = torch.cat([uv * d, d.expand(R, S, D, 1),
@@ -81,14 +85,19 @@ def epipolar_in_box(boxes: torch.Tensor, valid: torch.Tensor,
     iou = torch.where(valid[None] & in_view[..., None], iou,
                       torch.zeros_like(iou))
 
-    k = min(cfg.topk, P)
-    top_iou, top_idx = topk(iou, k)                               # [R, V, k]
-    top_ids = torch.arange(V, device=dev)[None, :, None] * P + top_idx
-    top_max = top_iou.amax(-1, keepdim=True)
-    top_mask = ((top_iou > cfg.ratio * top_max) |
-                (top_iou > cfg.iou_thr)) & (top_iou > 0)
-    top_ids = top_ids.reshape(R, V * k)
-    top_mask = top_mask.reshape(R, V * k)
+    if cfg.mode == 'all_matched':
+        # O(R^2): the roi key mode's per-query keys grow with it
+        top_ids = torch.arange(R, device=dev)[None].expand(R, R)
+        top_mask = (iou > 0).reshape(R, R)
+    else:
+        k = min(cfg.topk, P)
+        top_iou, top_idx = topk(iou, k)                           # [R, V, k]
+        top_ids = torch.arange(V, device=dev)[None, :, None] * P + top_idx
+        top_max = top_iou.amax(-1, keepdim=True)
+        top_mask = ((top_iou > cfg.ratio * top_max) |
+                    (top_iou > cfg.iou_thr)) & (top_iou > 0)
+        top_ids = top_ids.reshape(R, V * k)
+        top_mask = top_mask.reshape(R, V * k)
     self_ids = torch.arange(R, device=dev)[:, None]
     corr_ids = torch.cat([self_ids, top_ids], dim=1)
     corr_mask = torch.cat([flat_valid[:, None], top_mask], dim=1)

@@ -48,13 +48,17 @@ class _RoIHead(tnn.Module):
 
 
 def make_backbone(backbone_type: str, depth: int,
-                  stage_with_dcn: Tuple[bool, ...], routes: Routes):
-    """A ResNet (its `out_channels` 256..2048) or a VoVNet (256..1024)."""
+                  stage_with_dcn: Tuple[bool, ...], routes: Routes,
+                  frozen_stages: int = 1, remat: bool = False):
+    """A ResNet (its `out_channels` 256..2048) or a VoVNet (256..1024).
+    frozen_stages and remat go to the ResNet; the VoVNet takes neither
+    (the JAX package's detectors give it none)."""
     if backbone_type == 'vovnet':
         return VoVNet(depth)
     if backbone_type != 'resnet':
         raise ValueError(f'backbone_type {backbone_type!r}')
-    return ResNet(depth, stage_with_dcn, routes)
+    return ResNet(depth, stage_with_dcn, routes, frozen_stages,
+                  remat=remat)
 
 
 class SingleStageDetector(tnn.Module):
@@ -65,11 +69,12 @@ class SingleStageDetector(tnn.Module):
     def __init__(self, depth: int = 50, num_classes: int = 10,
                  backbone_type: str = 'resnet',
                  stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
-                 fpn_channels: int = 256, routes: Routes = Routes()):
+                 fpn_channels: int = 256, routes: Routes = Routes(),
+                 frozen_stages: int = 1, remat: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.backbone = make_backbone(backbone_type, depth, stage_with_dcn,
-                                      routes)
+                                      routes, frozen_stages, remat)
         self.neck = FPN(self.backbone.out_channels, fpn_channels,
                         num_outs=5)
         self.bbox_head = RetinaHead(num_classes, fpn_channels)
@@ -97,12 +102,13 @@ class TwoStageDetector(tnn.Module):
                  backbone_type: str = 'resnet',
                  stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
                  fpn_channels: int = 256, rcnn_fc_channels: int = 1024,
-                 routes: Routes = Routes()):
+                 routes: Routes = Routes(), frozen_stages: int = 1,
+                 remat: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.align_v2 = routes.align_v2
         self.backbone = make_backbone(backbone_type, depth, stage_with_dcn,
-                                      routes)
+                                      routes, frozen_stages, remat)
         self.neck = FPN(self.backbone.out_channels, fpn_channels,
                         num_outs=5)
         self.rpn_head = RPNHead(fpn_channels)

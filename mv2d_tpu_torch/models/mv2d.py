@@ -135,7 +135,8 @@ class _RoIHead3D(tnn.Module):
             num_classes=c.num_classes, embed_dims=C,
             num_layers=c.num_decoder_layers, num_heads=c.num_heads,
             feedforward_channels=c.feedforward_channels,
-            pc_range=c.pc_range, flash_sparse=flash_sparse)
+            pc_range=c.pc_range, flash_sparse=flash_sparse,
+            remat=c.remat_decoder)
 
 
 class MV2D(tnn.Module):
@@ -152,14 +153,16 @@ class MV2D(tnn.Module):
                 depth=cfg.depth, num_classes=cfg.num_classes,
                 backbone_type=cfg.backbone_type,
                 stage_with_dcn=cfg.stage_with_dcn,
-                fpn_channels=cfg.fpn_channels, routes=routes)
+                fpn_channels=cfg.fpn_channels, routes=routes,
+                frozen_stages=cfg.frozen_stages, remat=cfg.remat)
         elif cfg.detector_type == 'two_stage':
             self.base_detector = TwoStageDetector(
                 depth=cfg.depth, num_classes=cfg.num_classes,
                 backbone_type=cfg.backbone_type,
                 stage_with_dcn=cfg.stage_with_dcn,
                 fpn_channels=cfg.fpn_channels,
-                rcnn_fc_channels=cfg.rcnn_fc_channels, routes=routes)
+                rcnn_fc_channels=cfg.rcnn_fc_channels, routes=routes,
+                frozen_stages=cfg.frozen_stages, remat=cfg.remat)
         else:
             raise ValueError(f'detector_type {cfg.detector_type!r}')
         self.neck = FPN([cfg.fpn_channels] * 5, cfg.embed_dims, num_outs=1,
@@ -315,8 +318,9 @@ class MV2D(tnn.Module):
         roi_feats = roi_feats.reshape(R, c.roi_size, c.roi_size, 2 * C)
         bbox_feats = roi_feats[..., :C]
 
-        ref_pts = head.query_generator(bbox_feats, Kv,
-                                       cam.ext_t_inv[view_idx], intrins_ok)
+        ref_pts, _ = head.query_generator(bbox_feats, Kv,
+                                          cam.ext_t_inv[view_idx],
+                                          intrins_ok)
         ref_pts = normalize_points(ref_pts, c.pc_range)          # [R, 3]
 
         corr_ids, corr_mask = epipolar_in_box(

@@ -24,7 +24,9 @@ the plain versions.  Per-query keys go through
 package, no kernel there either).  Training applies
 the reference's dropout (p = cfg.dropout) after each attention's output
 projection and inside the FFN; the masks come from the step's
-torch.Generator (`Dropout`).
+torch.Generator (`Dropout`).  With remat (cfg.remat_decoder) each layer's
+activations are recomputed in the backward (`layers.rematerialized`);
+the recompute draws the masks of the first run again (`Dropout.replay`).
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch.nn.functional as F
 from ..core.geometry import inverse_sigmoid
 from ..ops.attention import (MaskTiles, mask_tiles, masked_attention,
                              masked_attention_train, per_query_attention)
-from .layers import linear
+from .layers import linear, rematerialized
 from .pe import pos2posemb3d
 
 LN_EPS = 1e-6
@@ -58,6 +60,26 @@ class Dropout:
         keep = torch.rand(x.shape, generator=self.generator,
                           device=x.device) >= self.p
         return x * keep.to(x.dtype) / (1.0 - self.p)
+
+    def replay(self):
+        """(start, finish): start() gives a Dropout whose generator is a
+        new one at this generator's present state, so each call draws
+        the same masks; finish() moves this generator on to where the
+        first start()'s Dropout left its own.  A rematerialized layer
+        draws from start() in both runs (`torch.utils.checkpoint`'s
+        preserve_rng_state restores the global generators only)."""
+        if self.p == 0.0 or self.generator is None:
+            return (lambda: self), (lambda: None)
+        gen = self.generator
+        state = gen.get_state()
+        first = []
+
+        def start():
+            g = torch.Generator(device=gen.device)
+            g.set_state(state)
+            first.append(g)
+            return Dropout(self.p, g)
+        return start, lambda: gen.set_state(first[0].get_state())
 
 
 NO_DROPOUT = Dropout(0.0, None)
@@ -145,8 +167,10 @@ class PETRDecoderLayer(tnn.Module):
 
 class PETRDecoder(tnn.Module):
     def __init__(self, num_layers=6, embed_dims=256, num_heads=8,
-                 feedforward_channels=2048, flash_sparse: bool = False):
+                 feedforward_channels=2048, flash_sparse: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = tnn.ModuleList([
             PETRDecoderLayer(embed_dims, num_heads, feedforward_channels,
                              flash_sparse)
@@ -162,9 +186,19 @@ class PETRDecoder(tnn.Module):
         if query.device.type != 'cpu':
             tiles = (mask_tiles(self_allowed), None if keys.dim() == 3
                      else mask_tiles(cross_allowed))
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            query = layer(query, query_pos, keys, key_pos, self_allowed,
-                          cross_allowed, drop, *tiles)
+            args = (query, query_pos, keys, key_pos, self_allowed,
+                    cross_allowed)
+            if remat:
+                start, finish = drop.replay()
+                query = rematerialized(
+                    layer, *args, kwargs=lambda start=start: dict(
+                        drop=start(), self_tiles=tiles[0],
+                        cross_tiles=tiles[1]))
+                finish()
+            else:
+                query = layer(*args, drop, *tiles)
             outs.append(self.post_norm(query))
         return torch.stack(outs)                            # [L, Q, C]
 
@@ -183,7 +217,7 @@ class CrossAttentionBoxHead(tnn.Module):
                  num_layers=6, num_heads=8, feedforward_channels=2048,
                  pc_range: Sequence[float] = (-51.2, -51.2, -5.0, 51.2, 51.2,
                                               3.0),
-                 flash_sparse: bool = False):
+                 flash_sparse: bool = False, remat: bool = False):
         super().__init__()
         C = embed_dims
         self.embed_dims = C
@@ -191,7 +225,8 @@ class CrossAttentionBoxHead(tnn.Module):
         self.query_embedding = tnn.Sequential(
             tnn.Linear(C * 3 // 2, C), tnn.ReLU(), tnn.Linear(C, C))
         self.transformer = _Transformer(PETRDecoder(
-            num_layers, C, num_heads, feedforward_channels, flash_sparse))
+            num_layers, C, num_heads, feedforward_channels, flash_sparse,
+            remat))
         self.cls_branches = tnn.ModuleList([tnn.Sequential(
             tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),
             tnn.Linear(C, C), tnn.LayerNorm(C, eps=LN_EPS), tnn.ReLU(),

@@ -6,9 +6,12 @@ channels_last tensor, so no copy is made on either side.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 import torch.nn as tnn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
@@ -18,6 +21,27 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor,
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
                  None if bias is None else bias.to(x.dtype), stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def rematerialized(module: tnn.Module, *args,
+                   kwargs: Optional[Callable[[], dict]] = None):
+    """module(*args, **kwargs()) with its activations recomputed in the
+    backward instead of kept (non-reentrant `torch.utils.checkpoint`;
+    JAX's `nn.remat`).  The recompute reads the parameters and buffers
+    the first call read: under `torch.func.functional_call` (the mixed
+    precision step's bfloat16 copies) the module holds the copies only
+    while that call lasts, and the backward comes after it.  `kwargs` is
+    called anew for each run, so that the recompute can be given fresh
+    stateful arguments (a dropout generator at the same state).  No
+    global RNG state is saved: nothing here draws from one."""
+    params = {**dict(module.named_parameters()),
+              **dict(module.named_buffers())}
+
+    def run(*a):
+        return torch.func.functional_call(
+            module, params, a, kwargs() if kwargs else None)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def linear(x: torch.Tensor, m: tnn.Linear) -> torch.Tensor:

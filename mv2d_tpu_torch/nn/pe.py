@@ -120,16 +120,18 @@ class SELayer(tnn.Module):
 
 class PE(tnn.Module):
     """forward(feat [V, H, W, C], img2lidar [V, 4, 4], img_shapes [V, 2],
-    pad_shape) -> pos_embed [V, H, W, C]."""
+    pad_shape) -> pos_embed [V, H, W, C].  Depth bins LID-spaced (lid) or
+    uniform: start + (range end - start) / depth_num * i."""
 
     def __init__(self, embed_dims: int = 256, depth_num: int = 64,
                  depth_start: float = 1.0,
                  position_range: Sequence[float] = (-61.2, -61.2, -10.0,
                                                     61.2, 61.2, 10.0),
-                 with_fpe: bool = True, stride: int = 16,
+                 lid: bool = True, with_fpe: bool = True, stride: int = 16,
                  num_sine_feats: int = 128):
         super().__init__()
         assert depth_start >= 1e-3
+        self.lid = lid
         self.depth_num = depth_num
         self.depth_start = depth_start
         self.position_range = tuple(position_range)
@@ -152,8 +154,13 @@ class PE(tnn.Module):
             * pad_shape[0] / H - 0.5
         coords_w = (torch.arange(W, dtype=torch.float32, device=dev) + 0.5) \
             * pad_shape[1] / W - 0.5
-        coords_d = lid_depth_bins(self.depth_start, pr[3], self.depth_num,
-                                  device=dev)
+        if self.lid:
+            coords_d = lid_depth_bins(self.depth_start, pr[3],
+                                      self.depth_num, device=dev)
+        else:
+            coords_d = self.depth_start + (pr[3] - self.depth_start) \
+                / self.depth_num * torch.arange(
+                    self.depth_num, dtype=torch.float32, device=dev)
         # frustum point M @ (u*d, v*d, d, 1) = d * (M[:3,:3] @ (u,v,1)) + t
         uv1 = torch.stack([coords_w[None, :].expand(H, W),
                            coords_h[:, None].expand(H, W),

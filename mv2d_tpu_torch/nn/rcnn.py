@@ -17,16 +17,19 @@ from .rpn import delta2bbox
 
 class Shared2FCBBoxHead(tnn.Module):
     def __init__(self, in_channels: int = 256, fc_out_channels: int = 1024,
-                 num_classes: int = 10, roi_size: int = 7):
+                 num_classes: int = 10, roi_size: int = 7,
+                 reg_class_agnostic: bool = False):
         super().__init__()
         self.shared_fcs = tnn.ModuleList([
             tnn.Linear(in_channels * roi_size * roi_size, fc_out_channels),
             tnn.Linear(fc_out_channels, fc_out_channels)])
         self.fc_cls = tnn.Linear(fc_out_channels, num_classes + 1)
-        self.fc_reg = tnn.Linear(fc_out_channels, 4 * num_classes)
+        self.fc_reg = tnn.Linear(
+            fc_out_channels, 4 if reg_class_agnostic else 4 * num_classes)
 
     def forward(self, roi_feats: torch.Tensor):
-        """roi_feats [R, 7, 7, C] -> (cls_logits [R, K+1], deltas [R, 4K])."""
+        """roi_feats [R, 7, 7, C] -> (cls_logits [R, K+1], deltas [R, 4K],
+        or [R, 4] when class-agnostic)."""
         x = roi_feats.permute(0, 3, 1, 2).flatten(1)
         for fc in self.shared_fcs:
             x = F.relu(linear(x, fc))

@@ -10,13 +10,19 @@ MV2D_FUSED_STAGES (`routes.Routes.fused_stages`): with 'all', the identity
 tail of a later stage that `fuses_tail` admits runs through
 `ops.stage.fused_identity_chain` (kernel B10) while no gradient is recorded
 (JAX's fast_inference).  `Routes.dcn_train_fused` goes to each DCN conv.
-The stem and layer1 are frozen (the reference's frozen_stages=1): their
-parameters, like every BN affine, do not train, and they run without
-recording gradients.
+The stem and layer1 are always frozen: their parameters, like every BN
+affine, do not train (the JAX optimizer's rule, whatever frozen_stages
+says), and they run without recording gradients.  frozen_stages = k >= 2
+(the reference's `_freeze_stages`) also freezes layers 2..k: they run
+without recording gradients, so they take the forward-only routes (K2
+for a DCN layer, B10 for a tail under 'all'), and their parameters stay
+out of the optimizer.  With remat, each trainable Bottleneck's
+activations are recomputed in the backward (`layers.rematerialized`).
+`out_indices` picks the stage outputs returned.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn as tnn
@@ -25,7 +31,8 @@ import torch.nn.functional as F
 from ..ops.dcn import ModulatedDeformConv
 from ..ops.stage import fused_identity_chain, fused_stage1, pack_block
 from ..routes import Routes
-from .layers import FrozenBatchNorm2d, conv2d_nhwc, max_pool_3x3_s2
+from .layers import (FrozenBatchNorm2d, conv2d_nhwc, max_pool_3x3_s2,
+                     rematerialized)
 
 STAGE_BLOCKS = {
     10: (1, 1, 1, 1),
@@ -103,15 +110,22 @@ class Bottleneck(tnn.Module):
 
 
 class ResNet(tnn.Module):
-    """[V, H, W, 3] -> the four stage outputs (strides 4, 8, 16, 32)."""
+    """[V, H, W, 3] -> the stage outputs of `out_indices` (strides 4, 8,
+    16, 32)."""
 
     def __init__(self, depth: int = 50,
                  stage_with_dcn: Tuple[bool, ...] = (False,) * 4,
-                 routes: Routes = Routes()):
+                 routes: Routes = Routes(), frozen_stages: int = 1,
+                 out_indices: Sequence[int] = (0, 1, 2, 3),
+                 remat: bool = False):
         super().__init__()
         self.stage_with_dcn = tuple(stage_with_dcn)
         self.fused_stages = routes.fused_stages
-        self.out_channels = (256, 512, 1024, 2048)
+        self.frozen = max(frozen_stages, 1)        # stages under no_grad
+        self.out_indices = tuple(out_indices)
+        self.remat = remat
+        self.out_channels = tuple(c for i, c in enumerate(
+            (256, 512, 1024, 2048)) if i in self.out_indices)
         self.conv1 = tnn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm2d(64)
         inplanes, planes = 64, 64
@@ -125,7 +139,9 @@ class ResNet(tnn.Module):
             setattr(self, f'layer{s + 1}', tnn.Sequential(*blocks))
             inplanes = planes * 4
             planes *= 2
-        for m in (self.conv1, self.bn1, self.layer1):
+        for m in (self.conv1, self.bn1,
+                  *(getattr(self, f'layer{i + 1}')
+                    for i in range(min(self.frozen, 4)))):
             m.requires_grad_(False)
         self._layer1_packed = None      # (dtype, tensors seen, blocks)
 
@@ -163,6 +179,18 @@ class ResNet(tnn.Module):
         return max_pool_3x3_s2(F.relu(_folded_conv(x, self.conv1, self.bn1,
                                                    stride=2)))
 
+    def _stage(self, s: int, x: torch.Tensor) -> torch.Tensor:
+        layer = getattr(self, f'layer{s + 1}')
+        if not torch.is_grad_enabled():
+            if fuses_tail(s, len(layer), x.shape[1], x.shape[2],
+                          self.stage_with_dcn[s], self.fused_stages):
+                return fused_identity_chain(
+                    layer[0](x), [blk.folded() for blk in layer[1:]])
+            return layer(x)
+        for blk in layer:
+            x = rematerialized(blk, x) if self.remat else blk(x)
+        return x
+
     def forward(self, x: torch.Tensor):
         outs = []
         with torch.no_grad():                      # frozen stem + layer1
@@ -171,15 +199,14 @@ class ResNet(tnn.Module):
                 x = fused_stage1(x, self.layer1_blocks(x.dtype))
             else:
                 x = self.layer1(x)
-        outs.append(x)
-        for s in range(1, 4):
-            layer = getattr(self, f'layer{s + 1}')
-            if not torch.is_grad_enabled() and fuses_tail(
-                    s, len(layer), x.shape[1], x.shape[2],
-                    self.stage_with_dcn[s], self.fused_stages):
-                x = fused_identity_chain(
-                    layer[0](x), [blk.folded() for blk in layer[1:]])
-            else:
-                x = layer(x)
+        if 0 in self.out_indices:
             outs.append(x)
+        for s in range(1, max(self.out_indices) + 1):
+            if s < self.frozen:
+                with torch.no_grad():
+                    x = self._stage(s, x)
+            else:
+                x = self._stage(s, x)
+            if s in self.out_indices:
+                outs.append(x)
         return tuple(outs)

@@ -18,7 +18,7 @@ runs without recording gradients.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn as tnn
@@ -102,12 +102,16 @@ class OSABlock(tnn.Module):
 
 
 class VoVNet(tnn.Module):
-    """[V, H, W, 3] -> the four stage outputs (strides 4, 8, 16, 32)."""
+    """[V, H, W, 3] -> the stage outputs of `out_indices` (strides 4, 8,
+    16, 32)."""
 
-    def __init__(self, depth: int = 99):
+    def __init__(self, depth: int = 99,
+                 out_indices: Sequence[int] = (0, 1, 2, 3)):
         super().__init__()
         stem_ch, conv_ch, out_ch, n_layers, blocks = SPECS[depth]
-        self.out_channels: Tuple[int, ...] = tuple(out_ch)
+        self.out_indices = tuple(out_indices)
+        self.out_channels: Tuple[int, ...] = tuple(
+            c for i, c in enumerate(out_ch) if i in self.out_indices)
         self.stem = ConvBNs([
             (f'stem_{i + 1}', cin, c, 3, s) for i, (cin, c, s) in
             enumerate(zip((3,) + stem_ch[:2], stem_ch, (2, 1, 2)))])
@@ -127,10 +131,11 @@ class VoVNet(tnn.Module):
         with torch.no_grad():                      # the frozen stem
             x = self.stem(x)
         outs = []
-        for s in range(4):
+        for s in range(max(self.out_indices) + 1):
             if s > 0:
                 x = max_pool_3x3_s2(x)
             for block in getattr(self, f'stage{s + 2}').children():
                 x = block(x)
-            outs.append(x)
+            if s in self.out_indices:
+                outs.append(x)
         return tuple(outs)

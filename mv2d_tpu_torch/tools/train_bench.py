@@ -3,7 +3,7 @@ counterpart of the repository's `tools/train_bench.py`.
 
   python -m mv2d_tpu_torch.tools.train_bench [--image-h 512 --image-w 1408]
       [--no-dcn] [--no-dn] [--iters 10] [--fixture DIR] [--weights X.pth]
-      [--trace DIR] [--flops] [--device cuda|cpu]
+      [--trace DIR] [--flops] [--remat] [--device cuda|cpu]
 
 One full MV2D-T R50 step (`parallel.dist.dp_train_step`: grid mask, the
 2D losses, detections without gradients, the GT complement, the DN head,
@@ -24,10 +24,13 @@ the peak device memory.  The reference trains one scene a GPU on 8 GPUs.
   --trace    a trace of 3 steps (`utils.profiling.trace`) into DIR;
   --flops    the step's FLOPs (forward + backward; FlopCounterMode with
              `tools.get_flops.FORMULAS` for the hand kernels) and bytes,
-             beside H100 SXM bf16 peak (989 TFLOP/s), then exits.
-The JAX tool's `--remat` and `--no-auto-layout` are TPU / XLA machinery
-(rematerialisation, XLA's AUTO input layouts) and are not ported; each
-prints why.
+             beside H100 SXM bf16 peak (989 TFLOP/s), then exits;
+  --remat    recompute each trainable backbone Bottleneck in the backward
+             (cfg.remat; off by default, as in the JAX tool; --no-remat
+             is kept for the JAX tool's command lines and changes
+             nothing).
+The JAX tool's `--no-auto-layout` is XLA machinery (its AUTO input
+layouts) and is not ported; it prints why.
 """
 from __future__ import annotations
 
@@ -57,9 +60,9 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument('--trace', default=None, metavar='DIR')
     p.add_argument('--flops', action='store_true')
     p.add_argument('--remat', action='store_true',
-                   help='not ported (prints why)')
+                   help='recompute the backbone blocks in the backward')
     p.add_argument('--no-remat', action='store_true',
-                   help='not ported (prints why)')
+                   help='(default; kept for compatibility)')
     p.add_argument('--no-auto-layout', action='store_true',
                    help='not ported (prints why)')
     sc.add_common_args(p)
@@ -94,17 +97,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from .common import load_weights
     args = parse_args(argv)
     dev = sc.device_of(args)
-    for flag, on, why in (
-            ('--remat', args.remat, 'TPU-only machinery: the port keeps '
-             'no rematerialisation'),
-            ('--no-remat', args.no_remat, 'TPU-only machinery: the port '
-             'keeps no rematerialisation, so every step is --no-remat'),
-            ('--no-auto-layout', args.no_auto_layout, 'XLA-only '
-             'formulation: XLA\'s AUTO input layouts; PyTorch takes the '
-             'layouts it is given')):
-        if on:
-            sc.refuse(flag, why)
-    over = {}
+    if args.no_auto_layout:
+        sc.refuse('--no-auto-layout', 'XLA-only formulation: XLA\'s AUTO '
+                  'input layouts; PyTorch takes the layouts it is given')
+    over = {'remat': args.remat}
     if args.image_h or args.image_w:
         base = sc.model_config(args).image_size
         over['image_size'] = (args.image_h or base[0],

@@ -1,7 +1,7 @@
 """The MV2D-T R50 training step, part by part, on the card: the
 counterpart of the repository's `tools/train_stage_bench.py`.
 
-  python -m mv2d_tpu_torch.tools.train_stage_bench [--stage N]
+  python -m mv2d_tpu_torch.tools.train_stage_bench [--stage N] [--no-remat]
       [--iters 8] [--warmup 2] [--device cuda|cpu]
 
 One scene, `synthetic.synthetic_train_batch(seed=0)`, with
@@ -20,8 +20,9 @@ CPU):
   4. the full step through `parallel.dist.dp_train_step` (forward,
      backward, clip, AdamW), the step that trains.
 Each row prints the host ms a call, the NMS fixpoint's rounds a call,
-the device's busy ms and the host syncs by site (`stage_common.timed`).  The JAX tool's `--no-remat` has no
-counterpart: the port keeps no rematerialisation.
+the device's busy ms and the host syncs by site (`stage_common.timed`).
+As in the JAX tool, the backbone's trainable Bottlenecks are recomputed
+in the backward (cfg.remat) unless `--no-remat` is given.
 """
 from __future__ import annotations
 
@@ -63,7 +64,7 @@ def forward_train(model, batch, draws, drop, mixed_precision: bool):
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--no-remat', action='store_true',
-                   help='not ported (prints why)')
+                   help='keep the backbone activations (no recompute)')
     p.add_argument('--stage', type=int, default=-1, choices=(-1, 1, 2, 3, 4),
                    help='run only this row (1-4)')
     sc.add_common_args(p, iters=8)
@@ -80,11 +81,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ..train.train_step import draw_train, step_losses
     args = parse_args(argv)
     dev = sc.device_of(args)
-    if args.no_remat:
-        sc.refuse('--no-remat', 'TPU-only machinery: the port keeps no '
-                  'rematerialisation, so every run is --no-remat')
     mp = dev.type == 'cuda'
-    cfg = sc.model_config(args)
+    cfg = sc.model_config(args, remat=not args.no_remat)
     sc.header('train_stage_bench', dev,
               torch.bfloat16 if mp else torch.float32, cfg)
     from ..models.mv2d import MV2D

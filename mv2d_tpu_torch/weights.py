@@ -158,12 +158,13 @@ def _rcnn_fc1(w):
 
 
 def _table(p: str, rules):
+    """The first rule whose pattern matches p: its last group is the
+    kernel / bias leaf, the groups before it go to a callable target."""
     for pattern, target, kind in rules:
         m = re.fullmatch(pattern, p)
         if m:
             leaf, is_w = _leaf(m.group(m.lastindex))
-            idx = m.group(1) if m.lastindex > 1 else None
-            name = target(idx) if callable(target) else target
+            name = target(*m.groups()[:-1]) if callable(target) else target
             return f'{name}.{leaf}', kind if is_w else _raw
     return None
 
@@ -181,7 +182,10 @@ _QG_RULES = [
     (r'shared_fc/(kernel|bias)', 'shared_fcs.0', _lin),
     (r'extra_enc_(\d)/(kernel|bias)',
      lambda i: f'extra_enc.{2 * int(i)}', _lin),
-    (r'fc_center/(kernel|bias)', 'fc_center', _lin),
+    (r'fc_(cls|size|heading|center|attr)/(kernel|bias)',
+     lambda b: f'fc_{b}', _lin),
+    (r'(cls|size|heading|center|attr)_fc(\d+)/(kernel|bias)',
+     lambda b, i: f'{b}_fcs.{i}', _lin),
 ]
 
 

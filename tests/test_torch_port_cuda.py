@@ -946,6 +946,35 @@ def test_tiny_dcn_training_step_equals_cpu(dev):
     assert smoke.phase_tiny_train(dev)
 
 
+@pytest.mark.parametrize('key_mode', ['pixel', 'roi'])
+def test_tiny_all_matched_forward_equals_cpu(dev, key_mode):
+    """The tiny+DCN two-frame eval forward under the 'all_matched'
+    correlation with uniform depth bins, GPU (kernels, float32) against
+    CPU (plain versions), launching exactly `path_kernels(cfg)`."""
+    from mv2d_tpu_torch import configs
+    corr = configs.CorrelationConfig(sample_size=2, num_depth=4, topk=2,
+                                     mode='all_matched', lid=False)
+    cfg = configs.tiny(key_mode=key_mode, num_frames=2, k_max=48,
+                       stage_with_dcn=(False, False, True, True),
+                       correlation=corr)
+    assert smoke.phase_tiny_parity(dev, cfg, f'tiny {key_mode} all_matched')
+
+
+def test_tiny_frozen_remat_training_step_equals_cpu(dev):
+    """A tiny+DCN step with frozen_stages=3 (layer3's DCN under no_grad:
+    K2 in training), remat and remat_decoder, GPU against CPU: every
+    loss and gradient within `phase_tiny_train`'s tolerances, the path's
+    training kernels launched."""
+    from mv2d_tpu_torch import configs
+    cfg = configs.tiny(stage_with_dcn=(False, False, True, True),
+                       num_frames=2, dropout=0.0, frozen_stages=3,
+                       remat=True, remat_decoder=True)
+    need = smoke.path_kernels(cfg, training=True, dn=True)[0]
+    assert 'dcn_conv' in need and 'dcn_samples' in need
+    assert smoke.phase_tiny_train(dev, need=need, cfg=cfg,
+                                  label='tiny+DCN frozen 3, remat')
+
+
 # --------------------------------------------- data pipeline and eval loop
 
 @pytest.fixture(scope='module')

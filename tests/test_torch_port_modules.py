@@ -151,8 +151,9 @@ def test_query_generator(pair):
         jnp.asarray(feats), Kv, pair['jcam'].ext_t_inv[view],
         jnp.asarray(ok))
     with torch.no_grad():
-        got = pair['tm'].roi_head.query_generator(
+        got, aux = pair['tm'].roi_head.query_generator(
             t(feats), Kv_t, pair['tcam'].ext_t_inv[t(view)], t(ok))
+    assert list(aux) == ['uvd']
     assert rel_err(got.numpy(), want) < REL
 
 

@@ -26,6 +26,7 @@ import pytest
 torch = pytest.importorskip('torch')
 import jax                                               # noqa: E402
 import jax.numpy as jnp                                  # noqa: E402
+from flax import linen as flax_nn                        # noqa: E402
 
 from mv2d_tpu import configs as jcfgs                    # noqa: E402
 from mv2d_tpu.core import matching as jmatch             # noqa: E402
@@ -40,6 +41,7 @@ from mv2d_tpu.train import train_step as jts             # noqa: E402
 from mv2d_tpu_torch import configs as tcfgs              # noqa: E402
 from mv2d_tpu_torch.core import matching as tmatch       # noqa: E402
 from mv2d_tpu_torch.models.mv2d import MV2D as TMV2D     # noqa: E402
+from mv2d_tpu_torch.nn.decoder import Dropout as TDropout  # noqa: E402
 from mv2d_tpu_torch.ops import focal_loss as tfl         # noqa: E402
 from mv2d_tpu_torch.ops import grid_mask as tgm          # noqa: E402
 from mv2d_tpu_torch.parallel import dist as tdist        # noqa: E402
@@ -503,11 +505,40 @@ def step_pair():
     return train_step_pair(stage_with_dcn=DCN, num_frames=2, dropout=0.0)
 
 
+def replaying_dropout(masks):
+    """A stand-in for flax's `nn.Dropout.__call__` that applies `masks`
+    (keep masks, in the order the port drew them) instead of drawing:
+    each Dropout module (by scope path) takes the next unused mask the
+    first time it is traced, and the same one when traced again."""
+    by_path = {}
+
+    def call(self, inputs, deterministic=None, rng=None):
+        deterministic = self.deterministic if deterministic is None \
+            else deterministic
+        if self.rate == 0.0 or deterministic:
+            return inputs
+        path = tuple(self.scope.path)
+        if path not in by_path:
+            by_path[path] = masks[len(by_path)]
+        keep = by_path[path]              # the port's [Q, C], JAX's [1, Q, C]
+        assert keep.size == inputs.size, (path, keep.shape, inputs.shape)
+        keep = jnp.asarray(keep.reshape(inputs.shape))
+        return jnp.where(keep, inputs / (1.0 - self.rate),
+                         jnp.zeros_like(inputs))
+    call.by_path = by_path
+    return call
+
+
 def train_step_pair(weights_seed=0, **kw):
     """One training step of `tiny(**kw)` through both packages, on the
     same weights (`materialize(., weights_seed)`), scene and draws: JAX's
     losses and gradients (in port names), the port's losses after
-    `dp_objective` and its model with its gradients."""
+    `dp_objective` and its model with its gradients.  With dropout on
+    (kw dropout > 0) the port draws its masks from a generator seeded 11
+    and JAX's flax Dropout applies the same masks (`replaying_dropout`).
+    `port_step(**over)` runs the port's step again on the same weights,
+    scene, draws and dropout seed, with the config's fields `over`
+    replaced -> (total, metrics, model)."""
     torch.set_num_threads(1)
     jc, tc = jcfgs.tiny(**kw), tcfgs.tiny(**kw)
     batch = synthetic_train_batch(tc, seed=0, device='cpu')
@@ -541,23 +572,45 @@ def train_step_pair(weights_seed=0, **kw):
         rpn_u=rng.uniform(size=(2, Vc, n_anchor)).astype(np.float32),
         rcnn_u=rng.uniform(size=(2, Vc, tc.proposal_train.rpn_max_per_img
                                  + tc.max_gt2d)).astype(np.float32))
-    jtotal, jmetrics, jgrads = pinned_jax_losses(
-        jm, variables, jbatch, draws, jax.random.PRNGKey(5))
-
     sd = state_dict_from_jax(variables['params'], variables['constants'])
-    tm = TMV2D(tc)
-    tm.load_state_dict({k: t(v) for k, v in sd.items()}, strict=True)
     tdraws = tts.TrainDraws(torch_grid_draws(draws['grid']),
                             t(draws['dn_noise']), t(draws['rpn_u']),
                             t(draws['rcnn_u']))
-    local, metrics = tdist.dp_objective(tm, [batch], [tdraws],
-                                        mixed_precision=False)
-    local.backward()
-    total = metrics.pop('total_loss')
+    masks = []
+
+    def port_step(record=False, **over):
+        c = tc._replace(**over)
+        tm = TMV2D(c)
+        tm.load_state_dict({k: t(v) for k, v in sd.items()}, strict=True)
+        drop = TDropout(c.dropout, torch.Generator().manual_seed(11))
+        with pytest.MonkeyPatch.context() as mp:
+            if record:        # the forward's keep masks (U >= p), in order
+                draw = TDropout.__call__
+
+                def recorded(self, x):
+                    if self.p > 0.0 and self.generator is not None:
+                        peek = torch.Generator()
+                        peek.set_state(self.generator.get_state())
+                        masks.append((torch.rand(x.shape, generator=peek)
+                                      >= self.p).numpy())
+                    return draw(self, x)
+                mp.setattr(TDropout, '__call__', recorded)
+            local, metrics = tdist.dp_objective(
+                tm, [batch], [tdraws], [drop], mixed_precision=False)
+        local.backward()
+        return float(metrics.pop('total_loss')), metrics, tm
+
+    total, metrics, tm = port_step(record=tc.dropout > 0)
+    with pytest.MonkeyPatch.context() as mp:
+        if masks:
+            mp.setattr(flax_nn.Dropout, '__call__', replaying_dropout(masks))
+        jtotal, jmetrics, jgrads = pinned_jax_losses(
+            jm, variables, jbatch, draws, jax.random.PRNGKey(5))
     zeros = jax.tree.map(np.zeros_like, variables['constants'])
     jgrad_sd = state_dict_from_jax(jax.tree.map(np.asarray, jgrads), zeros)
     return dict(jtotal=float(jtotal), jmetrics=jmetrics, jgrads=jgrad_sd,
-                total=float(total), metrics=metrics, model=tm)
+                total=total, metrics=metrics, model=tm, masks=masks,
+                port_step=port_step)
 
 
 def test_train_step_losses_match_jax(step_pair):
