@@ -1,0 +1,6 @@
+"""NMS fixpoint rounds a scene over the window (core.nms.greedy_fixpoint.rounds)."""
+from perfbench import readers
+
+
+def read(obs):
+    return readers.per_call(obs, 'nms_rounds', 'eval')
