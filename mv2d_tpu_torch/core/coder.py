@@ -10,6 +10,7 @@ from typing import Sequence
 
 import torch
 
+from ..utils.profiling import counters
 from .boxes import denormalize_bbox
 from .nms import topk
 
@@ -30,6 +31,7 @@ def nms_free_decode(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,
     labels = idx % num_classes
     bbox_index = idx // num_classes
     boxes = denormalize_bbox(bbox_preds[bbox_index])
+    counters['sync.coder.range'] += 2
     lo = boxes.new_tensor(post_center_range[:3])
     hi = boxes.new_tensor(post_center_range[3:])
     inside = (boxes[:, :3] >= lo).all(-1) & (boxes[:, :3] <= hi).all(-1)

@@ -13,6 +13,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import counters
+
 
 @dataclass
 class CameraParams:
@@ -75,6 +77,7 @@ def virtual_intrinsics(boxes: torch.Tensor, intrinsics: torch.Tensor,
     [R, 4, 4] -> [R, 4, 4] (principal point moved to the RoI origin with
     the half-pixel `0.5 / scale` offset, then rescaled to the RoI grid)."""
     wh_bbox = boxes[:, 2:4] - boxes[:, 0:2]
+    counters['sync.geometry.roi_size'] += 1
     wh_roi = boxes.new_tensor([roi_size[1], roi_size[0]])
     scale = wh_roi[None] / wh_bbox                                   # [R, 2]
     K = intrinsics.clone()
@@ -116,6 +119,7 @@ def center2lidar(center_pred: torch.Tensor, virtual_K: torch.Tensor,
 
 def normalize_points(points: torch.Tensor,
                      pc_range: Sequence[float]) -> torch.Tensor:
+    counters['sync.geometry.pc_range'] += 2
     lo = points.new_tensor(pc_range[:3])
     hi = points.new_tensor(pc_range[3:])
     return (points - lo) / (hi - lo)

@@ -16,6 +16,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import counters, span
+
 _BIG = 1e8
 
 
@@ -57,17 +59,21 @@ def hungarian_assign(costs: torch.Tensor, query_valid: torch.Tensor,
     (assigned gt [..., Q] int64, -1 where unmatched; positive mask
     [..., Q]).  Every valid gt meets one valid query when there are enough
     of them.  All the cost matrices reach the host in one copy."""
-    G = costs.shape[-1]
-    ok = query_valid[:, None] & gt_valid[None, :]
-    c = torch.where(ok, costs.detach().float(),
-                    torch.full_like(costs, _BIG, dtype=torch.float32))
-    host = c.cpu().numpy()
-    flat = host.reshape(-1, *host.shape[-2:])
-    assigned = np.stack([lsa_host(m) for m in flat]).reshape(host.shape[:-1])
-    assigned = torch.from_numpy(assigned).to(costs.device)
-    safe = assigned.clamp(0, G - 1)
-    pos = (assigned >= 0) & gt_valid[safe] & query_valid
-    return torch.where(pos, assigned, torch.full_like(assigned, -1)), pos
+    with span('match'):
+        G = costs.shape[-1]
+        ok = query_valid[:, None] & gt_valid[None, :]
+        c = torch.where(ok, costs.detach().float(),
+                        torch.full_like(costs, _BIG, dtype=torch.float32))
+        counters['sync.matching.d2h'] += 1
+        host = c.cpu().numpy()
+        flat = host.reshape(-1, *host.shape[-2:])
+        assigned = np.stack([lsa_host(m) for m in flat]).reshape(
+            host.shape[:-1])
+        counters['sync.matching.h2d'] += 1
+        assigned = torch.from_numpy(assigned).to(costs.device)
+        safe = assigned.clamp(0, G - 1)
+        pos = (assigned >= 0) & gt_valid[safe] & query_valid
+        return torch.where(pos, assigned, torch.full_like(assigned, -1)), pos
 
 
 def match_cost(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,

@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 from torch._higher_order_ops.while_loop import while_loop_op
 
+from ..utils.profiling import counters, span
 from . import boxes as box_utils
 
 _NEG = -1e10
@@ -41,6 +42,7 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _fixpoint_cond(it, k, prev, cand, kill):
+    counters['nms_rounds'] += 1
     greedy_fixpoint.rounds += 1
     return (it < kill.shape[-1]) & (k != prev).any()
 
@@ -56,15 +58,20 @@ def greedy_fixpoint(cand: torch.Tensor, kill: torch.Tensor) -> torch.Tensor:
     & cand) until k stops changing (at most B rounds)."""
     k = cand & ~(kill & cand[..., :, None]).any(-2)
     it = torch.zeros((), dtype=torch.int64, device=cand.device)
+    tests = counters['nms_rounds']
     # `while_loop_op` runs the loop eagerly outside a trace and becomes one
     # graph node under export (the public `while_loop` would compile)
     _, k, _ = while_loop_op(_fixpoint_cond, _fixpoint_body, (it, k, cand),
                             (cand, kill))
+    # eager reads each test's flag on the host, the first twice when the
+    # loop runs (`if not` it, then `while` it)
+    tests = counters['nms_rounds'] - tests
+    counters['sync.nms.round'] += tests + (tests > 1)
     return k
 
 
-# the fixpoint's loop tests so far, each a host sync in eager (the stage
-# benches read it: rounds a call)
+# `counters['nms_rounds']` under its earlier name, which
+# `perfbench/program.py` reads
 greedy_fixpoint.rounds = 0
 
 
@@ -72,27 +79,28 @@ def _greedy_suppress_boxes(boxes: torch.Tensor, valid: torch.Tensor,
                            iou_threshold: float, iou_fn) -> torch.Tensor:
     """Exact greedy NMS over score-sorted boxes [..., N, D] with validity
     [..., N]; returns the keep mask [..., N]."""
-    n = boxes.shape[-2]
-    B = min(_NMS_BLOCK, n)
-    nb = -(-n // B)
-    pad = nb * B - n
-    if pad:
-        boxes = torch.cat([boxes, boxes.new_zeros(*boxes.shape[:-2], pad,
-                                                  boxes.shape[-1])], dim=-2)
-        valid = torch.cat([valid, valid.new_zeros(*valid.shape[:-1], pad)],
-                          dim=-1)
-    r = torch.arange(B, device=boxes.device)
-    strictly_upper = r[:, None] < r[None, :]
-    kept = valid.clone()
-    for blk in range(nb):
-        s = blk * B
-        cols = iou_fn(boxes[..., :s + B, :],
-                      boxes[..., s:s + B, :]) > iou_threshold   # [..., s+B, B]
-        sup_prev = (cols[..., :s, :] & kept[..., :s, None]).any(-2)
-        cand = kept[..., s:s + B] & ~sup_prev
-        kill = cols[..., s:s + B, :] & strictly_upper
-        kept[..., s:s + B] = greedy_fixpoint(cand, kill)
-    return kept[..., :n]
+    with span('nms'):
+        n = boxes.shape[-2]
+        B = min(_NMS_BLOCK, n)
+        nb = -(-n // B)
+        pad = nb * B - n
+        if pad:
+            boxes = torch.cat([boxes, boxes.new_zeros(
+                *boxes.shape[:-2], pad, boxes.shape[-1])], dim=-2)
+            valid = torch.cat([valid, valid.new_zeros(
+                *valid.shape[:-1], pad)], dim=-1)
+        r = torch.arange(B, device=boxes.device)
+        strictly_upper = r[:, None] < r[None, :]
+        kept = valid.clone()
+        for blk in range(nb):
+            s = blk * B
+            cols = iou_fn(boxes[..., :s + B, :], boxes[..., s:s + B, :]) \
+                > iou_threshold                               # [..., s+B, B]
+            sup_prev = (cols[..., :s, :] & kept[..., :s, None]).any(-2)
+            cand = kept[..., s:s + B] & ~sup_prev
+            kill = cols[..., s:s + B, :] & strictly_upper
+            kept[..., s:s + B] = greedy_fixpoint(cand, kill)
+        return kept[..., :n]
 
 
 def _sort_by_score(boxes, scores, valid):

@@ -32,6 +32,7 @@ from ..nn.vovnet import VoVNet
 from ..ops.roi_align import (roi_align_flat, roi_align_multilevel,
                              roi_align_multilevel_train, roi_align_slab)
 from ..routes import Routes
+from ..utils.profiling import span
 
 
 class Proposals(NamedTuple):
@@ -86,13 +87,15 @@ class SingleStageDetector(tnn.Module):
     def detect(self, feats: Sequence[torch.Tensor],
                image_shape: Tuple[int, int],
                cfg: DetectionProposalCfg) -> Proposals:
-        scores, deltas = self.bbox_head(feats)
-        b, s, l, v = single_stage_detections(
-            scores, deltas, self.fpn_strides, image_shape, self.num_classes,
-            score_thr=cfg.score_thr, nms_pre=cfg.nms_pre,
-            iou_threshold=cfg.iou_threshold, max_per_img=cfg.max_per_img,
-            min_bbox_size=cfg.min_bbox_size)
-        return Proposals(boxes=b, scores=s, labels=l, valid=v)
+        with span('detect'):
+            scores, deltas = self.bbox_head(feats)
+            b, s, l, v = single_stage_detections(
+                scores, deltas, self.fpn_strides, image_shape,
+                self.num_classes, score_thr=cfg.score_thr,
+                nms_pre=cfg.nms_pre, iou_threshold=cfg.iou_threshold,
+                max_per_img=cfg.max_per_img,
+                min_bbox_size=cfg.min_bbox_size)
+            return Proposals(boxes=b, scores=s, labels=l, valid=v)
 
 
 class TwoStageDetector(tnn.Module):
@@ -175,7 +178,10 @@ class TwoStageDetector(tnn.Module):
                cfg: DetectionProposalCfg) -> Proposals:
         """RPN -> RoIAlign -> Shared2FC -> per-class decode -> multiclass
         NMS: padded per-view detections."""
-        prop_boxes, _, prop_valid = self.rpn(feats, image_shape, cfg)
-        cls_logits, deltas = self.rcnn(feats, prop_boxes)
-        return self.detections(prop_boxes, prop_valid, cls_logits, deltas,
-                               image_shape, cfg)
+        with span('detect'):
+            with span('rpn'):
+                prop_boxes, _, prop_valid = self.rpn(feats, image_shape, cfg)
+            with span('rcnn'):
+                cls_logits, deltas = self.rcnn(feats, prop_boxes)
+                return self.detections(prop_boxes, prop_valid, cls_logits,
+                                       deltas, image_shape, cfg)

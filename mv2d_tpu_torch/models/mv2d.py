@@ -45,6 +45,7 @@ from ..nn.query_generator import QueryGenerator
 from ..ops.grid_mask import GridMaskDraws, grid_mask
 from ..ops.roi_align import separable_roi_align_views
 from ..routes import Routes, from_env
+from ..utils.profiling import counters, span
 from .correlation import (adjacency_from_correlation, epipolar_in_box,
                           gather_active_keys, in_roi_pixel_masks)
 from .detector2d import Proposals, SingleStageDetector, TwoStageDetector
@@ -171,8 +172,9 @@ class MV2D(tnn.Module):
 
     def extract_feats(self, imgs: torch.Tensor):
         """[V, H, W, 3] -> (fpn p2..p6, neck p4)."""
-        fpn_feats = self.base_detector.extract_feat(imgs)
-        return fpn_feats, self.neck(fpn_feats)[0]
+        with span('backbone'):
+            fpn_feats = self.base_detector.extract_feat(imgs)
+            return fpn_feats, self.neck(fpn_feats)[0]
 
     def _prepare_dn(self, gt: GroundTruth3D, noise: torch.Tensor):
         """DN queries: every GT box repeated denoise_scalar times, its
@@ -292,6 +294,32 @@ class MV2D(tnn.Module):
         """The 3D head.  With `gt` (training) and the pixel key mode,
         queries whose RoI has no correlated pixel attend to the fake key
         pixel (view 0, 0, 0); with `dn_noise` the DN queries run first."""
+        with span('head'):
+            with span('keys'):
+                (refs, keys, key_pos, self_allowed, cross, flat_valid,
+                 diagnostics, dn_info) = self._decoder_inputs(
+                    p4, pos, proposals, cam, img_shapes, gt, dn_noise)
+            with span('decoder'):
+                all_cls, all_box = self.roi_head.bbox_head(
+                    refs, keys, key_pos, self_allowed, cross, drop)
+            if mean_time_delta is not None:
+                all_box = torch.cat([all_box[..., :8],
+                                     all_box[..., 8:10] / mean_time_delta,
+                                     all_box[..., 10:]], dim=-1)
+            if dn_info is None:
+                return HeadOutputs(all_cls, all_box, flat_valid, diagnostics)
+            n = self.cfg.dn_pad
+            return HeadOutputs(all_cls[:, n:], all_box[:, n:], flat_valid,
+                               diagnostics, all_cls[:, :n], all_box[:, :n],
+                               dn_info)
+
+    def _decoder_inputs(self, p4, pos, proposals: Proposals,
+                        cam: CameraParams, img_shapes, gt, dn_noise):
+        """What the decoder takes: RoIAlign of p4 ++ PE, the query
+        generator's reference points, the epipolar correlation, the keys,
+        the DN queries and the attention masks -> (refs, keys, key_pos,
+        self-attention allowed, cross-attention allowed, query valid,
+        diagnostics, DN info or None)."""
         c = self.cfg
         training = gt is not None
         head = self.roi_head
@@ -299,6 +327,7 @@ class MV2D(tnn.Module):
         P = proposals.boxes.shape[1]
         R = V * P
         dev = p4.device
+        counters['sync.mv2d.dummy_box'] += 1
         boxes = torch.where(proposals.valid[..., None],
                             proposals.boxes.float(),
                             torch.tensor(DUMMY_BOX, device=dev))  # [V, P, 4]
@@ -348,18 +377,8 @@ class MV2D(tnn.Module):
             self_allowed = flat_valid[None, :] | torch.eye(
                 R, dtype=torch.bool, device=dev)
 
-        all_cls, all_box = head.bbox_head(refs, keys, key_pos, self_allowed,
-                                          cross, drop)
-        if mean_time_delta is not None:
-            all_box = torch.cat([all_box[..., :8],
-                                 all_box[..., 8:10] / mean_time_delta,
-                                 all_box[..., 10:]], dim=-1)
-        if dn_info is None:
-            return HeadOutputs(all_cls, all_box, flat_valid, diagnostics)
-        n = c.dn_pad
-        return HeadOutputs(all_cls[:, n:], all_box[:, n:], flat_valid,
-                           diagnostics, all_cls[:, :n], all_box[:, :n],
-                           dn_info)
+        return (refs, keys, key_pos, self_allowed, cross, flat_valid,
+                diagnostics, dn_info)
 
     def _mean_time_delta(self, cam: CameraParams):
         c = self.cfg
@@ -375,31 +394,35 @@ class MV2D(tnn.Module):
         """[V, H, W, 3] images -> scene-level 3D detections (max_per_scene
         slots: bottom-center boxes [., 9], scores, labels, valid)."""
         c = self.cfg
-        fpn_feats, p4 = self.extract_feats(imgs)
-        proposals = self.base_detector.detect(fpn_feats, c.image_size,
-                                              c.proposal_test)
-        pos = self.roi_head.position_encoding(p4, cam.img2lidar, img_shapes,
-                                              c.image_size)
-        out = self.roi_head_forward(p4, pos, proposals, cam, img_shapes,
-                                    self._mean_time_delta(cam))
-        return self.decode(out)
+        with span('forward'):
+            fpn_feats, p4 = self.extract_feats(imgs)
+            proposals = self.base_detector.detect(fpn_feats, c.image_size,
+                                                  c.proposal_test)
+            with span('pe'):
+                pos = self.roi_head.position_encoding(
+                    p4, cam.img2lidar, img_shapes, c.image_size)
+            out = self.roi_head_forward(p4, pos, proposals, cam, img_shapes,
+                                        self._mean_time_delta(cam))
+            return self.decode(out)
 
     def decode(self, out: HeadOutputs) -> Detections:
         """The eval forward's last stage: NMS-free decode of the head's
         last layer, then the cross-view BEV merge."""
         c = self.cfg
-        boxes, scores, labels, valid = nms_free_decode(
-            out.all_cls_scores[-1].float(), out.all_bbox_preds[-1].float(),
-            out.query_valid, c.max_num, c.num_classes, c.position_range)
-        boxes = box_utils.gravity_to_bottom(boxes)
-        scores_mc = F.one_hot(labels, c.num_classes + 1).to(scores.dtype) \
-            * scores[:, None]
-        bev = torch.stack([boxes[:, 0], boxes[:, 1], boxes[:, 3],
-                           boxes[:, 4], boxes[:, 6]], dim=-1)
-        merged = box3d_multiclass_nms(boxes, bev, scores_mc, valid, 0.0,
-                                      c.max_per_scene, c.bev_nms_thr,
-                                      c.num_classes)
-        return Detections(*merged, out.diagnostics)
+        with span('decode'):
+            boxes, scores, labels, valid = nms_free_decode(
+                out.all_cls_scores[-1].float(),
+                out.all_bbox_preds[-1].float(), out.query_valid, c.max_num,
+                c.num_classes, c.position_range)
+            boxes = box_utils.gravity_to_bottom(boxes)
+            scores_mc = F.one_hot(labels, c.num_classes + 1).to(
+                scores.dtype) * scores[:, None]
+            bev = torch.stack([boxes[:, 0], boxes[:, 1], boxes[:, 3],
+                               boxes[:, 4], boxes[:, 6]], dim=-1)
+            merged = box3d_multiclass_nms(boxes, bev, scores_mc, valid, 0.0,
+                                          c.max_per_scene, c.bev_nms_thr,
+                                          c.num_classes)
+            return Detections(*merged, out.diagnostics)
 
     # ------------------------------------------------------------ training
 
@@ -457,8 +480,9 @@ class MV2D(tnn.Module):
                 [f.detach() for f in fpn_feats], c.image_size,
                 c.proposal_train)
         proposals = self.complement_2d_gt(proposals, gt2d)
-        pos = self.roi_head.position_encoding(p4, cam.img2lidar, img_shapes,
-                                              c.image_size)
+        with span('pe'):
+            pos = self.roi_head.position_encoding(p4, cam.img2lidar,
+                                                  img_shapes, c.image_size)
         out = self.roi_head_forward(p4, pos, proposals, cam, img_shapes,
                                     self._mean_time_delta(cam), gt=gt3d,
                                     dn_noise=dn_noise, drop=drop)

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from ..core.geometry import inverse_sigmoid
 from ..ops.attention import (MaskTiles, mask_tiles, masked_attention,
                              masked_attention_train, per_query_attention)
+from ..utils.profiling import counters
 from .layers import linear, rematerialized
 from .pe import pos2posemb3d
 
@@ -252,6 +253,7 @@ class CrossAttentionBoxHead(tnn.Module):
                                         self_allowed, cross_allowed, drop)
         reference = inverse_sigmoid(reference_points.float())
         pr = self.pc_range
+        counters['sync.decoder.pc_range'] += 2
         span_xy = reference.new_tensor([pr[3] - pr[0], pr[4] - pr[1]])
         lo_xy = reference.new_tensor([pr[0], pr[1]])
         all_cls, all_box = [], []

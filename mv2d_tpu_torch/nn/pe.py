@@ -16,6 +16,7 @@ import torch.nn as tnn
 import torch.nn.functional as F
 
 from ..core.geometry import inverse_sigmoid, lid_depth_bins
+from ..utils.profiling import counters
 from .layers import conv1x1
 
 
@@ -170,6 +171,7 @@ class PE(tnn.Module):
         t = m[:, :3, 3]
         pts = ray[:, :, :, None, :] * coords_d[None, None, None, :, None] \
             + t[:, None, None, None, :]                       # [V,H,W,D,3]
+        counters['sync.pe.range'] += 2
         lo = pts.new_tensor(pr[:3])
         hi = pts.new_tensor(pr[3:])
         pos = inverse_sigmoid((pts - lo) / (hi - lo))

@@ -16,6 +16,7 @@ import torch.nn as tnn
 import torch.nn.functional as F
 
 from ..core.nms import _NEG, _take, nms_sorted_keep, topk
+from ..utils.profiling import counters
 from .layers import conv1x1, conv2d_nhwc
 
 
@@ -47,6 +48,7 @@ def delta2bbox(anchors: torch.Tensor, deltas: torch.Tensor,
                ) -> torch.Tensor:
     """mmdet DeltaXYWHBBoxCoder.decode on [..., 4] (target means 0,
     wh_ratio_clip 16/1000), clipped to max_shape (h, w)."""
+    counters['sync.rpn.decode_stds'] += 1
     d = deltas * deltas.new_tensor(stds)
     dx, dy, dw, dh = d.unbind(-1)
     max_ratio = abs(math.log(16.0 / 1000.0))
@@ -79,6 +81,7 @@ def bbox2delta(anchors: torch.Tensor, gt: torch.Tensor,
     gy = (gt[..., 1] + gt[..., 3]) * 0.5
     d = torch.stack([(gx - px) / pw, (gy - py) / ph, torch.log(gw / pw),
                      torch.log(gh / ph)], dim=-1)
+    counters['sync.rpn.encode_stds'] += 1
     return d / d.new_tensor(stds)
 
 
@@ -113,6 +116,7 @@ def rpn_proposals(scores: List[torch.Tensor], deltas: List[torch.Tensor],
     lvl_boxes, lvl_scores = [], []
     for l, (s, d) in enumerate(zip(scores, deltas)):
         H, W, A = s.shape[1:]
+        counters['sync.rpn.anchors'] += 1
         anchors = torch.from_numpy(grid_anchors((H, W), strides[l])).to(dev)
         s = s.reshape(V, -1)
         top_s, top_i = topk(s, min(nms_pre, s.shape[1]))
@@ -130,6 +134,7 @@ def rpn_proposals(scores: List[torch.Tensor], deltas: List[torch.Tensor],
     b = torch.stack([pad_lvl(x) for x in lvl_boxes], dim=1)   # [V, L, n, 4]
     s = torch.sigmoid(torch.stack([pad_lvl(x) for x in lvl_scores], dim=1))
     wh = b[..., 2:4] - b[..., 0:2]
+    counters['sync.rpn.level_sizes'] += 1
     n_lvl = torch.tensor([x.shape[1] for x in lvl_boxes], device=dev)
     valid = (wh > min_bbox_size).all(-1) & \
         (torch.arange(n_max, device=dev)[None, None, :] < n_lvl[None, :, None])

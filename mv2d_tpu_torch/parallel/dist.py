@@ -45,6 +45,7 @@ from ..nn.decoder import NO_DROPOUT, Dropout
 from ..train.optim import apply_update
 from ..train.train_step import (TrainBatch, TrainDraws, draw_train,
                                 step_generator, step_losses)
+from ..utils.profiling import span
 
 
 class DistInfo(NamedTuple):
@@ -177,18 +178,24 @@ def dp_train_step(model, optimizer: torch.optim.Optimizer,
     metrics of the global batch (`dp_objective`'s, grad_norm, lr).  A rank
     with several scenes runs their forwards, then one backward."""
     cfg = model.cfg
-    optimizer.zero_grad(set_to_none=True)
-    draws = [draw_train(cfg, b.gt2d.boxes.shape[1], g)
-             for b, g in zip(scenes, generators)]
-    local, metrics = dp_objective(
-        model, scenes, draws, [Dropout(cfg.dropout, g) for g in generators],
-        group, mixed_precision)
-    local.backward()
-    all_reduce_gradients(optimizer, group)
-    norm, lr = apply_update(optimizer)
-    metrics.update(grad_norm=norm,
-                   lr=torch.tensor(lr, dtype=torch.float64))
-    return metrics
+    with span('train_step'):
+        optimizer.zero_grad(set_to_none=True)
+        with span('draws'):
+            draws = [draw_train(cfg, b.gt2d.boxes.shape[1], g)
+                     for b, g in zip(scenes, generators)]
+        with span('objective'):
+            local, metrics = dp_objective(
+                model, scenes, draws,
+                [Dropout(cfg.dropout, g) for g in generators], group,
+                mixed_precision)
+        with span('backward'):
+            local.backward()
+        all_reduce_gradients(optimizer, group)
+        with span('update'):
+            norm, lr = apply_update(optimizer)
+        metrics.update(grad_norm=norm,
+                       lr=torch.tensor(lr, dtype=torch.float64))
+        return metrics
 
 
 # ------------------------------------------------------------- dry run

@@ -4,9 +4,9 @@ busy time and the host syncs it makes, by site.
 `timed(fn, *args, iters, warmup, name)` runs `warmup` calls, then `iters`
 calls back to back with one `torch.cuda.synchronize()` at the end, and
 gives a `Row` with the host ms a call and the NMS fixpoint's rounds a
-call in that loop (`core.nms.greedy_fixpoint.rounds`: each round a host
-sync, the count depends on the scores).  On a CUDA device it then makes,
-outside that loop (each slows the calls it watches):
+call in that loop (`utils.profiling.counters['nms_rounds']`: each round
+a host sync, the count depends on the scores).  On a CUDA device it then
+makes, outside that loop (each slows the calls it watches):
   * a window of calls (one, or as many as last ~20 ms) under
     `torch.profiler` (CPU and CUDA activities): the device's busy ms a
     call, the union of its kernels' intervals (`profile_train._busy_ms`);
@@ -18,7 +18,7 @@ outside that loop (each slows the calls it watches):
     put to the site of the warning that follows it (torch warns as the
     op that synced returns).
 A site is the innermost frame of `mv2d_tpu_torch` below the harness on the
-stack at the sync (`core/nms.py:61 greedy_fixpoint`: the lines that
+stack at the sync (`core/nms.py:64 greedy_fixpoint`: the lines that
 synced), not the line inside torch that made it.  A sync on a thread with
 no Python frame (the autograd engine's) raises no warning: its blocked ms
 go to NO_FRAME.  The profiles are read from kineto's records
@@ -40,8 +40,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from ..core.nms import greedy_fixpoint
 from ..profile_train import _busy_ms
+from ..utils.profiling import counters, sync_warning
 
 PKG = 'mv2d_tpu_torch'
 _HERE = os.path.basename(__file__)
@@ -197,7 +197,7 @@ def sync_sites(fn, args) -> Dict[Site, SiteStats]:
     marks: List[Tuple[float, Site]] = []
 
     def hook(message, category, filename, lineno, file=None, line=None):
-        if 'synchroniz' not in str(message):
+        if not sync_warning(message):
             return
         t = time.time_ns() / 1e3
         site, ln = frame_site(_live_frames(sys._getframe(1)))
@@ -270,13 +270,13 @@ def timed(fn, *args, iters: int = 10, warmup: int = 2, name: str = '',
     for _ in range(1 + warmup):
         fn(*args)
     sync()
-    r0 = greedy_fixpoint.rounds
+    r0 = counters['nms_rounds']
     t0 = time.perf_counter()
     for _ in range(iters):
         fn(*args)
     sync()
     row = Row(name, (time.perf_counter() - t0) * 1e3 / iters,
-              (greedy_fixpoint.rounds - r0) / iters)
+              (counters['nms_rounds'] - r0) / iters)
     if cuda:
         row.busy_ms = device_busy_ms(fn, args, row.host_ms)
         row.sites = sync_sites(fn, args)

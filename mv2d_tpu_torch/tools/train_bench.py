@@ -88,12 +88,12 @@ def fixture_batch(cfg, fixture: str, dev):
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Runs the CLI; returns ms_per_step, scenes_per_s, peak_gib and loss
     (or flops and bytes with --flops)."""
-    from ..core.nms import greedy_fixpoint
     from ..models.mv2d import MV2D
     from ..parallel.dist import dp_train_step
     from ..routes import Routes
     from ..synthetic import synthetic_train_batch
     from ..train.optim import make_optimizer
+    from ..utils.profiling import counters
     from .common import load_weights
     args = parse_args(argv)
     dev = sc.device_of(args)
@@ -155,13 +155,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     sync()
     if dev.type == 'cuda':
         torch.cuda.reset_peak_memory_stats(dev)
-    r0 = greedy_fixpoint.rounds
+    r0 = counters['nms_rounds']
     t0 = time.perf_counter()
     for _ in range(args.iters):
         metrics = step()
     sync()
     dt = (time.perf_counter() - t0) / args.iters
-    rounds = (greedy_fixpoint.rounds - r0) / args.iters
+    rounds = (counters['nms_rounds'] - r0) / args.iters
     loss = float(metrics['total_loss'])
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
         if dev.type == 'cuda' else float('nan')

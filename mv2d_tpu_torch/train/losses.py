@@ -17,6 +17,7 @@ import torch
 from ..core import matching
 from ..core.boxes import bottom_to_gravity, normalize_bbox
 from ..ops.focal_loss import sigmoid_focal_loss, weighted_l1_loss
+from ..utils.profiling import counters
 
 CODE_WEIGHTS = (1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.5, 1.5, 2.0, 2.0)
 
@@ -40,6 +41,7 @@ def layer_losses(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,
     `bbox_avg_factor` where given, else by each layer's num_pos."""
     cost = matching.match_cost(cls_scores, bbox_preds, gt_code, gt_labels)
     assigned, pos = matching.hungarian_assign(cost, query_valid, gt_valid)
+    counters['sync.losses.code_weights'] += 1
     cw = bbox_preds.new_tensor(code_weights).float()
     out = []
     for lvl in range(cls_scores.shape[0]):
@@ -78,6 +80,7 @@ def dn_layer_loss(cls_scores: torch.Tensor, bbox_preds: torch.Tensor,
                                   avg_factor=cls_avg.clamp(min=1.0),
                                   loss_weight=2.0)
     targets = normalize_bbox(dn.known_boxes.float())
+    counters['sync.losses.code_weights'] += 1
     w = bbox_preds.new_tensor(code_weights).float().expand(
         bbox_preds.shape[0], -1) * dn.valid[:, None].float()
     # DN leaves the yaw terms out (the reference: "dn always reduces mAOE")

@@ -29,6 +29,7 @@ from ..nn.decoder import NO_DROPOUT, Dropout
 from ..nn.retina import level_anchors
 from ..nn.rpn import grid_anchors, rpn_proposals
 from ..ops.grid_mask import GridMaskDraws, draw_grid_mask
+from ..utils.profiling import counters, span
 from . import detector2d_loss as d2l
 from .losses import mv2d_head_loss
 
@@ -99,19 +100,37 @@ def compute_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
     deferred[key] = (weighted sum, num_pos) (`mv2d_head_loss` with
     sync_bbox_norm), for the step to normalise over its batch."""
     cfg = model.cfg
-    out, det = model.forward_train(batch.imgs, batch.cam, batch.img_shapes,
-                                   batch.gt2d, batch.gt3d, draws.grid,
-                                   draws.dn_noise, drop)
-    losses, deferred = mv2d_head_loss(out, batch.gt3d, cfg,
-                                      sync_bbox_norm=True)
+    with span('forward'):
+        out, det = model.forward_train(
+            batch.imgs, batch.cam, batch.img_shapes, batch.gt2d, batch.gt3d,
+            draws.grid, draws.dn_noise, drop)
+    with span('head_loss'):
+        losses, deferred = mv2d_head_loss(out, batch.gt3d, cfg,
+                                          sync_bbox_norm=True)
+    with span('det_loss'):
+        total, metrics = _detector_losses(model, batch, draws, det, losses)
+    metrics['num_queries'] = out.query_valid.sum()
+    if cfg.detector_type == 'single_stage':
+        return total, metrics, deferred
+    # the pixel key mode's bucket accounting (the roi key mode has none)
+    for k in ('key_active', 'key_overflow'):
+        if k in out.diagnostics:
+            metrics[k] = out.diagnostics[k]
+    return total, metrics, deferred
 
+
+def _detector_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
+                     det: dict, losses: dict):
+    """The 2D detector's losses (RPN and R-CNN with their proposals and
+    sampling, or the single-stage detector's), added to `losses` ->
+    (total, metrics)."""
+    cfg = model.cfg
     Vc = current_views(cfg)
     gt2d = batch.gt2d
     if cfg.detector_type == 'single_stage':
-        total, metrics = _single_stage_losses(cfg, det, gt2d, losses, Vc)
-        metrics['num_queries'] = out.query_valid.sum()
-        return total, metrics, deferred
+        return _single_stage_losses(cfg, det, gt2d, losses, Vc)
     # RPN losses on the current frame's views
+    counters['sync.train_step.anchors'] += 1
     anchors = all_anchors(cfg).to(batch.imgs.device)
     flat_scores = torch.cat([s.reshape(s.shape[0], -1)
                              for s in det['rpn_scores']], 1)
@@ -144,12 +163,7 @@ def compute_losses(model: MV2D, batch: TrainBatch, draws: TrainDraws,
     metrics = dict(losses)
     metrics['rpn_num_pos'] = rpn['rpn_num_pos'].sum()
     metrics['rcnn_num_pos'] = rcnn['rcnn_num_pos']
-    metrics['num_queries'] = out.query_valid.sum()
-    # the pixel key mode's bucket accounting (the roi key mode has none)
-    for k in ('key_active', 'key_overflow'):
-        if k in out.diagnostics:
-            metrics[k] = out.diagnostics[k]
-    return total, metrics, deferred
+    return total, metrics
 
 
 def _single_stage_losses(cfg: MV2DConfig, det: dict, gt2d: GroundTruth2D,
