@@ -52,7 +52,14 @@ Phases, in order; any failure exits non-zero without the final line:
      and B12 are timed beside K3 on the same RoIs (`k3_ms`), log their
      plan (box, ring slots, blocks an SM, registers, shared memory), and
      are checked on a finest level 560 cells wide and for equal bits in
-     two runs.  Then each `mv2d` operator's host microseconds a call
+     two runs.  The NMS kernel's keep masks equal the plain scan's bit
+     for bit (on the same CUDA tensors) at the RPN's [12,5,1000], the
+     R-CNN's [12,1000] and the training proposals' [6,5,2000], with float32
+     boxes rounded through bfloat16 in the bf16 pass, and on duplicates, a
+     row all invalid, suppression chains, bfloat16 boxes, ragged and
+     one-box rows and 3000 boxes a row; its bound counts the pairs' 13
+     float32 operations at 67 TFLOP/s.  Then each `mv2d` operator's host
+     microseconds a call
      (`torch.ops.mv2d.*`) against a direct call of its CUDA
      implementation on the same arguments (`op_args`), and their cost
      per eval forward and per training step;
@@ -212,7 +219,15 @@ The default phases (3-6, 9) build their models with the default routes
 its R50 server and the default routes for its R101 server; phase 8's
 `tools/test.py` reads the routes from the environment, as a user's run
 does, and expects none set.  Each path's launch
-counters are set to 0 just before it and read just after.  Then one JSON
+counters are set to 0 just before it and read just after.  A counter
+counts its wrapper's calls.  On CUDA the two-stage detector's `detect`
+runs as a CUDA graph: a replay runs its kernels (K3 or B11, the NMS)
+without calling a wrapper, and the call that captures calls each wrapper
+twice (its warm-up, then the capture), so each path's expected counts
+take the `detect_graph` captures and replays of its calls into account
+(`expect_calls`), logged beside them; serve and train also count
+`detect`'s kernel runs in one more forward or step from the device's own
+records (`kernel_runs`, torch.profiler, replays included).  Then one JSON
 line with the kernels' results, the card's name and power limit, and the
 last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -285,6 +300,12 @@ KERNELS = {
         replaces='none: packs the mask that K4 and B8 read (the TPU kernels '
                  'take a bf16 mask and per-tile lists, '
                  'mv2d_tpu/ops/pallas_attention.py:192 _sparse_blocks)'),
+    'nms_keep': dict(
+        op='mv2d::nms_keep',
+        source='mv2d_tpu_torch/csrc/nms.cu',
+        replaces='none: greedy 2D NMS, which the JAX package runs as a '
+                 'blocked scan with a while_loop fixpoint '
+                 '(mv2d_tpu/core/nms.py), no pallas_call'),
 }
 # kernels that only the routing switches and other entry points reach:
 # none on the default paths
@@ -292,13 +313,27 @@ ROUTED_KERNELS = ('fused_identity_chain', 'dcn_conv_backward',
                   'roi_align_slab', 'roi_align_flat')
 # the decoder packs its self- and cross-attention masks once a pass
 MASKS_PER_PASS = 2
+# NMS launches a pass of the two-stage detector's detect: the RPN's and the
+# R-CNN's; a training step adds the proposals the R-CNN samples from
+NMS_PER_DETECT = 2
+# a two-stage detect's kernel launches on the default routes (K3 on the
+# R-CNN's RoIs, the NMS twice).  On CUDA `detect` runs as a CUDA graph: a
+# replay runs them without calling a wrapper (so no wrapper counts them),
+# and the call that captures calls each wrapper twice (`expect_calls`);
+# the device's own records count their runs (`kernel_runs`)
+DETECT_CALLS = {'roi_align_multilevel': 1, 'nms_keep': NMS_PER_DETECT}
+# with align_v2, detect's RoIs go through B11
+DETECT_CALLS_V2 = {'roi_align_slab': 1, 'nms_keep': NMS_PER_DETECT}
+# wrapper -> the kernel whose runs the profiler counts (one a launch)
+DETECT_KERNEL_NAMES = {'roi_align_multilevel': 'roi_align_kernel',
+                       'nms_keep': 'nms_sweep_kernel'}
 # launches per training step (K1: 3 bottlenecks; K3: at least the no-grad
 # detect pass and the R-CNN RoIs)
 TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_samples': 9,
                   'dcn_samples_backward': 9, 'masked_attention': 12,
                   'masked_attention_backward': 12,
                   'roi_align_multilevel_backward': 1,
-                  'mask_bits': MASKS_PER_PASS,
+                  'mask_bits': MASKS_PER_PASS, 'nms_keep': NMS_PER_DETECT + 1,
                   **{n: 0 for n in ROUTED_KERNELS}}
 # launches per training step with the dcn_train_fused, flash_sparse and
 # align_v2 routes (K2: the nine DCN convs' forwards; B13 their backwards,
@@ -312,9 +347,11 @@ ROUTED_TRAIN_PER_STEP = {'fused_stage1': 3, 'dcn_conv': 9,
                          'roi_align_multilevel': 0, 'roi_align_slab': 2,
                          'roi_align_multilevel_backward': 1,
                          'fused_identity_chain': 0, 'roi_align_flat': 0,
-                         'mask_bits': MASKS_PER_PASS}
+                         'mask_bits': MASKS_PER_PASS,
+                         'nms_keep': NMS_PER_DETECT + 1}
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12            # outside the tensor cores
 
 
 # what a phase leaves for a later one (the eval fixture, the training
@@ -324,7 +361,7 @@ KEEP = {}
 
 def counters():
     """Kernel name -> the wrapper that holds its launch counter."""
-    from mv2d_tpu_torch.ops import attention, dcn, roi_align, stage
+    from mv2d_tpu_torch.ops import attention, dcn, nms, roi_align, stage
     return {'fused_stage1': stage.fused_stage1, 'dcn_conv': dcn.dcn_conv,
             'roi_align_multilevel': roi_align.roi_align_multilevel,
             'masked_attention': attention.masked_attention,
@@ -338,11 +375,50 @@ def counters():
             'dcn_conv_backward': dcn.dcn_conv_backward,
             'roi_align_slab': roi_align.roi_align_slab,
             'roi_align_flat': roi_align.roi_align_flat,
-            'mask_bits': attention.mask_bits}
+            'mask_bits': attention.mask_bits, 'nms_keep': nms.nms_keep}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def detect_graph_calls(since=None):
+    """The detect CUDA graph's captures and replays (`profiling.counters`)
+    since the snapshot `since` (a dict, from `detect_graph_calls()`)."""
+    from mv2d_tpu_torch.utils.profiling import counters as program
+    since = since or {}
+    return {k: program[f'detect_graph.{k}'] - since.get(k, 0)
+            for k in ('captures', 'replays')}
+
+
+def expect_calls(per_pass, n, graph, detect=None):
+    """Each wrapper's calls in n passes of `per_pass` eager calls each,
+    where the passes' two-stage `detect` captured and replayed as `graph`
+    says (`detect_graph_calls`): a replay runs `detect`'s kernels
+    (`detect`, default DETECT_CALLS) and calls no wrapper, and the call
+    that captures calls each wrapper twice (its warm-up, then the
+    capture, which runs nothing)."""
+    detect = DETECT_CALLS if detect is None else detect
+    extra = graph['captures'] - graph['replays']
+    return {k: c * n + detect.get(k, 0) * extra for k, c in per_pass.items()}
+
+
+def kernel_runs(fn):
+    """fn() under torch.profiler -> (the runs of `detect`'s kernels that
+    the device recorded, by wrapper (DETECT_KERNEL_NAMES), graph replays
+    included; fn's result)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    runs = {k: 0 for k in DETECT_KERNEL_NAMES}
+    for e in prof.key_averages():
+        for k, kernel in DETECT_KERNEL_NAMES.items():
+            if re.search(rf'\b{kernel}\b', e.key):
+                runs[k] += e.count
+    return runs, out
 
 
 def time_ms(fn, n=5):
@@ -530,6 +606,69 @@ def train_attention_inputs(dev, dtype, self_attn=False, Q=2628, K=16384,
     v = torch.randn(K, C, generator=g)
     return (q.to(dev, dtype), k.to(dev, dtype), v.to(dev, dtype),
             allowed.to(dev))
+
+
+def nms_inputs(dev, shape, kind='random', dtype=None, seed=0,
+               image=(512, 1408)):
+    """Score-ordered boxes [*shape, 4] (x1, y1, x2, y2) in an image of
+    `image` (h, w) and their validity [*shape] for the NMS kernel, in
+    `dtype` (float32 by default; bfloat16 boxes are the dtype itself,
+    'bf16_derived' float32 boxes rounded through bfloat16 as the eval
+    path's are).  kind: 'random' (anchor-like boxes at random, 10%
+    invalid), 'clustered' (boxes around a few dozen centres: long runs of
+    overlaps, as the RPN's top scores give), 'duplicates' (each box
+    repeated two to four times in a row), 'invalid' (the first row all
+    invalid), 'chain' (runs in which each box overlaps the next by IoU
+    0.79 and the one after by 0.62: greedy keeps every other box)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    *lead, N = shape
+    R = int(np.prod(lead)) if lead else 1
+    H, W = image
+    if kind == 'clustered':
+        c = torch.rand(R, 24, 2, generator=g) * torch.tensor([W, H])
+        pick = torch.randint(0, 24, (R, N), generator=g)
+        ctr = torch.gather(c, 1, pick[..., None].expand(R, N, 2)) \
+            + torch.randn(R, N, 2, generator=g) * 6
+        wh = torch.rand(R, N, 2, generator=g) * 120 + 16
+    else:
+        ctr = torch.rand(R, N, 2, generator=g) * torch.tensor([W, H])
+        wh = (torch.rand(R, N, 2, generator=g) * 2 - 1).exp() * 64
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+    boxes = torch.minimum(boxes.clamp(min=0), torch.tensor([W, H, W, H]))
+    if kind == 'duplicates':
+        rep = torch.randint(2, 5, (N,), generator=g)
+        idx = torch.repeat_interleave(torch.arange(N), rep)[:N]
+        boxes = boxes[:, idx]
+    if kind == 'chain':
+        # box i spans [2i, 2i + 17] in its run of 200
+        i = torch.arange(N, dtype=torch.float32)
+        x0 = (i % 200) * 2.0 + (i // 200) * 1000.0
+        row = torch.stack([x0, torch.zeros(N), x0 + 17.0,
+                           torch.full((N,), 10.0)], -1)
+        boxes = row.expand(R, N, 4).clone()
+    valid = torch.rand(R, N, generator=g) >= 0.1
+    if kind == 'chain':
+        valid[:] = True
+    if kind == 'invalid':
+        valid[0] = False
+    if dtype == 'bf16_derived':
+        boxes = boxes.to(torch.bfloat16).float()
+    elif dtype is not None:
+        boxes = boxes.to(dtype)
+    return (boxes.reshape(*lead, N, 4).to(dev),
+            valid.reshape(*lead, N).to(dev))
+
+
+def nms_work(R, N):
+    """(bytes, bf16-peak-equivalent operations) of the NMS kernel on R
+    rows of N boxes: the boxes and validity read, the keep mask written,
+    the pair words written and read once; 13 float32 operations (one a
+    division) a pair of the upper triangle, at the float32 peak."""
+    pairs = R * N * (N - 1) / 2.0
+    words = R * N * (-(-N // 64) + 1) / 2.0 * 8
+    return (R * N * 18.0 + 2 * words,
+            pairs * 13 * BF16_OPS_PER_S / F32_OPS_PER_S)
 
 
 # ------------------------------------------------------------ kernel cases
@@ -1086,6 +1225,21 @@ def kernel_cases():
                                lambda: attention.mask_tiles(a)})
         return build
 
+    def nms(shape, kind='random', thr=0.7, box_dtype=None):
+        # float32 boxes: rounded through bfloat16 in the bf16 pass, as the
+        # eval path's come from bf16 deltas; box_dtype fixes the dtype
+        def build(dev, dt):
+            from mv2d_tpu_torch.core.nms import greedy_keep_plain
+            from mv2d_tpu_torch.ops import nms as nms_op
+            bd = box_dtype or ('bf16_derived' if dt == torch.bfloat16
+                               else torch.float32)
+            b, v = nms_inputs(dev, shape, kind, bd)
+            return Case(lambda: nms_op.nms_keep(b, v, thr).to(torch.uint8),
+                        lambda: greedy_keep_plain(b, v, thr).to(torch.uint8),
+                        nms_work(int(np.prod(shape[:-1])), shape[-1]),
+                        exact=True)
+        return build
+
     return [
         ('fused_stage1', 'layer1 [12,128,352,64]', True, stage1()),
         ('fused_stage1', 'R101 layer1 [12,160,400,64]', False,
@@ -1248,6 +1402,25 @@ def kernel_cases():
         ('mask_bits', 'edge: ragged [101,1000]', False, bits(ragged_attn)),
         ('mask_bits', 'edge: every pair allowed [300,2048]', False,
          bits(full_attn)),
+        ('nms_keep', 'RPN [12,5,1000] IoU 0.7', True,
+         nms((12, 5, 1000), 'clustered')),
+        ('nms_keep', 'R-CNN [12,1000] IoU 0.6', True,
+         nms((12, 1000), 'random', 0.6)),
+        ('nms_keep', 'train proposals [6,5,2000] IoU 0.7', True,
+         nms((6, 5, 2000), 'clustered')),
+        ('nms_keep', 'edge: duplicates [12,1000]', False,
+         nms((12, 1000), 'duplicates')),
+        ('nms_keep', 'edge: a row all invalid [12,1000]', False,
+         nms((12, 1000), 'invalid')),
+        ('nms_keep', 'edge: suppression chains [4,1000]', False,
+         nms((4, 1000), 'chain')),
+        ('nms_keep', 'edge: bfloat16 boxes [12,1000]', False,
+         nms((12, 1000), 'clustered', box_dtype=torch.bfloat16)),
+        ('nms_keep', 'edge: ragged [7,65]', False,
+         nms((7, 65))),
+        ('nms_keep', 'edge: one box [3,1]', False, nms((3, 1))),
+        ('nms_keep', 'edge: words past the stage [2,3000]', False,
+         nms((2, 3000), 'clustered')),
     ]
 
 
@@ -1354,6 +1527,8 @@ def op_args(dev, dtype=None, seed=0):
         'masked_attention': (q, k, v, allowed, *tiles[:3], 8),
         'masked_attention_bwd': (q, k, v, None, *tiles, out, lse,
                                  rnd(Q, Cq), 8),
+        'nms_keep': (*nms_inputs(dev, (2, 3, 100), 'random',
+                                 dtype or torch.float32, seed), 0.7),
     }
 
 
@@ -1417,7 +1592,8 @@ def path_kernels(cfg, training=False, dn=False):
     packs a pass): K4 (with B8 in training) for every shared-key
     attention, K1 for a DCN-free ResNet layer1, K2 (B5 and B6 in a
     trained stage) for a ResNet with DCN, K3 (and B9) for the two-stage
-    detector's R-CNN; the self-attention mask, and the cross-attention
+    detector's R-CNN, the NMS kernel for both detectors; the
+    self-attention mask, and the cross-attention
     mask where the keys are shared (the pixel key mode, or roi with
     DN)."""
     need = ['masked_attention', 'mask_bits']
@@ -1432,6 +1608,7 @@ def path_kernels(cfg, training=False, dn=False):
         need.append('dcn_conv')
     if training and any(s >= frozen for s in dcn):
         need += ['dcn_samples', 'dcn_samples_backward']
+    need.append('nms_keep')          # both detectors' NMS
     if cfg.detector_type == 'two_stage':
         need.append('roi_align_multilevel')
         if training:
@@ -1442,9 +1619,16 @@ def path_kernels(cfg, training=False, dn=False):
     return tuple(need), 1 + shared_cross
 
 
-def _launch_check(launched, need):
-    """Every kernel in `need` launched, every other kernel not."""
-    return all((launched[n] > 0) == (n in need) for n in launched)
+def _launch_check(launched, need, graph=None):
+    """Every kernel in `need` launched, every other kernel not; where
+    `graph` (`detect_graph_calls` over the same calls) has replays and no
+    capture, `detect`'s kernels in `need` may go uncalled: the replays ran
+    them."""
+    quiet = set()
+    if graph and graph['replays'] and not graph['captures']:
+        quiet = set(DETECT_CALLS) | set(DETECT_CALLS_V2)
+    return all((launched[n] > 0) == (n in need)
+               or (n in need and n in quiet) for n in launched)
 
 
 def phase_tiny_parity(dev, cfg=None, label='tiny+DCN', matched=False):
@@ -1522,7 +1706,7 @@ def to_device(obj, dev):
 DEFAULT_TRAIN_NEED = ('dcn_samples', 'dcn_samples_backward',
                       'masked_attention', 'masked_attention_backward',
                       'roi_align_multilevel', 'roi_align_multilevel_backward',
-                      'mask_bits')
+                      'mask_bits', 'nms_keep')
 
 
 def phase_tiny_train(dev, need=DEFAULT_TRAIN_NEED, absent=ROUTED_KERNELS,
@@ -1736,6 +1920,7 @@ def phase_serve(dev, results, n_requests=3, cfg=None, label='serve'):
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+    graph0 = detect_graph_calls()
     torch.cuda.reset_peak_memory_stats()
     ms, out = [], None
     try:
@@ -1754,6 +1939,13 @@ def phase_serve(dev, results, n_requests=3, cfg=None, label='serve'):
     for name, n in launches.items():
         results[name]['launches_by_path'][label] = n
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    graph = detect_graph_calls(graph0)
+    # detect's kernel runs in one more forward, as the device records them
+    # (a replay's too): the wrappers count no replay
+    runs, _ = kernel_runs(lambda: model(imgs, cam, shapes))
+    want_runs = {k: c if k in need else 0 for k, c in DETECT_CALLS.items()}
+    results.setdefault('_detect_graph', {})[label] = dict(
+        graph, kernel_runs_per_forward=runs)
     boxes, scores, labels, valid, diag = out
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (boxes, scores))
@@ -1761,8 +1953,9 @@ def phase_serve(dev, results, n_requests=3, cfg=None, label='serve'):
                  and tuple(scores.shape) == (cfg.max_per_scene,))
     per_forward = {'mask_bits': masks,
                    'masked_attention': masks * cfg.num_decoder_layers}
-    launch_ok = _launch_check(launches, need) and all(
-        launches[n] == k * n_requests for n, k in per_forward.items())
+    launch_ok = _launch_check(launches, need, graph) and all(
+        launches[n] == k * n_requests for n, k in per_forward.items()) \
+        and runs == want_runs
     ok = finite and shapes_ok and launch_ok
     log(f'  forward ms ({cfg.backbone_type}{cfg.depth}, {cfg.key_mode} '
         f'keys, bf16, {H}x{W} x {V} views): '
@@ -1771,9 +1964,12 @@ def phase_serve(dev, results, n_requests=3, cfg=None, label='serve'):
     log(f'  valid detections={int(valid.sum())} '
         + ' '.join(f'{k}={int(v)}' for k, v in diag.items())
         + f' finite={finite} shapes_ok={shapes_ok}')
-    log(f'  launches per {n_requests} forwards: {launches} (expected '
-        f'{sorted(need)}, per forward {per_forward}) '
-        f'{"ok" if launch_ok else "FAIL"}')
+    log(f'  wrapper calls in {n_requests} forwards: {launches} (expected '
+        f'{sorted(need)}, per forward {per_forward}); detect graph {graph}: '
+        'its kernels run in a replay with no wrapper call, and the '
+        'capturing call calls each wrapper twice; detect\'s kernel runs in '
+        f'one more forward, by the device\'s records: {runs} (want '
+        f'{want_runs}) {"ok" if launch_ok else "FAIL"}')
     if label == 'serve':
         results['_forward_ms'] = ms
         results['_serve_peak_gb'] = peak_gb
@@ -1891,6 +2087,7 @@ def phase_http(dev, results, options=(), options_r101=(), options_roi=()):
     scenes = [_scene(mc, seed) for seed in range(4)]
     for fn in fns.values():
         fn.launches = 0
+    graph0 = detect_graph_calls()
     answers = [_post(srv.url, scenes[0])] + [None] * 3
 
     def ask(i):
@@ -1908,19 +2105,24 @@ def phase_http(dev, results, options=(), options_r101=(), options_roi=()):
     codes = [a[0] for a in answers]
     shapes_ok = codes == [200] * 4 and all(_response_ok(a[1], mc)
                                            for a in answers)
-    launch_ok = (launches['roi_align_slab'] == 4
+    graph = detect_graph_calls(graph0)
+    want = expect_calls({'roi_align_slab': 1, 'nms_keep': NMS_PER_DETECT},
+                        4, graph, DETECT_CALLS_V2)
+    need = set(path_kernels(mc)[0]) - {'roi_align_multilevel'}
+    launch_ok = (all(launches[n] == k for n, k in want.items())
                  and launches['mask_bits'] == MASKS_PER_PASS * 4
                  and launches['roi_align_multilevel'] == 0
                  and launches['roi_align_flat'] == 0
-                 and all(launches[n] > 0 for n in path_kernels(mc)[0]
-                         if n != 'roi_align_multilevel'))
+                 and _launch_check({n: launches[n] for n in need}, need,
+                                   graph))
     metrics_ok = (metrics['requests'] == 4 and metrics['errors'] == 0
                   and metrics['batches'] < 4)
     log(f'  R50 align_v2: statuses {codes}; client ms '
         + ', '.join(f'{a[2]:.1f}' for a in answers)
         + f' (the first alone, then three at once); /metrics {metrics}')
-    log(f'  launches for the 4 requests: {launches} '
-        f'(B11 4, K3 0) {"ok" if launch_ok else "FAIL"}')
+    log(f'  wrapper calls for the 4 requests: {launches} (want {want}, '
+        f'K3 0, where detect\'s graph {graph} replays) '
+        f'{"ok" if launch_ok else "FAIL"}')
     results['_http'] = dict(client_ms=[a[2] for a in answers], **metrics)
 
     # each answer against a direct forward of the same model and arrays
@@ -1993,19 +2195,22 @@ def phase_http(dev, results, options=(), options_r101=(), options_roi=()):
     mc101 = srv.runner.mc
     for fn in fns.values():
         fn.launches = 0
+    graph0 = detect_graph_calls()
     code, out, ms = _post(srv.url, _scene(mc101, 7))
     torch.cuda.synchronize()
     l101 = {n: fn.launches for n, fn in fns.items()}
+    g101 = detect_graph_calls(graph0)
     for name, n in l101.items():
         results[name]['launches_by_path']['http_r101'] = n
     r101_ok = (code == 200 and _response_ok(out, mc101)
                and (mc101.depth, mc101.k_max) == (101, 24576)
-               and _launch_check(l101, path_kernels(mc101)[0])
+               and _launch_check(l101, path_kernels(mc101)[0], g101)
                and l101['mask_bits'] == MASKS_PER_PASS)
     log(f'  R101 {mc101.image_size[1]}x{mc101.image_size[0]} k_max '
         f'{mc101.k_max}: status {code}, client ms '
         f'{ms:.1f}, valid {int(out["valid"].sum()) if code == 200 else 0}, '
-        f'launches {l101} {"ok" if r101_ok else "FAIL"}')
+        f'wrapper calls {l101} (detect graph {g101}) '
+        f'{"ok" if r101_ok else "FAIL"}')
     results['_http_r101_ms'] = ms
     srv.close()
     del srv
@@ -2018,9 +2223,11 @@ def phase_http(dev, results, options=(), options_r101=(), options_roi=()):
     scene = _scene(mcs, 9)
     for fn in fns.values():
         fn.launches = 0
+    graph0 = detect_graph_calls()
     code, out, ms = _post(srv.url, scene)
     torch.cuda.synchronize()
     lroi = {n: fn.launches for n, fn in fns.items()}
+    groi = detect_graph_calls(graph0)
     for name, n in lroi.items():
         results[name]['launches_by_path']['http_roi'] = n
     with torch.inference_mode():
@@ -2036,12 +2243,13 @@ def phase_http(dev, results, options=(), options_r101=(), options_roi=()):
                        for k, a in (('scores_3d', 'scores'),
                                     ('boxes_3d', 'boxes'))) <= SELF_TOL
     roi_ok = (roi_same and mcs.key_mode == 'roi' and mcs.total_views == 6
-              and _launch_check(lroi, need) and lroi['mask_bits'] == masks)
+              and _launch_check(lroi, need, groi)
+              and lroi['mask_bits'] == masks)
     log(f'  MV2D-S {mcs.image_size[1]}x{mcs.image_size[0]} x '
         f'{mcs.total_views} views (roi keys): status {code}, client ms '
         f'{ms:.1f}, valid {int(out["valid"].sum()) if code == 200 else 0}, '
-        f'equal to a direct forward {roi_same}, launches {lroi} '
-        f'{"ok" if roi_ok else "FAIL"}')
+        f'equal to a direct forward {roi_same}, wrapper calls {lroi} '
+        f'(detect graph {groi}) {"ok" if roi_ok else "FAIL"}')
     results['_http_roi_ms'] = ms
     srv.close()
     del srv, det
@@ -2053,10 +2261,13 @@ def phase_http(dev, results, options=(), options_r101=(), options_roi=()):
 R50_FILE = 'configs/mv2d/mv2d_r50_frcnn_two_frames_1408x512_ep24.py'
 # launches per eval forward on the default routes (K1: layer1's three
 # bottlenecks; K2: the nine DCN convs; K3: the R-CNN RoIs; K4: the decoder's
-# six layers x self- and cross-attention)
+# six layers x self- and cross-attention; the RPN's and the R-CNN's NMS).
+# Where `detect` replays its CUDA graph, the replay adds the launches the
+# graph holds to each wrapper's count (the capture adds none), so a
+# forward counts the same launches graphed or eager.
 EVAL_PER_FORWARD = {'fused_stage1': 3, 'dcn_conv': 9,
                     'roi_align_multilevel': 1, 'masked_attention': 12,
-                    'mask_bits': MASKS_PER_PASS}
+                    'mask_bits': MASKS_PER_PASS, 'nms_keep': NMS_PER_DETECT}
 SUBMISSION_KEYS = {'sample_token', 'translation', 'size', 'rotation',
                    'velocity', 'detection_name', 'detection_score',
                    'attribute_name'}
@@ -2122,6 +2333,7 @@ def phase_eval(dev, results, n_scenes=8, options=(), image_hw=(900, 1600),
         for fn in fns.values():
             fn.launches = 0
         pool0 = pipeline.native_preprocess.calls
+        graph0 = detect_graph_calls()
         t1 = time.perf_counter()
         metrics = test_cli.main([R50_FILE, pth, '--out', out, '--device',
                                  dev, '--cfg-options', *opts])
@@ -2131,11 +2343,15 @@ def phase_eval(dev, results, n_scenes=8, options=(), image_hw=(900, 1600),
         pool_calls = pipeline.native_preprocess.calls - pool0
         for name, n in launches.items():
             results[name]['launches_by_path']['eval'] = n
-        want = {n: EVAL_PER_FORWARD.get(n, 0) * n_scenes for n in fns}
+        graph = detect_graph_calls(graph0)
+        results.setdefault('_detect_graph', {})['eval'] = graph
+        want = expect_calls({n: EVAL_PER_FORWARD.get(n, 0) for n in fns},
+                            n_scenes, graph)
         launch_ok = launches == want
-        log(f'  tools.test: {cli_s:.1f} s for {n_scenes} scenes; launches '
-            f'{launches} (want {want}) {"ok" if launch_ok else "FAIL"}; '
-            f'C++ pool calls {pool_calls} (want {n_scenes})')
+        log(f'  tools.test: {cli_s:.1f} s for {n_scenes} scenes; wrapper '
+            f'calls {launches} (want {want}, detect graph {graph}) '
+            f'{"ok" if launch_ok else "FAIL"}; C++ pool calls {pool_calls} '
+            f'(want {n_scenes})')
 
         with open(out) as f:
             sub = json.load(f)
@@ -2234,6 +2450,7 @@ def phase_parity(dev, results, n_prop=8, n_scenes=2, options=()):
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+    graph0 = detect_graph_calls()
     sample = parity.rig_sample(mc)
     t0 = time.perf_counter()
     g = parity.run_golden(mc, model.state_dict(), sd, sample, n_prop, dev)
@@ -2270,14 +2487,16 @@ def phase_parity(dev, results, n_prop=8, n_scenes=2, options=()):
     launches = {n: fn.launches for n, fn in fns.items()}
     for name, n in launches.items():
         results[name]['launches_by_path']['parity'] = n
-    want = {n: EVAL_PER_FORWARD.get(n, 0) * (2 + n_scenes) for n in fns}
-    launch_ok = _launch_check(launches, path_kernels(mc)[0]) and \
+    graph = detect_graph_calls(graph0)
+    want = expect_calls({n: EVAL_PER_FORWARD.get(n, 0) for n in fns},
+                        2 + n_scenes, graph)
+    launch_ok = _launch_check(launches, path_kernels(mc)[0], graph) and \
         launches == want
     eval_ok = all(np.isfinite(metrics[k]) for k in ('mAP', 'NDS'))
     log(f'  eval on {n_scenes} of the eval phase\'s scenes: mAP '
         f'{metrics["mAP"]} NDS {metrics["NDS"]} '
-        f'{"ok" if eval_ok else "FAIL"}; launches {launches} (want {want}) '
-        f'{"ok" if launch_ok else "FAIL"}')
+        f'{"ok" if eval_ok else "FAIL"}; wrapper calls {launches} (want '
+        f'{want}, detect graph {graph}) {"ok" if launch_ok else "FAIL"}')
     del model
     torch.cuda.empty_cache()
     return load_ok and golden_ok and eval_ok and launch_ok
@@ -2339,6 +2558,7 @@ def phase_stages(dev, results, args=(), iters=2, warmup=1,
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
+    graph0 = detect_graph_calls()
     it = ['--iters', str(iters), '--warmup', str(warmup), *args]
     ok = True
     for mod in (stage_bench, detect_stage_bench, roi_stage_bench,
@@ -2410,9 +2630,10 @@ def phase_stages(dev, results, args=(), iters=2, warmup=1,
     from mv2d_tpu_torch import configs
     mc = configs.mv2d_t_r50()
     need = set(path_kernels(mc)[0]) | set(path_kernels(mc, True, True)[0])
-    launch_ok = all(launches[n] > 0 for n in need)
-    log(f'  launches {launches} (need {sorted(need)}) '
-        f'{"ok" if launch_ok else "FAIL"}')
+    graph = detect_graph_calls(graph0)
+    launch_ok = _launch_check({n: launches[n] for n in need}, need, graph)
+    log(f'  wrapper calls {launches} (need {sorted(need)}; detect graph '
+        f'{graph}) {"ok" if launch_ok else "FAIL"}')
     torch.cuda.empty_cache()
     return bool(ok and launch_ok)
 
@@ -2483,6 +2704,7 @@ def phase_train(dev, results, n_steps=4, cfg=None):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     ms, steps = [], []
+    graph0 = detect_graph_calls()
     try:
         for _ in range(n_steps):
             torch.cuda.synchronize()
@@ -2494,6 +2716,7 @@ def phase_train(dev, results, n_steps=4, cfg=None):
     finally:
         for (mod, name), fn in originals.items():
             setattr(mod, name, fn)
+    graph = detect_graph_calls(graph0)
     launches = {n: fn.launches for n, fn in fns.items()}
     for name, n in launches.items():
         results[name]['launches_by_path']['train'] = n
@@ -2507,11 +2730,20 @@ def phase_train(dev, results, n_steps=4, cfg=None):
             moved += not same
         else:
             frozen_still &= same
-    per_step_ok = all(launches[n] == k * n_steps
-                      for n, k in TRAIN_PER_STEP.items()) and \
-        launches['roi_align_multilevel'] >= 2 * n_steps
+    want = expect_calls({**TRAIN_PER_STEP, 'roi_align_multilevel': 2},
+                        n_steps, graph)
+    k3_min = want.pop('roi_align_multilevel')
+    per_step_ok = all(launches[n] == k for n, k in want.items()) and \
+        launches['roi_align_multilevel'] >= k3_min
+    # detect's kernel runs in one more step, as the device records them: the
+    # no-grad detect's and the sampled proposals' NMS, K3 at least twice
+    runs, _ = kernel_runs(lambda: dp_train_step(model, opt, [batch], [gen]))
+    runs_ok = runs['nms_keep'] == NMS_PER_DETECT + 1 and \
+        runs['roi_align_multilevel'] >= 2
+    results.setdefault('_detect_graph', {})['train'] = dict(
+        graph, kernel_runs_per_step=runs)
     ok = finite and frozen_still and moved >= 0.9 * trainable and \
-        per_step_ok
+        per_step_ok and runs_ok
     log(f'  train ms/step (bf16 mixed precision, {cfg.total_views} views '
         f'{cfg.image_size[0]}x{cfg.image_size[1]}; first is warm-up): '
         + ', '.join(f'{t:.1f}' for t in ms))
@@ -2527,9 +2759,12 @@ def phase_train(dev, results, n_steps=4, cfg=None):
             f'key_overflow={s["key_overflow"]:.0f}')
     log('  step 0 losses: ' + ', '.join(
         f'{k}={v:.4f}' for k, v in steps[0].items() if 'loss' in k))
-    log(f'  launches per {n_steps} steps: {launches} '
-        f'(per step expected {TRAIN_PER_STEP}, K3 >= 2) '
-        f'{"ok" if per_step_ok else "FAIL"}')
+    log(f'  wrapper calls in {n_steps} steps: {launches} (want {want}, '
+        f'K3 >= {k3_min}: per step {TRAIN_PER_STEP}, K3 >= 2, where '
+        f'detect\'s graph {graph} replays) '
+        f'{"ok" if per_step_ok else "FAIL"}; detect\'s kernel runs in one '
+        f'more step, by the device\'s records: {runs} (want nms_keep '
+        f'{NMS_PER_DETECT + 1}, K3 >= 2) {"ok" if runs_ok else "FAIL"}')
     results['_train_ms'] = ms
     results['_train_peak_gb'] = peak_gb
 
@@ -2605,6 +2840,7 @@ def phase_train_s(dev, results, n_steps=4, n_dn_steps=2, cfg=None):
             need, masks = path_kernels(model.cfg, training=True, dn=dn)
             for fn in fns.values():
                 fn.launches = 0
+            graph0 = detect_graph_calls()
             torch.cuda.reset_peak_memory_stats()
             ms, steps = [], []
             for _ in range(n):
@@ -2623,9 +2859,13 @@ def phase_train_s(dev, results, n_steps=4, n_dn_steps=2, cfg=None):
                         'masked_attention_backward':
                             masks * cfg.num_decoder_layers,
                         'roi_align_multilevel_backward': 1}
-            launch_ok = _launch_check(launches, need) and all(
-                launches[k] == c * n for k, c in per_step.items()) and \
-                launches['roi_align_multilevel'] >= 2 * n
+            graph = detect_graph_calls(graph0)
+            want = expect_calls({**per_step, 'nms_keep': NMS_PER_DETECT + 1,
+                                 'roi_align_multilevel': 2}, n, graph)
+            k3_min = want.pop('roi_align_multilevel')
+            launch_ok = _launch_check(launches, need, graph) and all(
+                launches[k] == c for k, c in want.items()) and \
+                launches['roi_align_multilevel'] >= k3_min
             finite = all(np.isfinite(v) for st in steps for v in st.values())
             dn_keys = [k for k in steps[0] if '.dn_loss' in k]
             dn_ok = bool(dn_keys) == dn and 'key_active' not in steps[0]
@@ -2641,9 +2881,10 @@ def phase_train_s(dev, results, n_steps=4, n_dn_steps=2, cfg=None):
                     f'grad_norm={st["grad_norm"]:.4f} '
                     f'num_queries={st["num_queries"]:.0f} '
                     f'rcnn_num_pos={st["rcnn_num_pos"]:.0f}')
-            log(f'  launches per {n} steps: {launches} (expected '
-                f'{sorted(need)}, per step {per_step}, K3 >= 2) '
-                f'{"ok" if launch_ok else "FAIL"}')
+            log(f'  wrapper calls in {n} steps: {launches} (expected '
+                f'{sorted(need)}; want {want}, K3 >= {k3_min}: per step '
+                f'{per_step}, the NMS 3, K3 >= 2, where detect\'s graph '
+                f'{graph} replays) {"ok" if launch_ok else "FAIL"}')
             results[f'_{label}_ms'] = ms
             results[f'_{label}_peak_gb'] = peak
     finally:
@@ -2903,10 +3144,11 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
 
     def run(paths, n, call, label):
         """n host-timed calls with every counter at 0 first;
-        -> (ms list, launches, peak GiB, last result)."""
+        -> (ms list, launches, peak GiB, last result, detect graph)."""
         originals = _record_first(seen, paths)
         for fn in fns.values():
             fn.launches = 0
+        graph0 = detect_graph_calls()
         torch.cuda.reset_peak_memory_stats()
         ms, res = [], None
         try:
@@ -2922,7 +3164,8 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
         launches = {name: fn.launches for name, fn in fns.items()}
         for name, k in launches.items():
             results[name]['launches_by_path'][label] = k
-        return ms, launches, torch.cuda.max_memory_allocated() / 2 ** 30, res
+        return (ms, launches, torch.cuda.max_memory_allocated() / 2 ** 30,
+                res, detect_graph_calls(graph0))
 
     # ---- eval forwards, fused_stages='all' (MV2D_FUSED_STAGES=all)
     K, E = camera_rig(V, cfg.image_size)
@@ -2933,7 +3176,7 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     model = init_random_weights(
         MV2D(cfg, Routes(fused_stages='all')).eval(), seed=0).to(
             dev, torch.bfloat16)
-    ms, launches, peak, out = run(
+    ms, launches, peak, out, _ = run(
         [(resnet, 'fused_identity_chain', 'fused_identity_chain',
           lambda a: True)], n_requests,
         lambda: model(imgs, cam, shapes), 'routes_serve')
@@ -2971,15 +3214,16 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
 
     def cross(args):
         return args[1].shape[0] != args[0].shape[0]
-    ms, launches, peak, _ = run(
+    ms, launches, peak, _, graph = run(
         [(dcn, 'dcn_conv_backward', 'dcn_conv_backward', lambda a: True),
          (attention, 'masked_attention_backward',
           'masked_attention_backward', cross),
          (roi_align, 'roi_align_slab', 'roi_align_slab', lambda a: True)],
         n_steps, step, 'routes_train')
     finite = all(np.isfinite(v) for s in steps for v in s.values())
-    per_step_ok = all(launches[n] == k * n_steps
-                      for n, k in ROUTED_TRAIN_PER_STEP.items())
+    want = expect_calls(ROUTED_TRAIN_PER_STEP, n_steps, graph,
+                        DETECT_CALLS_V2)
+    per_step_ok = all(launches[n] == k for n, k in want.items())
     train_ok = finite and per_step_ok
     log(f'  dcn_train_fused, flash_sparse, align_v2: train ms/step '
         + ', '.join(f'{t:.1f}' for t in ms) + ' (default route '
@@ -2990,9 +3234,9 @@ def phase_routes(dev, results, n_requests=2, n_steps=3, cfg=None):
     for i, s in enumerate(steps):
         log(f'  step {i}: total_loss={s["total_loss"]:.4f} '
             f'grad_norm={s["grad_norm"]:.4f}')
-    log(f'  launches per {n_steps} steps: {launches} (per step expected '
-        f'{ROUTED_TRAIN_PER_STEP}) '
-        f'{"ok" if per_step_ok else "FAIL"}')
+    log(f'  wrapper calls in {n_steps} steps: {launches} (want {want}: per '
+        f'step {ROUTED_TRAIN_PER_STEP}, where detect\'s graph {graph} '
+        f'replays) {"ok" if per_step_ok else "FAIL"}')
     results['_routes_train_ms'] = ms
     results['_routes_train_peak_gb'] = peak
     del model, opt, batch
@@ -3085,6 +3329,7 @@ def phase_train_cli(dev, results):
         fns = counters()
         for fn in fns.values():
             fn.launches = 0
+        graph0 = detect_graph_calls()
         torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         leg_a = train_cli.main(argv + ['--max-steps', str(n),
@@ -3102,15 +3347,19 @@ def phase_train_cli(dev, results):
         for name, k in launches.items():
             results[name]['launches_by_path']['train_cli'] = k
         steps, scenes = n * epochs, TRAIN_CLI_VAL * epochs
-        want = {k: steps * TRAIN_PER_STEP.get(k, 0)
-                + scenes * EVAL_PER_FORWARD.get(k, 0) for k in fns}
-        want['roi_align_multilevel'] = 2 * steps + scenes
+        # a step and a scene each make one detect; counted eagerly, a step
+        # launches K3 twice
+        graph = detect_graph_calls(graph0)
+        want = expect_calls(
+            {k: TRAIN_PER_STEP.get(k, 0) * steps
+             + EVAL_PER_FORWARD.get(k, 0) * scenes for k in fns}, 1, graph)
+        want['roi_align_multilevel'] += 2 * steps
         launch_ok = launches == want
         log(f'  leg A {t2 - t1:.1f} s (to step {leg_a["step"]}), leg B '
             f'{t3 - t2:.1f} s (resumed from '
             f'{os.path.basename(str(leg_b["resumed_from"]))}, to step '
-            f'{leg_b["step"]}); launches {launches} (want {want}) '
-            f'{"ok" if launch_ok else "FAIL"}')
+            f'{leg_b["step"]}); wrapper calls {launches} (want {want}, '
+            f'detect graph {graph}) {"ok" if launch_ok else "FAIL"}')
 
         with open(os.path.join(work, 'train_log.jsonl')) as f:
             lines = [json.loads(line) for line in f]
@@ -3207,7 +3456,8 @@ def phase_train_cli(dev, results):
 EXPORT_NODES = {'mv2d.bottleneck.default': 3, 'mv2d.dcn_conv.default': 9,
                 'mv2d.roi_align.default': 1,
                 'mv2d.masked_attention.default': 12,
-                'mv2d.mask_bits.default': MASKS_PER_PASS}
+                'mv2d.mask_bits.default': MASKS_PER_PASS,
+                'mv2d.nms_keep.default': NMS_PER_DETECT}
 # run in a fresh process: load the program with the operators and no model
 # code, run it n times on the saved inputs, save outputs, ms and launches
 LOAD_AND_RUN = """

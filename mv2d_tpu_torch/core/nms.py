@@ -1,13 +1,14 @@
 """Padded, fixed-shape NMS, batched over leading dimensions.
 
-Port of `mv2d_tpu/core/nms.py`.  Suppression is exact greedy NMS as a
-blocked scan: each block is suppressed by the earlier kept boxes with one
-masked reduction, then the within-block chain is resolved by a fixpoint
-iteration, which converges to the unique greedy solution.  The iteration
-stops once it is fixed, as the JAX package's `lax.while_loop` does: it is
-PyTorch's `while_loop` operator, which eager runs as a loop and
-`torch.export` keeps as one node.  There is no kernel here: the JAX
-package has none on this path either.
+Port of `mv2d_tpu/core/nms.py`.  Suppression is exact greedy NMS.  The
+axis-aligned 2D NMS runs `ops.nms.nms_keep`: on CUDA tensors a kernel
+with no host round trip (`csrc/nms.cu`), on any other device its plain
+version, the blocked scan below: each block is suppressed by the earlier
+kept boxes with one masked reduction, then the within-block chain is
+resolved by a fixpoint iteration, which converges to the unique greedy
+solution.  The iteration stops once it is fixed, as the JAX package's
+`lax.while_loop` does: it is PyTorch's `while_loop` operator, which eager
+runs as a loop.  The rotated BEV NMS keeps the scan on every device.
 
 Sorting is stable and `topk` breaks ties toward the lower index, as
 `jnp.argsort` and `lax.top_k` do.
@@ -19,6 +20,7 @@ from typing import Tuple
 import torch
 from torch._higher_order_ops.while_loop import while_loop_op
 
+from ..ops.nms import nms_keep
 from ..utils.profiling import counters, span
 from . import boxes as box_utils
 
@@ -78,29 +80,41 @@ greedy_fixpoint.rounds = 0
 def _greedy_suppress_boxes(boxes: torch.Tensor, valid: torch.Tensor,
                            iou_threshold: float, iou_fn) -> torch.Tensor:
     """Exact greedy NMS over score-sorted boxes [..., N, D] with validity
-    [..., N]; returns the keep mask [..., N]."""
+    [..., N] by the blocked scan; returns the keep mask [..., N]."""
+    n = boxes.shape[-2]
+    B = min(_NMS_BLOCK, n)
+    nb = -(-n // B)
+    pad = nb * B - n
+    if pad:
+        boxes = torch.cat([boxes, boxes.new_zeros(
+            *boxes.shape[:-2], pad, boxes.shape[-1])], dim=-2)
+        valid = torch.cat([valid, valid.new_zeros(
+            *valid.shape[:-1], pad)], dim=-1)
+    r = torch.arange(B, device=boxes.device)
+    strictly_upper = r[:, None] < r[None, :]
+    kept = valid.clone()
+    for blk in range(nb):
+        s = blk * B
+        cols = iou_fn(boxes[..., :s + B, :], boxes[..., s:s + B, :]) \
+            > iou_threshold                                   # [..., s+B, B]
+        sup_prev = (cols[..., :s, :] & kept[..., :s, None]).any(-2)
+        cand = kept[..., s:s + B] & ~sup_prev
+        kill = cols[..., s:s + B, :] & strictly_upper
+        kept[..., s:s + B] = greedy_fixpoint(cand, kill)
+    return kept[..., :n]
+
+
+def greedy_keep_plain(boxes: torch.Tensor, valid: torch.Tensor,
+                      iou_threshold: float) -> torch.Tensor:
+    """`ops.nms.nms_keep`'s plain version: the blocked scan with
+    `box_iou_xyxy`."""
+    return _greedy_suppress_boxes(boxes, valid, iou_threshold,
+                                  box_utils.box_iou_xyxy)
+
+
+def _keep_2d(boxes, valid, iou_threshold: float) -> torch.Tensor:
     with span('nms'):
-        n = boxes.shape[-2]
-        B = min(_NMS_BLOCK, n)
-        nb = -(-n // B)
-        pad = nb * B - n
-        if pad:
-            boxes = torch.cat([boxes, boxes.new_zeros(
-                *boxes.shape[:-2], pad, boxes.shape[-1])], dim=-2)
-            valid = torch.cat([valid, valid.new_zeros(
-                *valid.shape[:-1], pad)], dim=-1)
-        r = torch.arange(B, device=boxes.device)
-        strictly_upper = r[:, None] < r[None, :]
-        kept = valid.clone()
-        for blk in range(nb):
-            s = blk * B
-            cols = iou_fn(boxes[..., :s + B, :], boxes[..., s:s + B, :]) \
-                > iou_threshold                               # [..., s+B, B]
-            sup_prev = (cols[..., :s, :] & kept[..., :s, None]).any(-2)
-            cand = kept[..., s:s + B] & ~sup_prev
-            kill = cols[..., s:s + B, :] & strictly_upper
-            kept[..., s:s + B] = greedy_fixpoint(cand, kill)
-        return kept[..., :n]
+        return nms_keep(boxes, valid, iou_threshold)
 
 
 def _sort_by_score(boxes, scores, valid):
@@ -115,8 +129,7 @@ def nms_padded(boxes, scores, valid, iou_threshold: float, max_out: int):
     (boxes, scores, indices into the input, valid), each [..., max_out],
     score-descending."""
     b, s, v, order = _sort_by_score(boxes, scores, valid)
-    keep = _greedy_suppress_boxes(b, v, iou_threshold,
-                                  box_utils.box_iou_xyxy)
+    keep = _keep_2d(b, v, iou_threshold)
     sel = torch.argsort((~keep).to(torch.uint8), dim=-1,
                         stable=True)[..., :max_out]
     out_valid = torch.gather(keep, -1, sel)
@@ -130,8 +143,7 @@ def nms_sorted_keep(boxes, scores, valid, iou_threshold: float):
     """Greedy NMS without compaction: the score-sorted boxes and their
     post-suppression scores (suppressed or invalid = _NEG)."""
     b, s, v, _ = _sort_by_score(boxes, scores, valid)
-    keep = _greedy_suppress_boxes(b, v, iou_threshold,
-                                  box_utils.box_iou_xyxy)
+    keep = _keep_2d(b, v, iou_threshold)
     return b, torch.where(keep, s, torch.full_like(s, _NEG))
 
 
@@ -166,8 +178,9 @@ def nms_bev_padded(boxes_bev, scores, valid, iou_threshold: float,
                    max_out: int):
     """Rotated BEV NMS on one scene; boxes_bev [N, 5]."""
     b, s, v, order = _sort_by_score(boxes_bev, scores, valid)
-    keep = _greedy_suppress_boxes(b, v, iou_threshold,
-                                  box_utils.rotated_iou_bev)
+    with span('nms'):
+        keep = _greedy_suppress_boxes(b, v, iou_threshold,
+                                      box_utils.rotated_iou_bev)
     sel = torch.argsort((~keep).to(torch.uint8), stable=True)[:max_out]
     out_valid = keep[sel]
     return (order[sel], torch.where(out_valid, s[sel],

@@ -51,6 +51,7 @@ SIGNATURES = {
                            + [_I] * 5 + [_P],
     'mv2d_roi_align_slab': [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3
                            + [_I] * 5 + [_P],
+    'mv2d_nms_keep': [_P] * 4 + [_I] * 2 + [_F, _I, _P],
 }
 # host functions returning a size (64-bit): a launch's workspace in bytes,
 # or a kernel's tiling; name -> argument types

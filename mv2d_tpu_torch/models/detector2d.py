@@ -13,10 +13,22 @@ slab kernel B11 instead (`roi_align_slab`; B11 forward, B9 backward).
 `roi_forward` takes flat RoIs with a view index through kernel B12
 (`roi_align_flat`), as the JAX package's `roi_forward` takes its Pallas
 patch kernel.
+
+On CUDA tensors without gradients, `TwoStageDetector.detect` runs as one
+CUDA graph (`_DetectGraph`): nothing in it waits on the host (the NMS is
+a kernel, the RPN's constants are kept on the device), so its few
+hundred launches replay from one.  A graph is captured on the first call
+with a new signature (the levels' shapes, strides and dtypes, the heads'
+parameters' shapes and dtypes, image_shape, cfg and the numeric modes)
+and replayed after, on static copies of the levels and of the heads'
+parameters; the outputs are cloned out of it.  CPU tensors, a trace
+(`torch.export`, `torch.compile`), a capture already open and a call that
+needs gradients run the same body eagerly.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+import weakref
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn as tnn
@@ -32,7 +44,7 @@ from ..nn.vovnet import VoVNet
 from ..ops.roi_align import (roi_align_flat, roi_align_multilevel,
                              roi_align_multilevel_train, roi_align_slab)
 from ..routes import Routes
-from ..utils.profiling import span
+from ..utils.profiling import counters, span
 
 
 class Proposals(NamedTuple):
@@ -60,6 +72,60 @@ def make_backbone(backbone_type: str, depth: int,
         raise ValueError(f'backbone_type {backbone_type!r}')
     return ResNet(depth, stage_with_dcn, routes, frozen_stages,
                   remat=remat)
+
+
+class _DetectBody(tnn.Module):
+    """`TwoStageDetector._detect` as a module call, so that
+    `torch.func.functional_call` runs it on a graph's static copies of
+    the heads' parameters."""
+
+    def __init__(self, det: 'TwoStageDetector'):
+        super().__init__()
+        self.det = det
+
+    def forward(self, feats, image_shape, cfg):
+        return self.det._detect(feats, image_shape, cfg)
+
+
+# detector -> {signature: its captured detect}: outside the module, so that
+# copies and state dicts of a detector carry none
+_GRAPHS: 'weakref.WeakKeyDictionary[tnn.Module, Dict[tuple, _DetectGraph]]' \
+    = weakref.WeakKeyDictionary()
+
+
+class _DetectGraph:
+    """One captured `detect`: its static inputs (the levels, then the
+    heads' parameters), outputs and graph."""
+
+    def __init__(self, det: 'TwoStageDetector', feats, params, names,
+                 image_shape, cfg):
+        """Warms the body up on a side stream, then captures it; the
+        warm-up's outputs (`first`) answer this call.  Both run the body's
+        Python, so each kernel wrapper is called twice here, and not at
+        all by a replay."""
+        self.inputs = [t.detach().clone() for t in (*feats, *params)]
+        n = len(feats)
+        static = dict(zip(names, self.inputs[n:]))
+        body = _DetectBody(det)
+
+        def run():
+            return torch.func.functional_call(
+                body, static, (self.inputs[:n], image_shape, cfg))
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            first = run()
+        torch.cuda.current_stream().wait_stream(side)
+        self.first = Proposals(*(t.clone() for t in first))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode='thread_local'):
+            self.out = run()
+
+    def __call__(self, feats, params) -> Proposals:
+        torch._foreach_copy_(self.inputs, [*feats, *params])
+        self.graph.replay()
+        return Proposals(*(t.clone() for t in self.out))
 
 
 class SingleStageDetector(tnn.Module):
@@ -177,11 +243,57 @@ class TwoStageDetector(tnn.Module):
                image_shape: Tuple[int, int],
                cfg: DetectionProposalCfg) -> Proposals:
         """RPN -> RoIAlign -> Shared2FC -> per-class decode -> multiclass
-        NMS: padded per-view detections."""
+        NMS: padded per-view detections.  On CUDA tensors without
+        gradients, a replay of this signature's CUDA graph (see the
+        module's docstring)."""
         with span('detect'):
-            with span('rpn'):
-                prop_boxes, _, prop_valid = self.rpn(feats, image_shape, cfg)
-            with span('rcnn'):
-                cls_logits, deltas = self.rcnn(feats, prop_boxes)
-                return self.detections(prop_boxes, prop_valid, cls_logits,
-                                       deltas, image_shape, cfg)
+            heads = [(f'det.{n}', t) for h in ('rpn_head', 'roi_head')
+                     for n, t in (*getattr(self, h).named_parameters(h),
+                                  *getattr(self, h).named_buffers(h))]
+            params = [t for _, t in heads]
+            if not self._graphed(feats, params):
+                return self._detect(feats, image_shape, cfg)
+            image_shape = tuple(int(x) for x in image_shape)
+            key = (tuple((tuple(f.shape), f.stride(), f.dtype)
+                         for f in feats),
+                   feats[0].device, image_shape, cfg,
+                   tuple((tuple(p.shape), p.dtype) for p in params),
+                   torch.is_inference_mode_enabled(),
+                   torch.get_float32_matmul_precision(),
+                   torch.backends.cudnn.allow_tf32,
+                   torch.backends.cudnn.deterministic,
+                   torch.backends.cudnn.benchmark,
+                   torch.are_deterministic_algorithms_enabled())
+            graphs = _GRAPHS.setdefault(self, {})
+            graph = graphs.get(key)
+            if graph is None:
+                graph = graphs[key] = _DetectGraph(
+                    self, feats, params, [n for n, _ in heads], image_shape,
+                    cfg)
+                counters['detect_graph.captures'] += 1
+                first, graph.first = graph.first, None
+                return first
+            counters['detect_graph.replays'] += 1
+            return graph(feats, params)
+
+    @staticmethod
+    def _graphed(feats, params: List[torch.Tensor]) -> bool:
+        """Whether `detect` runs as a CUDA graph: CUDA inputs, no trace, no
+        capture open, and no gradient to record."""
+        return (feats[0].is_cuda
+                and not torch.compiler.is_compiling()
+                and not torch.compiler.is_exporting()
+                and not torch.cuda.is_current_stream_capturing()
+                and not (torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (*feats, *params))))
+
+    def _detect(self, feats: Sequence[torch.Tensor],
+                image_shape: Tuple[int, int],
+                cfg: DetectionProposalCfg) -> Proposals:
+        """`detect`'s body, eager."""
+        with span('rpn'):
+            prop_boxes, _, prop_valid = self.rpn(feats, image_shape, cfg)
+        with span('rcnn'):
+            cls_logits, deltas = self.rcnn(feats, prop_boxes)
+            return self.detections(prop_boxes, prop_valid, cls_logits,
+                                   deltas, image_shape, cfg)

@@ -4,11 +4,15 @@ Port of `mv2d_tpu/nn/rpn.py` (mmdet RPNHead / AnchorGenerator /
 DeltaXYWHBBoxCoder: scales [8], ratios [0.5, 1, 2], strides 4..64).
 Per level: top nms_pre by score -> decode -> clip; NMS per (view, level);
 the kept sets merge by one top-k over the masked scores.  Top-k is exact.
+The constants made on the host (each level's anchors, the coder's stds,
+the level sizes) are built once per shape, dtype and device and kept
+there (`_constant`), so a call after the first copies nothing to the
+device and waits on nothing: a CUDA graph can hold it.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,13 +47,50 @@ def grid_anchors(feat_shape: Tuple[int, int], stride: int, scales=(8,),
     return (shifts[:, None] + base[None]).reshape(-1, 4)
 
 
+# (what, shape or values, dtype, device) -> the tensor, built once
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _constant(key: tuple, build: Callable[[], torch.Tensor]
+              ) -> torch.Tensor:
+    """build(), kept under key after its first call.  Under a trace
+    (torch.export, torch.compile) it is built anew each time: the cache
+    holds real tensors only.  It builds outside inference mode, so the
+    tensor serves autograd's calls too."""
+    if torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return build()
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            # the first tensor kept wins: a CUDA graph may hold its address
+            t = _CONSTANTS.setdefault(key, build())
+    return t
+
+
+def _level_anchors(H: int, W: int, stride: int, device) -> torch.Tensor:
+    counters['sync.rpn.anchors'] += 1
+    return torch.from_numpy(grid_anchors((H, W), stride)).to(device)
+
+
+def _decode_stds(stds, dtype, device) -> torch.Tensor:
+    counters['sync.rpn.decode_stds'] += 1
+    return torch.tensor(stds, dtype=dtype, device=device)
+
+
+def _level_sizes(sizes, device) -> torch.Tensor:
+    counters['sync.rpn.level_sizes'] += 1
+    return torch.tensor(sizes, device=device)
+
+
 def delta2bbox(anchors: torch.Tensor, deltas: torch.Tensor,
                max_shape: Tuple[int, int], stds=(1., 1., 1., 1.)
                ) -> torch.Tensor:
     """mmdet DeltaXYWHBBoxCoder.decode on [..., 4] (target means 0,
     wh_ratio_clip 16/1000), clipped to max_shape (h, w)."""
-    counters['sync.rpn.decode_stds'] += 1
-    d = deltas * deltas.new_tensor(stds)
+    stds = tuple(float(x) for x in stds)
+    d = deltas * _constant(
+        ('stds', stds, deltas.dtype, deltas.device),
+        lambda: _decode_stds(stds, deltas.dtype, deltas.device))
     dx, dy, dw, dh = d.unbind(-1)
     max_ratio = abs(math.log(16.0 / 1000.0))
     dw = dw.clamp(-max_ratio, max_ratio)
@@ -116,8 +157,8 @@ def rpn_proposals(scores: List[torch.Tensor], deltas: List[torch.Tensor],
     lvl_boxes, lvl_scores = [], []
     for l, (s, d) in enumerate(zip(scores, deltas)):
         H, W, A = s.shape[1:]
-        counters['sync.rpn.anchors'] += 1
-        anchors = torch.from_numpy(grid_anchors((H, W), strides[l])).to(dev)
+        anchors = _constant(('anchors', H, W, strides[l], dev),
+                            lambda: _level_anchors(H, W, strides[l], dev))
         s = s.reshape(V, -1)
         top_s, top_i = topk(s, min(nms_pre, s.shape[1]))
         top_d = _take(d.reshape(V, H * W * A, 4), top_i)
@@ -134,8 +175,9 @@ def rpn_proposals(scores: List[torch.Tensor], deltas: List[torch.Tensor],
     b = torch.stack([pad_lvl(x) for x in lvl_boxes], dim=1)   # [V, L, n, 4]
     s = torch.sigmoid(torch.stack([pad_lvl(x) for x in lvl_scores], dim=1))
     wh = b[..., 2:4] - b[..., 0:2]
-    counters['sync.rpn.level_sizes'] += 1
-    n_lvl = torch.tensor([x.shape[1] for x in lvl_boxes], device=dev)
+    sizes = tuple(x.shape[1] for x in lvl_boxes)
+    n_lvl = _constant(('level_sizes', sizes, dev),
+                      lambda: _level_sizes(sizes, dev))
     valid = (wh > min_bbox_size).all(-1) & \
         (torch.arange(n_max, device=dev)[None, None, :] < n_lvl[None, :, None])
     ob, os_ = nms_sorted_keep(b, s, valid, iou_threshold)

@@ -5,8 +5,8 @@ One operator for each C entry point of `kernels.SIGNATURES`, defined on a
 
 * CUDA: the kernel's launch (the checks, the allocations and
   `kernels.launch`, in the `*_cuda` functions of `ops.stage`, `ops.dcn`,
-  `ops.roi_align` and `ops.attention`), which also counts the launch on
-  its wrapper (`fused_stage1.launches`, ...);
+  `ops.roi_align`, `ops.attention` and `ops.nms`), which also counts the
+  launch on its wrapper (`fused_stage1.launches`, ...);
 * CPU: the kernel's plain PyTorch version;
 * fake (`register_fake`): the outputs' shapes and dtypes from the inputs',
   so that `torch.export` and `FlopCounterMode` see each kernel as one
@@ -36,7 +36,7 @@ from typing import Callable, Dict, NamedTuple
 
 import torch
 
-from . import attention, dcn, roi_align, stage
+from . import attention, dcn, nms, roi_align, stage
 
 LIB = torch.library.Library('mv2d', 'DEF')
 
@@ -183,3 +183,10 @@ _op('masked_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor? allowed, '
     lambda q, k, v, *tiles_out_lse_dout_h: (_f32(q, *q.shape),
                                             _f32(k, *k.shape),
                                             _f32(v, *v.shape)))
+
+# ------------------------------------------------------------------- NMS
+
+_op('nms_keep(Tensor boxes, Tensor valid, float iou_threshold) -> Tensor',
+    'mv2d_nms_keep', nms.nms_keep_plain, nms.nms_keep_cuda,
+    lambda boxes, valid, thr: valid.new_empty(valid.shape,
+                                              dtype=torch.bool))

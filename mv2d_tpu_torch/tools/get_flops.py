@@ -29,7 +29,8 @@ and channel, or the fixed ratio where one is given.  The DCN conv counts
 its 9C x F product and 9 interpolation FLOPs a sample and channel (four
 corners' multiply-adds and the mask); the bottlenecks count their three
 (four with the projection) convolutions; `mask_bits` packs bits and
-counts none.
+`nms_keep` compares boxes, and they count none (the NMS's IoU is
+elementwise work, which the count leaves out everywhere).
 """
 from __future__ import annotations
 
@@ -114,6 +115,7 @@ FORMULAS = {
     'roi_align_bwd': lambda feats, rois, dout, strides, **_:
         _roi(feats, rois),
     'mask_bits': lambda allowed, **_: 0,
+    'nms_keep': lambda boxes, valid, iou_threshold, **_: 0,
     'masked_attention': _attention,
     'masked_attention_bwd': _attention_bwd,
 }

@@ -9,7 +9,8 @@ forward, on the CPU:
   * the NMS fixpoint, a `while_loop` that stops once fixed: `nms_padded`
     equal to JAX's on random boxes and on chains of boxes that each
     suppress the next (long suppression chains inside a 256-box block),
-    in fewer rounds than the block has boxes;
+    in fewer rounds than the block has boxes; in an exported program the
+    2D NMS is one `mv2d.nms_keep` node, with no loop;
   * the tiny+DCN eval forward exported (`tools.export`), saved, loaded
     and run: equal bit for bit to the direct forward of the same
     signature, and held against JAX's forward on the same weights at
@@ -167,10 +168,12 @@ def test_exported_program_holds_the_kernels(exported, built):
     assert nodes.count('mv2d.masked_attention.default') \
         == nodes.count('mv2d.mask_bits.default') \
         == 2 * tc.num_decoder_layers
+    # the RPN's and the R-CNN's NMS, each one operator with no loop left
+    assert nodes.count('mv2d.nms_keep.default') == 2
     whiles = [n for m in exported['program'].graph_module.modules()
               if isinstance(m, torch.fx.GraphModule)
               for n in m.graph.nodes if 'while_loop' in str(n.target)]
-    assert whiles
+    assert not whiles
     # the trace folds layer1 inside the program; the eager cache is not
     # written
     assert exported['cache'] is None

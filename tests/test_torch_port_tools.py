@@ -103,7 +103,8 @@ def test_get_flops_cli(capsys):
     model = MV2D(configs.tiny(stage_with_dcn=DCN))
     assert r['params'] == sum(p.numel() for p in model.parameters())
     assert r['ops'] == ['mv2d.bottleneck', 'mv2d.dcn_conv', 'mv2d.mask_bits',
-                        'mv2d.masked_attention', 'mv2d.roi_align']
+                        'mv2d.masked_attention', 'mv2d.nms_keep',
+                        'mv2d.roi_align']
     assert r['flops'] > 1e8 and r['bytes'] > 1e6
     assert 'GFLOPs' in text and 'unfused upper bound' in text
 

@@ -58,7 +58,8 @@ TRAIN_TREE = {'train_step', 'train_step/draws', 'train_step/objective',
 
 # site (the function that syncs) -> (counter, syncs a pass); the NMS
 # fixpoint's syncs are its loop tests, the first read twice where the loop
-# runs
+# runs; the RPN's constants sync where they are built, once per shape,
+# dtype and device (`rpn._constant`), and `rpn_proposals` no more
 SITES = {
     nms._fixpoint_cond: [('nms_rounds', 1)],
     matching.hungarian_assign: [('sync.matching.d2h', 1),
@@ -69,10 +70,11 @@ SITES = {
     MV2D._decoder_inputs: [('sync.mv2d.dummy_box', 1)],
     decoder.CrossAttentionBoxHead.forward: [('sync.decoder.pc_range', 2)],
     pe.PE.forward: [('sync.pe.range', 2)],
-    rpn.delta2bbox: [('sync.rpn.decode_stds', 1)],
+    rpn._decode_stds: [('sync.rpn.decode_stds', 1)],
     rpn.bbox2delta: [('sync.rpn.encode_stds', 1)],
-    rpn.rpn_proposals: [('sync.rpn.anchors', 5),
-                        ('sync.rpn.level_sizes', 1)],
+    rpn.rpn_proposals: [],
+    rpn._level_anchors: [('sync.rpn.anchors', 1)],
+    rpn._level_sizes: [('sync.rpn.level_sizes', 1)],
     losses.layer_losses: [('sync.losses.code_weights', 1)],
     losses.dn_layer_loss: [('sync.losses.code_weights', 1)],
     train_step._detector_losses: [('sync.train_step.anchors', 1)],
