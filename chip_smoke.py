@@ -22,7 +22,12 @@ Phases, in order; any failure exits non-zero without the final line:
      case also times block 0 and an identity block alone and gives the
      chain's share of its three-launch floor (each launch reads its input
      and writes its output once: 1.45 GB at [12,128,352,64]) beside its
-     share of the bound; K1 is also checked at R101's layer1 shape.  The
+     share of the bound; K1 is also checked at R101's layer1 shape.  K2
+     is also timed at R101's four DCN shapes at 640x1600 (stage 3 from
+     [12,80,200,256], 22 stride-1 layers at [12,40,100,256]; stage 4 from
+     [12,40,100,512], two at [12,20,50,512]), and K4 and `mask_bits` at
+     R101's cross attention over every p4 pixel (q900 k48000), each with
+     its launches per R101 forward.  The
      attention kernels read the mask as
      the decoder hands it to them, packed once a pass (`mask_tiles`); the
      packing kernel has cases of its own, equal bit for bit, timed beside
@@ -1130,14 +1135,15 @@ def kernel_cases():
             return t.reshape(t.shape[0], H, D).transpose(0, 1)[None]
         return heads(q), heads(k), heads(v), a[None, None]
 
-    def attn(inputs, train=False):
+    def attn(inputs, train=False, per_forward=0):
         def build(dev, dt):
             q, k, v, a = inputs(dev, dt)
             # the decoder packs each mask once a pass (mask_bits' own cases)
             # and every layer's K4 reads the packed form
             tl = attention.mask_tiles(a)
             nnz = float(a.sum())
-            note = f'  {int(tl.key_starts[-1])} active 64x64 tile pairs'
+            note = f'  {int(tl.key_starts[-1])} active 64x64 tile pairs' + (
+                f'  {per_forward} a forward' if per_forward else '')
             C = q.shape[1]
             work = (nbytes(q, k, v, *tl) + nbytes(q)
                     + q.shape[0] * 8 * 4, 4.0 * C * nnz)
@@ -1193,8 +1199,9 @@ def kernel_cases():
                                             retain_graph=True))
         return build
 
-    def eval_attn(self_attn):
-        return lambda dev, dt: attention_inputs(dev, dt, self_attn=self_attn)
+    def eval_attn(self_attn, K=16384):
+        return lambda dev, dt: attention_inputs(dev, dt, K=K,
+                                                self_attn=self_attn)
 
     def train_attn(self_attn):
         return lambda dev, dt: train_attention_inputs(dev, dt, self_attn)
@@ -1210,7 +1217,7 @@ def kernel_cases():
     def ragged_attn(dev, dt):           # ragged tiles, K < 64 in the last
         return attention_inputs(dev, dt, Q=101, K=1000, C=256)
 
-    def bits(inputs):
+    def bits(inputs, per_forward=0):
         def build(dev, dt):
             a = inputs(dev, dt)[3]
             Q, K = a.shape
@@ -1222,7 +1229,9 @@ def kernel_cases():
                         (nbytes(a) + Q * -(-K // 64) * 8.0, 0.0),
                         exact=True,
                         extra={'mask_tiles_ms':
-                               lambda: attention.mask_tiles(a)})
+                               lambda: attention.mask_tiles(a)},
+                        note=f'  {per_forward} a forward' if per_forward
+                        else '')
         return build
 
     def nms(shape, kind='random', thr=0.7, box_dtype=None):
@@ -1256,6 +1265,14 @@ def kernel_cases():
          dcn_conv(12, 32, 88, 512, 512, 2, per_forward=1)),
         ('dcn_conv', 'stage4 s1 [12,16,44,512]', True,
          dcn_conv(12, 16, 44, 512, 512, 1, per_forward=2)),
+        ('dcn_conv', 'R101 stage3 s2 [12,80,200,256]', True,
+         dcn_conv(12, 80, 200, 256, 256, 2, per_forward=1)),
+        ('dcn_conv', 'R101 stage3 s1 [12,40,100,256]', True,
+         dcn_conv(12, 40, 100, 256, 256, 1, per_forward=22)),
+        ('dcn_conv', 'R101 stage4 s2 [12,40,100,512]', True,
+         dcn_conv(12, 40, 100, 512, 512, 2, per_forward=1)),
+        ('dcn_conv', 'R101 stage4 s1 [12,20,50,512]', True,
+         dcn_conv(12, 20, 50, 512, 512, 1, per_forward=2)),
         ('dcn_conv', 'edge: 20% offsets far outside', False,
          dcn_conv(12, 16, 44, 512, 512, 1, far=0.2)),
         ('dcn_conv', 'edge: integer coordinates', False,
@@ -1274,6 +1291,8 @@ def kernel_cases():
          False, roi(False, P=200, sliver=True)),
         ('masked_attention', 'cross q900 k16384 (10% rows empty)', True,
          attn(eval_attn(False))),
+        ('masked_attention', 'R101 cross q900 k48000 (10% rows empty)',
+         True, attn(eval_attn(False, 48000), per_forward=6)),
         ('masked_attention', 'self q900 k900', False, attn(eval_attn(True))),
         ('masked_attention', 'train cross q2628 k16384 +lse', True,
          attn(train_attn(False), train=True)),
@@ -1397,6 +1416,8 @@ def kernel_cases():
          bits(train_attn(False))),
         ('mask_bits', 'eval cross [900,16384]', True,
          bits(eval_attn(False))),
+        ('mask_bits', 'R101 eval cross [900,48000]', True,
+         bits(eval_attn(False, 48000), per_forward=1)),
         ('mask_bits', 'train self [2628,2628]', True,
          bits(train_attn(True))),
         ('mask_bits', 'edge: ragged [101,1000]', False, bits(ragged_attn)),

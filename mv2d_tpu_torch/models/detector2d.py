@@ -148,7 +148,9 @@ class SingleStageDetector(tnn.Module):
 
     def extract_feat(self, imgs: torch.Tensor):
         """[V, H, W, 3] -> FPN levels p2..p6, channels-last."""
-        return self.neck(self.backbone(imgs))
+        stages = self.backbone(imgs)
+        with span('fpn'):
+            return self.neck(stages)
 
     def detect(self, feats: Sequence[torch.Tensor],
                image_shape: Tuple[int, int],
@@ -186,7 +188,9 @@ class TwoStageDetector(tnn.Module):
 
     def extract_feat(self, imgs: torch.Tensor):
         """[V, H, W, 3] -> FPN levels p2..p6, channels-last."""
-        return self.neck(self.backbone(imgs))
+        stages = self.backbone(imgs)
+        with span('fpn'):
+            return self.neck(stages)
 
     def rpn(self, feats, image_shape, cfg: DetectionProposalCfg):
         scores, deltas = self.rpn_head(feats)

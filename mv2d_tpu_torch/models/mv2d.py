@@ -45,7 +45,7 @@ from ..nn.query_generator import QueryGenerator
 from ..ops.grid_mask import GridMaskDraws, grid_mask
 from ..ops.roi_align import separable_roi_align_views
 from ..routes import Routes, from_env
-from ..utils.profiling import counters, span
+from ..utils.profiling import counters, span, tracer
 from .correlation import (adjacency_from_correlation, epipolar_in_box,
                           gather_active_keys, in_roi_pixel_masks)
 from .detector2d import Proposals, SingleStageDetector, TwoStageDetector
@@ -245,6 +245,9 @@ class MV2D(tnn.Module):
             union = torch.cat([union[:1] | empty_q.any(), union[1:]])
         n_active = union.sum()
         key_overflow = (n_active - c.k_max).clamp(min=0)
+        if tracer.on:                   # summed on the device, no sync
+            counters['keys.active'] += n_active
+            counters['keys.overflow'] += key_overflow
         key_idx, key_active = gather_active_keys(union, c.k_max)
         key_ok = key_active & ~pad_mask.reshape(-1)[key_idx]
         keys = p4.reshape(V * h * w, C)[key_idx]

@@ -18,7 +18,8 @@ without recording gradients, so they take the forward-only routes (K2
 for a DCN layer, B10 for a tail under 'all'), and their parameters stay
 out of the optimizer.  With remat, each trainable Bottleneck's
 activations are recomputed in the backward (`layers.rematerialized`).
-`out_indices` picks the stage outputs returned.
+`out_indices` picks the stage outputs returned.  Each stage runs in a
+span of the program's tracer (`utils.profiling`), the stem in layer1's.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from ..ops.dcn import ModulatedDeformConv
 from ..ops.stage import fused_identity_chain, fused_stage1, pack_block
 from ..routes import Routes
+from ..utils.profiling import span
 from .layers import (FrozenBatchNorm2d, conv2d_nhwc, max_pool_3x3_s2,
                      rematerialized)
 
@@ -39,6 +41,8 @@ STAGE_BLOCKS = {
     50: (3, 4, 6, 3),
     101: (3, 4, 23, 3),
 }
+# the tracer's span of each stage (the stem runs in layer1's)
+STAGE_SPANS = ('layer1', 'layer2', 'layer3', 'layer4')
 
 
 def fuses_tail(stage: int, n_blocks: int, h_in: int, w_in: int,
@@ -193,7 +197,7 @@ class ResNet(tnn.Module):
 
     def forward(self, x: torch.Tensor):
         outs = []
-        with torch.no_grad():                      # frozen stem + layer1
+        with span('layer1'), torch.no_grad():      # frozen stem + layer1
             x = self.stem(x)
             if not self.stage_with_dcn[0]:
                 x = fused_stage1(x, self.layer1_blocks(x.dtype))
@@ -202,11 +206,12 @@ class ResNet(tnn.Module):
         if 0 in self.out_indices:
             outs.append(x)
         for s in range(1, max(self.out_indices) + 1):
-            if s < self.frozen:
-                with torch.no_grad():
+            with span(STAGE_SPANS[s]):
+                if s < self.frozen:
+                    with torch.no_grad():
+                        x = self._stage(s, x)
+                else:
                     x = self._stage(s, x)
-            else:
-                x = self._stage(s, x)
             if s in self.out_indices:
                 outs.append(x)
         return tuple(outs)

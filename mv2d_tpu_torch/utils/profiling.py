@@ -9,7 +9,8 @@ spans and counters.
   tracer.on = True                   # the program's spans (off by default)
   model(*inputs)
   spans = tracer.drain()             # [Span(name, parent, call, start, end)]
-  counters.snapshot()                # {'nms_rounds': 40, 'sync.nms.round': 40}
+  counters.snapshot()                # {'nms_rounds': 40, 'sync.nms.round': 40,
+                                     #  'keys.active': 51234 (tracer on)}
 
 The program opens a span at each layer boundary (`with span('rpn'):`).
 With the tracer off, `span` is one attribute test and returns a shared
@@ -29,7 +30,10 @@ while the caller waits in `backward()`, and its spans nest under
 the work happens: `nms_rounds` (the NMS fixpoint's loop tests), and one
 `sync.<module>.<what>` a site that synchronises the host with a CUDA
 device, by the number of syncs the site makes (each a warning under
-`torch.cuda.set_sync_debug_mode('warn')`).
+`torch.cuda.set_sync_debug_mode('warn')`).  While the tracer is on the
+program also adds tensors on the device, with no sync, which
+`snapshot()` reads: `keys.active` and `keys.overflow` (the pixel key
+mode's active keys and those beyond k_max, summed over calls).
 """
 from __future__ import annotations
 
@@ -154,10 +158,12 @@ def span(name: str):
 
 
 class Counters(collections.Counter):
-    """Named integers, always counting (`counters[name] += n`)."""
+    """Named counts, always counting (`counters[name] += n`).  A count may
+    be an integer tensor, summed on its device with no sync; `snapshot`
+    reads it (a sync)."""
 
     def snapshot(self) -> Dict[str, int]:
-        return dict(self)
+        return {k: int(v) for k, v in self.items()}
 
 
 counters = Counters()

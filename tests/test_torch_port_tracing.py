@@ -11,9 +11,14 @@ the CPU, at the tiny preset (two frames, DN):
   * under torch.profiler each span's interval holds its own
     `record_function` range to within 50 us: the spans and the
     profiler's events share a clock;
+  * the backbone's stages (`layer1`-`layer4`, `fpn`) are `backbone`'s
+    children, once a call and in that order;
   * `nms_rounds` counts the NMS fixpoint's loop tests, and each `sync.*`
     counter moves by its site's syncs on every pass through the site;
-    the sync debug mode's notice that it is a prototype is no sync.
+    the sync debug mode's notice that it is a prototype is no sync;
+  * with the tracer on, `keys.active` and `keys.overflow` sum the
+    forward's diagnostics over calls; with it off they do not move, and
+    the tracer adds no sync either way.
 One card case (marked `cuda`, skipped without a GPU): on a CUDA device
 the `sync.*` counters of one forward and of one step equal the warnings
 of `torch.cuda.set_sync_debug_mode('warn')`.  Nothing here imports JAX:
@@ -42,11 +47,12 @@ from mv2d_tpu_torch.utils import profiling               # noqa: E402
 from mv2d_tpu_torch.utils.profiling import (Span, counters,  # noqa: E402
                                             sync_warning, tracer)
 
+BACKBONE = ('layer1', 'layer2', 'layer3', 'layer4', 'fpn')
 EVAL_TREE = {'forward', 'forward/backbone', 'forward/detect',
              'forward/detect/rpn', 'forward/detect/rpn/nms',
              'forward/detect/rcnn', 'forward/detect/rcnn/nms', 'forward/pe',
              'forward/head', 'forward/head/keys', 'forward/head/decoder',
-             'forward/decode'}
+             'forward/decode'} | {f'forward/backbone/{n}' for n in BACKBONE}
 STEP = 'train_step/objective/forward'
 TRAIN_TREE = {'train_step', 'train_step/draws', 'train_step/objective',
               'train_step/objective/head_loss',
@@ -189,6 +195,50 @@ def test_spans_form_the_stage_tree(cfg, model, scene, mode):
     assert roots[0].end <= roots[1].start
     for s in spans:     # every span of a call shares its root's call id
         assert s.call in {r.call for r in roots}
+
+
+def test_backbone_stages_are_its_children_once_a_call(model, scene):
+    tracer.on = True
+    model(*scene)
+    model(*scene)
+    tracer.on = False
+    spans = tracer.drain()
+    backbones = [i for i, s in enumerate(spans) if s.name == 'backbone']
+    assert len(backbones) == 2
+    for i in backbones:
+        kids = [s for s in spans if s.parent == i]
+        assert tuple(s.name for s in kids) == BACKBONE
+        assert all(a.end <= b.start for a, b in zip(kids, kids[1:]))
+        assert all(s.call == spans[i].call for s in kids)
+    assert sum(s.name in BACKBONE for s in spans) == 2 * len(BACKBONE)
+
+
+def _moved(c0):
+    return {k: v - c0.get(k, 0) for k, v in counters.snapshot().items()
+            if v != c0.get(k, 0)}
+
+
+@pytest.mark.parametrize('k_max', [64, 8])
+def test_key_counters_sum_the_forward_diagnostics(cfg, scene, k_max):
+    m = init_random_weights(MV2D(cfg._replace(k_max=k_max)), seed=0).eval()
+    m(*scene)                   # first-call work (the RPN's constants)
+    c0 = counters.snapshot()
+    off = m(*scene).diagnostics
+    moved_off = _moved(c0)
+    assert not {'keys.active', 'keys.overflow'} & set(moved_off)
+    c0 = counters.snapshot()
+    tracer.on = True
+    diags = [m(*scene).diagnostics for _ in range(2)]
+    tracer.on = False
+    moved_on = _moved(c0)
+    want = {'keys.active': sum(int(d['key_active']) for d in diags),
+            'keys.overflow': sum(int(d['key_overflow']) for d in diags)}
+    assert want['keys.active'] == 2 * int(off['key_active']) > 0
+    assert (want['keys.overflow'] > 0) == (k_max < want['keys.active'] // 2)
+    assert {k: moved_on.get(k, 0) for k in want} == want
+    # the tracer adds no sync: the same sites, each as often a call
+    assert {k: v for k, v in moved_on.items() if k not in want} == {
+        k: 2 * v for k, v in moved_off.items()}
 
 
 def test_self_time_is_the_span_less_its_children(model, scene):
